@@ -1,0 +1,130 @@
+"""Distributions used by the priors and the mutation kernel.
+
+Port of ``smcdet_tpu/distributions.py``. Samplers take either a
+``torch.Generator`` or explicit uniforms; the explicit form is what lets a
+test feed the JAX and PyTorch versions the same random numbers.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.special import ndtr, ndtri
+
+__all__ = [
+    "UNIFORM_EPS",
+    "DiscreteUniform",
+    "TruncatedPareto",
+    "truncated_normal_sample",
+    "truncated_normal_log_mass",
+    "truncated_normal_log_prob",
+]
+
+UNIFORM_EPS = 1e-6
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def truncated_normal_sample(mu, sigma, lb, ub, *, u=None, generator=None):
+    """Inverse-CDF sample from a normal truncated to ``[lb, ub]``.
+
+    ``u`` are base uniforms (drawn from ``generator`` when omitted),
+    clipped to ``[1e-6, 1 - 1e-6]``; the transformed CDF value is clipped
+    again and the result clamped into the box, as in the JAX version.
+    """
+    mu, sigma, lb, ub = (torch.as_tensor(v, dtype=torch.float32,
+                                         device=mu.device)
+                         for v in (mu, sigma, lb, ub))
+    if u is None:
+        shape = torch.broadcast_shapes(mu.shape, sigma.shape, lb.shape,
+                                       ub.shape)
+        u = torch.rand(shape, generator=generator, device=mu.device)
+    u = u.clamp(UNIFORM_EPS, 1.0 - UNIFORM_EPS)
+    cdf_lb = ndtr((lb - mu) / sigma)
+    cdf_ub = ndtr((ub - mu) / sigma)
+    p = (cdf_lb + u * (cdf_ub - cdf_lb)).clamp(UNIFORM_EPS, 1.0 - UNIFORM_EPS)
+    x = mu + sigma * ndtri(p)
+    return torch.minimum(torch.maximum(x, lb), ub)
+
+
+def _log_mass(prob_in_box):
+    return torch.nan_to_num(torch.log(prob_in_box), nan=0.0, posinf=0.0,
+                            neginf=0.0)
+
+
+def truncated_normal_log_mass(mu, sigma, lb, ub):
+    """``log(Phi((ub-mu)/sigma) - Phi((lb-mu)/sigma))``, nan-guarded.
+
+    For a truncated-normal random walk the Gaussian kernels cancel, so the
+    MH proposal correction is ``log mass(x) - log mass(x')``.
+    """
+    return _log_mass(ndtr((ub - mu) / sigma) - ndtr((lb - mu) / sigma))
+
+
+def truncated_normal_log_prob(value, mu, sigma, lb, ub):
+    """Log-density of a normal truncated to ``[lb, ub]``."""
+    z = (value - mu) / sigma
+    normal = -0.5 * z * z - torch.log(torch.as_tensor(sigma)) - _HALF_LOG_2PI
+    return normal - truncated_normal_log_mass(mu, sigma, lb, ub)
+
+
+class DiscreteUniform:
+    """Uniform distribution over the integers ``{low, ..., high}``."""
+
+    def __init__(self, low: int, high: int):
+        self.low = int(low)
+        self.high = int(high)
+
+    def sample(self, shape, generator=None, device="cpu"):
+        return torch.randint(self.low, self.high + 1, tuple(shape),
+                             generator=generator, device=device,
+                             dtype=torch.int32)
+
+    def log_prob(self, value):
+        value = torch.as_tensor(value)
+        in_support = (value >= self.low) & (value <= self.high)
+        logp = -math.log(float(self.high - self.low + 1))
+        return torch.where(in_support, logp, -math.inf).to(torch.float32)
+
+
+class TruncatedPareto:
+    """Pareto distribution truncated to ``[lower, upper]`` (closed-form
+    inverse-CDF sampling and log-pdf). ``alpha``, ``lower`` and ``upper``
+    are 0-d float32 tensors on the distribution's device."""
+
+    def __init__(self, alpha, lower, upper, device="cpu"):
+        def t(v):
+            return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+        self.alpha, self.lower, self.upper = t(alpha), t(lower), t(upper)
+
+    @property
+    def logpdf_norm_const(self):
+        a, lo, hi = self.alpha, self.lower, self.upper
+        return (torch.log(a) + a * torch.log(lo) + a * torch.log(hi)
+                - torch.log(hi**a - lo**a))
+
+    # reference-point / support hooks (smcdet_tpu/models/priors.py:172-180)
+    @property
+    def reference_point(self):
+        return self.lower
+
+    @property
+    def support_lower(self):
+        return self.lower
+
+    @property
+    def support_upper(self):
+        return self.upper
+
+    def sample(self, shape, generator=None, *, u=None):
+        if u is None:
+            u = torch.rand(tuple(shape), generator=generator,
+                           device=self.alpha.device)
+        ua = self.upper**self.alpha
+        la = self.lower**self.alpha
+        numerator = ua - u * ua + u * la
+        return (numerator / (la * ua)) ** (-1.0 / self.alpha)
+
+    def log_prob(self, value):
+        return self.logpdf_norm_const - (self.alpha + 1.0) * torch.log(value)

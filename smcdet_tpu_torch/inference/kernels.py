@@ -1,0 +1,203 @@
+"""Single-component MH mutation kernel, tile target (port of
+``smcdet_tpu/inference/kernels.py``).
+
+The sweep carries the rendered rate image of every particle and updates it
+incrementally: moving one star costs two single-star renders, not M. The
+pixel log-likelihood and the changed slot's prior term are recomputed
+exactly. Particles are ``[..., N, M(, 2)]`` padded catalogs (slot m active
+iff ``m < count``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from smcdet_tpu_torch.ops import mh_sweep
+from smcdet_tpu_torch.ops.mh_sweep import MHProposal
+
+__all__ = [
+    "TargetContext",
+    "KernelState",
+    "SingleComponentMH",
+    "init_kernel_state",
+]
+
+
+class TargetContext(NamedTuple):
+    """Tempered tile target ``logprior + temperature * loglik``.
+
+    ``image`` ``[..., H, W]`` and ``temperature`` broadcast against the
+    particle batch (``[T, 1, 1, H, W]`` and ``[T, 1, 1]`` in the SMC loop).
+    """
+
+    prior: Any
+    model: Any
+    image: torch.Tensor
+    temperature: torch.Tensor
+
+    @property
+    def image_flat(self):
+        return self.image.reshape(self.image.shape[:-2] + (-1,))
+
+    def init_rates(self, locs, fluxes):
+        """Full renders seeding the incremental caches, accumulated slot by
+        slot. ``background`` is a scalar or a per-tile map whose trailing
+        ``[H, W]`` dims are flattened to match the flat-pixel rates."""
+        model = self.model
+        eff = model.adu_per_nmgy * fluxes
+        bg = model.background
+        if bg.ndim >= 2:
+            bg = bg.reshape(bg.shape[:-2] + (-1,))
+        rate = torch.zeros(fluxes.shape[:-1] + (model.height * model.width,),
+                           dtype=torch.float32, device=fluxes.device)
+        for m in range(fluxes.shape[-1]):
+            rate = rate + eff[..., m, None] * model.star_image_flat(
+                locs[..., m, :])
+        return rate + bg
+
+    def loglik(self, rate):
+        return self.model.loglikelihood_from_rate_flat(self.image_flat, rate)
+
+
+class KernelState(NamedTuple):
+    """Cached quantities carried across sweeps."""
+
+    locs: torch.Tensor  # [..., N, M, 2]
+    fluxes: torch.Tensor  # [..., N, M]
+    rate: torch.Tensor  # [..., N, H*W]
+    parent_ll: torch.Tensor  # [..., N]
+    logprior: torch.Tensor  # [..., N]
+
+
+def init_kernel_state(ctx: TargetContext, counts, locs, fluxes) -> KernelState:
+    rate = ctx.init_rates(locs, fluxes)
+    return KernelState(
+        locs=locs,
+        fluxes=fluxes,
+        rate=rate,
+        parent_ll=ctx.loglik(rate),
+        logprior=ctx.prior.log_prob(counts, locs, fluxes),
+    )
+
+
+def _effective_flux_floor(kernel_fluxes_min, prior):
+    """Proposal truncation floor clamped into the flux prior's support, so
+    a proposal never lands where the prior log-density is infinite."""
+    lo = torch.as_tensor(kernel_fluxes_min, dtype=torch.float32,
+                         device=prior.device)
+    if prior.flux is not None:
+        lo = torch.maximum(lo, prior.flux.support_lower)
+    return lo
+
+
+class SingleComponentMH:
+    """Random-walk single-component Metropolis-Hastings.
+
+    ``backend="auto"`` sends CUDA tensors to kernel K1 (raising for a
+    target K1 does not cover) and CPU tensors to the plain version;
+    ``backend="torch"`` always runs the plain version, which is how the
+    kernel is compared with it on the card.
+    """
+
+    def __init__(self, num_iters, locs_stdev=0.1, fluxes_stdev=1.0,
+                 fluxes_min=0.0, fluxes_max=1e6, backend="auto",
+                 sqjumpdist_tol=None, device="cpu"):
+        if backend not in ("auto", "torch"):
+            raise ValueError(f"backend must be 'auto' or 'torch', got "
+                             f"{backend!r}")
+        if sqjumpdist_tol is not None:
+            raise NotImplementedError(
+                "sqjumpdist_tol early stopping is not ported yet"
+            )
+
+        def t(v):
+            return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+        self.num_iters = int(num_iters)
+        self.locs_stdev = t(locs_stdev)
+        self.fluxes_stdev = t(fluxes_stdev)
+        self.fluxes_min = t(fluxes_min)
+        self.fluxes_max = t(fluxes_max)
+        self.backend = backend
+
+    def proposal(self, prior) -> MHProposal:
+        return MHProposal(
+            locs_stdev=self.locs_stdev,
+            fluxes_stdev=self.fluxes_stdev,
+            flux_lo=_effective_flux_floor(self.fluxes_min, prior),
+            flux_hi=self.fluxes_max,
+        )
+
+    def sweep(self, generator, ctx: TargetContext, counts,
+              state: KernelState, uniforms=None):
+        """One sweep. ``uniforms = (u_j, u_loc, u_f, u_acc)`` replaces the
+        draws from ``generator`` (in that order)."""
+        if uniforms is None:
+            shape = counts.shape
+            dev = counts.device
+            uniforms = tuple(
+                torch.rand(s, generator=generator, device=dev)
+                for s in (shape, shape + (2,), shape, shape)
+            )
+        locs, fluxes, rate, pll, lp, applied = mh_sweep.sweep_with_uniforms(
+            *uniforms, prior=ctx.prior, model=ctx.model,
+            proposal=self.proposal(ctx.prior), image_flat=ctx.image_flat,
+            temperature=ctx.temperature, counts=counts, locs=state.locs,
+            fluxes=state.fluxes, rate=state.rate, pll=state.parent_ll,
+            lp=state.logprior,
+        )
+        return KernelState(locs, fluxes, rate, pll, lp), applied
+
+    def run(self, generator, ctx: TargetContext, counts, locs, fluxes):
+        state = init_kernel_state(ctx, counts, locs, fluxes)
+        return self.run_from_state(generator, ctx, counts, state)
+
+    def run_from_state(self, generator, ctx: TargetContext, counts,
+                       state: KernelState):
+        """``num_iters`` sweeps from caller-provided caches. Draws one
+        64-bit Philox key from ``generator`` and returns the final state and
+        the acceptance rate averaged over sweeps and particles
+        (``[...]`` = the batch shape without N)."""
+        batch = counts.shape
+        N = batch[-1]
+        G = counts.numel() // N
+        model = ctx.model
+        HW = model.height * model.width
+        M = state.fluxes.shape[-1]
+        dev = counts.device
+        key = torch.randint(0, 2**32, (2,), generator=generator, device=dev,
+                            dtype=torch.int64)
+        # one image and one temperature per group (the particle axis of
+        # both is broadcast)
+        image = torch.broadcast_to(ctx.image_flat, batch + (HW,))[..., 0, :]
+        temperature = torch.broadcast_to(
+            torch.as_tensor(ctx.temperature, dtype=torch.float32, device=dev),
+            batch,
+        )[..., 0]
+        args = (
+            key, self.proposal(ctx.prior), ctx.prior, model,
+            image.reshape(G, HW).contiguous(),
+            temperature.reshape(G).contiguous(),
+            counts.reshape(G, N).to(torch.int32).contiguous(),
+            state.locs.reshape(G, N, M, 2).contiguous(),
+            state.fluxes.reshape(G, N, M).contiguous(),
+            state.rate.reshape(G, N, HW).contiguous(),
+            state.parent_ll.reshape(G, N).contiguous(),
+            state.logprior.reshape(G, N).contiguous(),
+            self.num_iters,
+        )
+        if self.backend == "torch":
+            out = mh_sweep.mh_sweeps_reference(*args)
+        else:
+            out = mh_sweep.mh_sweeps(*args)
+        locs, fluxes, rate, pll, lp, acc = out
+        new_state = KernelState(
+            locs=locs.reshape(state.locs.shape),
+            fluxes=fluxes.reshape(state.fluxes.shape),
+            rate=rate.reshape(state.rate.shape),
+            parent_ll=pll.reshape(batch),
+            logprior=lp.reshape(batch),
+        )
+        return new_state, acc.reshape(batch).mean(-1)

@@ -1,0 +1,336 @@
+"""Kernel K1: the fused single-component MH sweep loop, and its plain version.
+
+``mh_sweeps`` runs ``num_iters`` MH sweeps over a batch of particles. On a
+CUDA tensor it launches the hand-written kernel in ``csrc/mh_sweep.cu``
+(which replaces ``smcdet_tpu/ops/pallas_sweep.py:_make_kernel`` in its
+main-path specialization) or raises; on a CPU tensor it runs the plain
+PyTorch version, ``mh_sweeps_reference``. There is no fallback from one to
+the other.
+
+Both versions draw the same random stream: Philox4x32-10 with a 64-bit key
+drawn once per call and the counter ``(particle, sweep, draw,
+particle >> 32)``, where ``particle = g * N + n`` indexes the flattened
+batch. Draw 0 gives the slot, y, x and flux uniforms, draw 1 the accept
+uniform; bits map to ``((bits >> 8) + 0.5) * 2**-24``. So on the card the
+kernel and the plain version can be compared particle by particle.
+
+Layouts (flattened groups ``G`` = tiles x strata): ``image [G, H*W]``,
+``temperature [G]``, ``counts [G, N]`` int32, ``locs [G, N, M, 2]``,
+``fluxes [G, N, M]``, ``rate [G, N, H*W]``, ``pll``/``lp`` ``[G, N]``,
+``key`` int64 ``[2]`` holding two 32-bit words.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from smcdet_tpu_torch.distributions import (
+    TruncatedPareto,
+    truncated_normal_log_mass,
+    truncated_normal_sample,
+)
+
+__all__ = [
+    "MHProposal",
+    "k1_unsupported_reason",
+    "mh_sweeps",
+    "mh_sweeps_reference",
+    "philox4x32",
+    "philox_uniforms",
+    "sweep_with_uniforms",
+]
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+@dataclass
+class MHProposal:
+    """Truncated-normal random-walk scales and flux bounds (0-d tensors)."""
+
+    locs_stdev: torch.Tensor
+    fluxes_stdev: torch.Tensor
+    flux_lo: torch.Tensor
+    flux_hi: torch.Tensor
+
+
+# ----------------------------------------------------------------------
+# Philox4x32-10 on int64 tensors holding unsigned 32-bit words
+# ----------------------------------------------------------------------
+def _mulhilo(a: int, b):
+    """``(hi, lo)`` 32-bit words of ``a * b`` for a 32-bit constant ``a``.
+
+    The 64-bit product can overflow signed int64, so ``a`` is split into
+    16-bit limbs: ``b * a0`` and ``b * a1`` stay below 2**48, and
+    ``floor(a * b / 2**32) = (b * a1 + (b * a0 >> 16)) >> 16``.
+    """
+    p0 = b * (a & 0xFFFF)
+    p1 = b * (a >> 16)
+    hi = (p1 + (p0 >> 16)) >> 16
+    lo = (p0 + ((p1 & 0xFFFF) << 16)) & _MASK32
+    return hi, lo
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 of the four counter words under the two key words
+    (int64 tensors or ints in ``[0, 2**32)``); returns four int64 words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def _unit(bits):
+    return ((bits >> 8).to(torch.float32) + 0.5) * 2.0**-24
+
+
+def philox_uniforms(key, particle, sweep: int):
+    """The kernel's uniforms for one sweep: ``(u_j, u_y, u_x, u_f, u_acc)``,
+    each shaped like ``particle`` (int64 global particle indices).
+    ``key`` is an int64 tensor or a pair of ints holding two 32-bit words."""
+    k0, k1 = (int(k) for k in key)
+    # draws 0 and 1 of every particle in one pass: leading axis = draw
+    p = particle.expand((2,) + particle.shape)
+    draw = torch.arange(2, device=particle.device).reshape(
+        (2,) + (1,) * particle.ndim).expand_as(p)
+    r = philox4x32((p & _MASK32, torch.full_like(p, sweep), draw, p >> 32),
+                   (k0, k1))
+    return (_unit(r[0][0]), _unit(r[1][0]), _unit(r[2][0]), _unit(r[3][0]),
+            _unit(r[0][1]))
+
+
+# ----------------------------------------------------------------------
+# The plain version
+# ----------------------------------------------------------------------
+def _flux_prior_delta(prior, active, f_old, f_new):
+    if prior.flux is None:
+        return torch.zeros_like(f_old)
+    ref = prior.flux.reference_point
+    safe_old = torch.where(active, f_old, ref)
+    safe_new = torch.where(active, f_new, ref)
+    delta = prior.flux.log_prob(safe_new) - prior.flux.log_prob(safe_old)
+    return torch.where(active, delta, 0.0)
+
+
+def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
+                        image_flat, temperature, counts, locs, fluxes, rate,
+                        pll, lp):
+    """One single-component MH sweep given explicit uniforms.
+
+    Port of ``smcdet_tpu/inference/kernels.py:SingleComponentMH.sweep``:
+    one slot per particle, chosen uniformly over the occupied prefix, gets
+    a truncated-normal move of its location and flux, accepted with the
+    tempered MH ratio including the truncation-mass correction.
+    ``u_j``/``u_f``/``u_acc`` are ``[..., N]``, ``u_loc`` ``[..., N, 2]``;
+    ``image_flat`` and ``temperature`` broadcast against ``[..., N, H*W]``
+    and ``[..., N]``. Returns ``(locs, fluxes, rate, pll, lp, applied)``.
+    """
+    M = fluxes.shape[-1]
+    j = torch.minimum(torch.floor(u_j * counts).to(torch.int64),
+                      counts.to(torch.int64) - 1)
+    active = counts > 0
+    onehot = torch.arange(M, device=counts.device) == j[..., None]
+    j_safe = j.clamp(min=0)[..., None]
+    loc_j = torch.gather(locs, -2, j_safe[..., None].expand(
+        j_safe.shape + (2,))).squeeze(-2)
+    f_j = torch.gather(fluxes, -1, j_safe).squeeze(-1)
+    loc_j = torch.where(active[..., None], loc_j, 0.0)
+    f_j = torch.where(active, f_j, 0.0)
+
+    lo, hi = prior.loc_low, prior.loc_high
+    p = proposal
+    loc_prop = truncated_normal_sample(loc_j, p.locs_stdev, lo, hi, u=u_loc)
+    f_prop = truncated_normal_sample(f_j, p.fluxes_stdev, p.flux_lo,
+                                     p.flux_hi, u=u_f)
+
+    old = model.star_image_flat(loc_j)
+    new = model.star_image_flat(loc_prop)
+    d = model.adu_per_nmgy * (f_prop[..., None] * new - f_j[..., None] * old)
+    rate_prop = rate + torch.where(active[..., None], d, 0.0)
+    pll_prop = model.loglikelihood_from_rate_flat(image_flat, rate_prop)
+    lp_prop = lp + _flux_prior_delta(prior, active, f_j, f_prop)
+
+    log_target_old = lp + temperature * pll
+    log_target_new = lp_prop + temperature * pll_prop
+    log_q = (
+        truncated_normal_log_mass(loc_j, p.locs_stdev, lo, hi).sum(-1)
+        - truncated_normal_log_mass(loc_prop, p.locs_stdev, lo, hi).sum(-1)
+        + truncated_normal_log_mass(f_j, p.fluxes_stdev, p.flux_lo, p.flux_hi)
+        - truncated_normal_log_mass(f_prop, p.fluxes_stdev, p.flux_lo,
+                                    p.flux_hi)
+    )
+    log_alpha = log_target_new - log_target_old + log_q
+    accept = u_acc <= torch.exp(torch.clamp(log_alpha, max=0.0))
+    applied = accept & active
+
+    sel = onehot & applied[..., None]
+    locs = torch.where(sel[..., None], loc_prop[..., None, :], locs)
+    fluxes = torch.where(sel, f_prop[..., None], fluxes)
+    rate = torch.where(applied[..., None], rate_prop, rate)
+    pll = torch.where(applied, pll_prop, pll)
+    lp = torch.where(applied, lp_prop, lp)
+    return locs, fluxes, rate, pll, lp, applied
+
+
+def mh_sweeps_reference(key, proposal, prior, model, image, temperature,
+                        counts, locs, fluxes, rate, pll, lp, num_iters: int):
+    """Plain PyTorch version of K1 for any target the eager model supports:
+    ``num_iters`` sweeps over the kernel's random stream. Returns
+    ``(locs, fluxes, rate, pll, lp, acc)`` with ``acc`` the applied fraction
+    per particle."""
+    G, N = counts.shape
+    key = [int(k) for k in key.tolist()]  # one host read, not one a sweep
+    particle = torch.arange(G * N, device=counts.device).reshape(G, N)
+    image_flat = image[:, None, :]
+    tau = temperature[:, None]
+    acc = torch.zeros((G, N), dtype=torch.float32, device=counts.device)
+    for it in range(num_iters):
+        u_j, u_y, u_x, u_f, u_acc = philox_uniforms(key, particle, it)
+        locs, fluxes, rate, pll, lp, applied = sweep_with_uniforms(
+            u_j, torch.stack([u_y, u_x], -1), u_f, u_acc, prior=prior,
+            model=model, proposal=proposal, image_flat=image_flat,
+            temperature=tau, counts=counts, locs=locs, fluxes=fluxes,
+            rate=rate, pll=pll, lp=lp,
+        )
+        acc = acc + applied.to(torch.float32)
+    return locs, fluxes, rate, pll, lp, acc / num_iters
+
+
+# ----------------------------------------------------------------------
+# The CUDA kernel
+# ----------------------------------------------------------------------
+_PARAM_NAMES = (
+    "locs_stdev", "fluxes_stdev", "flux_lo", "flux_hi",
+    "loc_low_y", "loc_low_x", "loc_high_y", "loc_high_x",
+    "adu", "noise_add", "noise_mult", "psf_radius",
+    "s1", "s2", "sp", "beta", "b", "p0", "norm",
+    "pareto_alpha", "pareto_lognorm",
+)
+
+
+class _MHParams(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_float) for name in _PARAM_NAMES]
+
+
+def k1_unsupported_reason(prior, model, M: int):
+    """``None`` if K1 covers this target, else why not, naming the kernel
+    that would (K2: the other tile-target specializations)."""
+    from smcdet_tpu_torch.models.priors import ParetoFlux
+    from smcdet_tpu_torch.models.psf import SDSSPSF
+
+    if model.noise != "gaussian":
+        return f"noise={model.noise!r} needs kernel K2 (not yet ported)"
+    if not isinstance(model.psf, SDSSPSF) or not model.psf.wing_beta3:
+        return ("only the SDSS PSF with the beta = 3 wing is in K1; this PSF "
+                "needs kernel K2 (not yet ported)")
+    if not isinstance(prior.flux, (TruncatedPareto, ParetoFlux)):
+        return ("only Pareto flux priors are in K1; this flux prior needs "
+                "kernel K2 (not yet ported)")
+    if (model.height, model.width) != (8, 8) or not 1 <= M <= 8:
+        return (f"K1 is built for 8x8 tiles and 1..8 slots, got "
+                f"{model.height}x{model.width} with M={M}; other sizes need "
+                "kernel K2 (not yet ported)")
+    return None
+
+
+def _k1_params(proposal, prior, model) -> _MHParams:
+    from smcdet_tpu_torch.models.priors import ParetoFlux
+
+    psf, flux = model.psf, prior.flux
+    if isinstance(flux, ParetoFlux):
+        lognorm = torch.log(flux.alpha) + flux.alpha * torch.log(flux.scale)
+    else:
+        lognorm = flux.logpdf_norm_const
+    values = [
+        proposal.locs_stdev, proposal.fluxes_stdev, proposal.flux_lo,
+        proposal.flux_hi, prior.loc_low[0], prior.loc_low[1],
+        prior.loc_high[0], prior.loc_high[1], model.adu_per_nmgy,
+        model.noise_additive, model.noise_multiplicative,
+        torch.tensor(float(model.psf_radius)), *psf.params,
+        psf.normalizing_constant, flux.alpha, lognorm,
+    ]
+    host = torch.stack([torch.as_tensor(v, dtype=torch.float32).cpu()
+                        for v in values]).tolist()
+    return _MHParams(*host)
+
+
+def _entry():
+    from smcdet_tpu_torch import _build
+
+    lib = _build.load_library()
+    fn = lib.smcdet_mh_sweeps_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                       + [_MHParams, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
+              fluxes, rate, pll, lp, num_iters: int):
+    """Run ``num_iters`` fused MH sweeps; returns ``(locs, fluxes, rate,
+    pll, lp, acc)`` (the outputs of ``pallas_mh_sweeps`` for the tile
+    target). CPU tensors take the plain version; CUDA tensors launch K1 on
+    the current stream, without synchronising, or raise
+    ``NotImplementedError`` for a target K1 does not cover.
+    ``mh_sweeps.launches`` counts kernel launches."""
+    if not locs.is_cuda:
+        return mh_sweeps_reference(key, proposal, prior, model, image,
+                                   temperature, counts, locs, fluxes, rate,
+                                   pll, lp, num_iters)
+    G, N, M = fluxes.shape
+    reason = k1_unsupported_reason(prior, model, M)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    if num_iters < 1:
+        raise ValueError("num_iters must be positive")
+    HW = model.height * model.width
+    dev = locs.device
+    f32 = torch.float32
+    _check("key", key, (2,), torch.int64, dev)
+    _check("image", image, (G, HW), f32, dev)
+    _check("temperature", temperature, (G,), f32, dev)
+    _check("counts", counts, (G, N), torch.int32, dev)
+    _check("locs", locs, (G, N, M, 2), f32, dev)
+    _check("fluxes", fluxes, (G, N, M), f32, dev)
+    _check("rate", rate, (G, N, HW), f32, dev)
+    _check("pll", pll, (G, N), f32, dev)
+    _check("lp", lp, (G, N), f32, dev)
+    params = _k1_params(proposal, prior, model)
+    fn = _entry()
+    outs = [torch.empty_like(t) for t in (locs, fluxes, rate, pll, lp, pll)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in (key, image, temperature, counts,
+                                           locs, fluxes, rate, pll, lp)),
+                 *(t.data_ptr() for t in outs), G, N, M, model.height,
+                 model.width, num_iters, params, stream)
+    if err != 0:
+        raise RuntimeError(f"mh_sweep kernel launch failed with CUDA error "
+                           f"{err}")
+    mh_sweeps.launches += 1
+    return tuple(outs)
+
+
+mh_sweeps.launches = 0

@@ -1,0 +1,134 @@
+"""Kernel K1 on the card (CUDA only; every test skips without a card).
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch with CUDA:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+(``--noconftest`` because ``tests/conftest.py`` configures JAX.)
+"""
+
+import pytest
+import torch
+
+from smcdet_tpu_torch.inference.kernels import (
+    SingleComponentMH,
+    TargetContext,
+    init_kernel_state,
+)
+from smcdet_tpu_torch.models.imaging import ImageModel, M71ImageModel
+from smcdet_tpu_torch.models.priors import (
+    M71Prior,
+    NormalFlux,
+    PointProcessPrior,
+    UniformCounts,
+)
+from smcdet_tpu_torch.models.psf import GaussianPSF
+from smcdet_tpu_torch.ops import mh_sweep
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _target(dev, k2=False, T=2, N=1000, max_objects=6):
+    if k2:
+        prior = PointProcessPrior(
+            0, 4, 8, 8, pad=1.0, counts=UniformCounts(0, 4),
+            flux=NormalFlux(2000.0, 300.0, device=dev), device=dev)
+        model = ImageModel(8, 8, 4, GaussianPSF(1.0, device=dev),
+                           noise="poisson", background=100.0, device=dev)
+        kernel = SingleComponentMH(20, 0.25, 60.0, 500.0, 5000.0,
+                                   device=dev)
+    else:
+        prior = M71Prior(0, max_objects, 0.03, 8, 8, 0.214, 0.252,
+                         1804.679, pad=1.0, device=dev)
+        model = M71ImageModel(8, 8, 179.0, 155.0,
+                              (1.33, 4.82, 3.15, 3.0, 0.06, 0.002), 8,
+                              0.0, 1.94, device=dev)
+        kernel = SingleComponentMH(20, 0.25, 5.0, 0.252, 1804.679,
+                                   device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    strata, locs, fluxes = prior.sample_stratified(g, N, (T,))
+    C = prior.num_counts
+    counts = strata[None, :, None].expand(T, C, N).contiguous()
+    images = model.sample(g, locs[:, -1, 0], fluxes[:, -1, 0]).abs()
+    ctx = TargetContext(prior, model, images[:, None, None],
+                        torch.full((T, 1, 1), 0.8, device=dev))
+    return kernel, ctx, counts, locs, fluxes
+
+
+def test_cuda_tensor_never_reaches_plain_version(dev, monkeypatch):
+    kernel, ctx, counts, locs, fluxes = _target(dev)
+
+    def forbidden(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(mh_sweep, "mh_sweeps_reference", forbidden)
+    monkeypatch.setattr(mh_sweep, "sweep_with_uniforms", forbidden)
+    before = mh_sweep.mh_sweeps.launches
+    st, acc = kernel.run(torch.Generator(device=dev).manual_seed(0), ctx,
+                         counts, locs, fluxes)
+    torch.cuda.synchronize()
+    assert mh_sweep.mh_sweeps.launches == before + 1
+    assert torch.isfinite(st.parent_ll).all() and float(acc.mean()) > 0.0
+
+    # a K2 target on a CUDA tensor raises instead of running the plain path
+    kernel, ctx, counts, locs, fluxes = _target(dev, k2=True)
+    with pytest.raises(NotImplementedError, match="K2"):
+        kernel.run(torch.Generator(device=dev).manual_seed(0), ctx, counts,
+                   locs, fluxes)
+    assert mh_sweep.mh_sweeps.launches == before + 1
+
+
+@pytest.mark.parametrize("max_objects", [1, 6, 8])
+def test_cuda_kernel_matches_plain_version(dev, max_objects):
+    """Same key, 20 sweeps: the kernel and the plain version draw the same
+    Philox stream, so they agree particle by particle (rtol 1e-4: expf /
+    logf / normcdff rounding and the pixel-sum order) except accept flips
+    where u sits on the acceptance boundary."""
+    kernel, ctx, counts, locs, fluxes = _target(dev, max_objects=max_objects)
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    outs = {}
+    for backend in ("auto", "torch"):
+        kernel.backend = backend
+        outs[backend], _ = kernel.run_from_state(
+            torch.Generator(device=dev).manual_seed(3), ctx, counts, state)
+    torch.cuda.synchronize()
+    close = torch.ones(counts.shape, dtype=torch.bool, device=dev)
+    for a, b in zip(outs["auto"], outs["torch"]):
+        ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
+        close &= ok.reshape(counts.shape + (-1,)).all(-1)
+    assert float(close.float().mean()) >= 0.99
+
+
+def test_cuda_wrapper_checks_inputs(dev):
+    kernel, ctx, counts, locs, fluxes = _target(dev, N=64)
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    G, N = counts.shape[0] * counts.shape[1], counts.shape[2]
+    key = torch.zeros(2, dtype=torch.int64, device=dev)
+    args = [key, kernel.proposal(ctx.prior), ctx.prior, ctx.model,
+            ctx.image.expand(2, counts.shape[1], 1, 8, 8).reshape(G, 64)
+            .contiguous(), torch.full((G,), 0.8, device=dev),
+            counts.reshape(G, N).int(), state.locs.reshape(G, N, 6, 2),
+            state.fluxes.reshape(G, N, 6), state.rate.reshape(G, N, 64),
+            state.parent_ll.reshape(G, N), state.logprior.reshape(G, N), 3]
+    mh_sweep.mh_sweeps(*args)
+    bad = list(args)
+    bad[6] = bad[6].long()
+    with pytest.raises(TypeError, match="counts"):
+        mh_sweep.mh_sweeps(*bad)
+    bad = list(args)
+    bad[9] = state.rate.reshape(G, N, 64).transpose(0, 1)
+    with pytest.raises(ValueError, match="rate"):
+        mh_sweep.mh_sweeps(*bad)
+    bad = list(args)
+    bad[4] = bad[4].cpu()
+    with pytest.raises(ValueError, match="image"):
+        mh_sweep.mh_sweeps(*bad)
+    torch.cuda.synchronize()
