@@ -6,18 +6,31 @@ Phases (a failing phase raises; there is no CPU fallback):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
    versions; exits non-zero without a CUDA card;
-2. build: compiles the kernels from ``smcdet_tpu_torch/csrc`` into
-   ``build/``;
-3. kernel against plain: K1 (the fused MH sweep loop) against its plain
-   PyTorch version on the card at the main path's shapes (16 8x8 tiles,
+2. build: compiles the kernels from ``smcdet_tpu_torch/csrc`` (one nvcc
+   per source, in parallel) into ``build/``;
+3. K1 against plain: the fused MH sweep loop of the M71 main path against
+   its plain PyTorch version at the main path's shapes (16 8x8 tiles,
    M = 6, C = 7, N = 2048): zero-count passthrough, particle-by-particle
-   agreement over 20 sweeps on the shared Philox stream and the time of
-   100 sweeps of both; then equilibrium statistics over 800 sweeps on
-   two tiles;
-4. main path: the M71 quick cell (16 tiles from ``generate_images`` with
+   agreement over 20 sweeps on the shared Philox stream, every
+   disagreement of 20 single-sweep steps shown to be an accept flip on
+   the boundary or an accepted tail proposal within the f32 rounding of
+   the inverse CDF, the time of 100 sweeps of both, and equilibrium
+   statistics and rate-cache drift over 800 sweeps on two tiles;
+4. K2 against plain, the same checks at the shapes of the ``basic`` suite
+   (20 8x8 tiles, M = 8, C = 9, N = 512) and the ``cells`` suite (10
+   16x16 tiles, M = 12, C = 13, N = 4096), both built from the suites'
+   configs; then passthrough, agreement and flips on the K2 branches
+   neither suite runs (Normal flux, the general-beta SDSS wing, Gaussian
+   noise on 16x16);
+5. main path: the M71 quick cell (16 tiles from ``generate_images`` with
    seed 7, N = 2048, 100 sweeps per SMC iteration, systematic resampling,
    ESS 0.5) through ``run_csmc_chunked(sort_tiles=True)``, with every
-   mutate call counted against the kernel's launch counter.
+   mutate call counted against K1's launch counter;
+6. entry point: ``run_experiment`` on ``experiments/basic/config.yaml``
+   (one batch of 20 images) and ``experiments/cells/config.yaml`` (one
+   batch of 10 images) at the shipped configurations, into a temporary
+   directory, with every mutate call counted against K2's launch counter
+   and the basic batch's detection share held to the JAX reference's.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +41,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,9 +53,21 @@ import torch
 # tiles with the same configuration: 16/16 with seeds 0 and 1 (PERF.md).
 REFERENCE_COUNT_SHARE = 1.0
 
+# The basic suite's first batch (``run_experiment`` with num_images = 20:
+# the port's simulated tiles, seed 0): its true pruned counts, and the share
+# of its 20 tiles whose posterior mean pruned count lies within +-1 of them
+# for the JAX runner (``smcdet_tpu.runner.run_experiment``) on the CPU on
+# the same tiles at the shipped configuration: 20/20 with config seed 0,
+# 19/20 with seed 1 (PERF.md). The bar is the lower of the two, the JAX
+# sampler's own spread from seed to seed.
+BASIC_TRUE_COUNTS = [3, 0, 1, 1, 3, 3, 5, 1, 0, 0, 3, 2, 1, 0, 0, 0, 0, 0,
+                     4, 1]
+BASIC_REFERENCE_COUNT_SHARE = 0.95
+
 TILE = 8
-KERNEL_SOURCE = "smcdet_tpu_torch/csrc/mh_sweep.cu"
-KERNEL_REPLACES = "smcdet_tpu/ops/pallas_sweep.py:178"
+REPLACES = "smcdet_tpu/ops/pallas_sweep.py:178"
+SOURCES = {"K1": "smcdet_tpu_torch/csrc/mh_sweep.cu",
+           "K2": "smcdet_tpu_torch/csrc/mh_sweep_k2.cu"}
 
 
 def build_problem(device, num_tiles=16, num_catalogs=2048, mh_steps=100,
@@ -83,6 +109,55 @@ def build_problem(device, num_tiles=16, num_catalogs=2048, mh_steps=100,
     return sim, prior_on(device), model_on(device), kernel, cfg
 
 
+def suite_problem(device, suite):
+    """The prior, image model and MH kernel of ``experiments/<suite>``'s
+    shipped config, and the config itself."""
+    from smcdet_tpu_torch.config import (
+        build_image_model,
+        build_kernel,
+        build_prior,
+        load_config,
+    )
+
+    cfg = load_config(f"experiments/{suite}/config.yaml")
+    return (build_prior(cfg.prior, device),
+            build_image_model(cfg.image_model, device),
+            build_kernel(cfg.kernel, device), cfg)
+
+
+def branch_problems(device):
+    """K2 targets that neither suite runs: Normal flux (Poisson noise,
+    Gaussian PSF, 8x8), the general-beta SDSS wing (M71 with beta = 2.5)
+    and Gaussian noise on 16x16 tiles (SDSS beta = 3, Normal flux)."""
+    from smcdet_tpu_torch.inference.kernels import SingleComponentMH
+    from smcdet_tpu_torch.models.imaging import ImageModel, M71ImageModel
+    from smcdet_tpu_torch.models.priors import M71Prior, StarPrior
+    from smcdet_tpu_torch.models.psf import GaussianPSF
+
+    def m71_model(tile, beta):
+        return M71ImageModel(tile, tile, 179.0, 155.0,
+                             (1.33, 4.82, 3.15, beta, 0.06, 0.002), 8, 0.0,
+                             1.94, device=device)
+
+    def star(tile):
+        return StarPrior(0, 6, tile, tile, 2000.0, 300.0, pad=1.0,
+                         device=device)
+
+    normal_mh = SingleComponentMH(20, 0.25, 60.0, 500.0, 5000.0,
+                                  device=device)
+    return {
+        "normal_flux": (star(8), ImageModel(
+            8, 8, 4, GaussianPSF(1.0, device=device), noise="poisson",
+            background=100.0, device=device), normal_mh),
+        "general_wing": (M71Prior(0, 6, 0.03, 8, 8, 0.214, 0.252, 1804.679,
+                                  pad=1.0, device=device),
+                         m71_model(8, 2.5),
+                         SingleComponentMH(20, 0.25, 5.0, 0.252, 1804.679,
+                                           device=device)),
+        "gaussian_16x16": (star(16), m71_model(16, 3.0), normal_mh),
+    }
+
+
 def _run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True,
                           timeout=60).stdout.strip()
@@ -111,15 +186,17 @@ def phase_build():
     info = _build.build()
     print(f"[build] {info['path']} in {info['seconds']:.1f} s")
     for line in info["log"].splitlines():
+        if "Compiling entry" in line:
+            print(f"[build] {line.split(chr(39))[1][:60]}")
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
     _build.load_library()
 
 
 def _kernel_inputs(dev, prior, model, num_tiles, N, seed):
-    """Flattened K1 inputs for ``num_tiles`` tiles of the test_pallas
-    target: prior catalogs, an image rendered from the last stratum's
-    first catalog, temperature 0.8."""
+    """Kernel inputs for ``num_tiles`` tiles of a target: prior catalogs,
+    an image rendered from the last stratum's first catalog, temperature
+    0.8 (the test_pallas protocol)."""
     from smcdet_tpu_torch.inference.kernels import (
         TargetContext,
         init_kernel_state,
@@ -136,6 +213,28 @@ def _kernel_inputs(dev, prior, model, num_tiles, N, seed):
     return ctx, counts, state
 
 
+def _sweep_args(key, kernel, ctx, counts, state, num_iters):
+    """The flattened arguments of ``mh_sweep.mh_sweeps`` for a
+    ``[T, C, N]`` batch (what ``SingleComponentMH.run_from_state``
+    passes)."""
+    prior, model = ctx.prior, ctx.model
+    T, C, N = counts.shape
+    G, HW = T * C, model.height * model.width
+    return [
+        key, kernel.proposal(prior), prior, model,
+        ctx.image.expand(T, C, 1, model.height, model.width)
+        .reshape(G, HW).contiguous(),
+        ctx.temperature.expand(T, C, 1).reshape(G).contiguous(),
+        counts.reshape(G, N).to(torch.int32).contiguous(),
+        state.locs.reshape(G, N, -1, 2).contiguous(),
+        state.fluxes.reshape(G, N, -1).contiguous(),
+        state.rate.reshape(G, N, HW).contiguous(),
+        state.parent_ll.reshape(G, N).contiguous(),
+        state.logprior.reshape(G, N).contiguous(),
+        num_iters,
+    ]
+
+
 def _time_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -149,107 +248,250 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel(dev, prior, model, kernel):
-    from smcdet_tpu_torch.inference.kernels import (
-        SingleComponentMH,
-        init_kernel_state,
-    )
-    from smcdet_tpu_torch.ops import mh_sweep
+def _agreement(a_outs, b_outs, shape):
+    """Per particle: every output of the two runs equal to rtol 1e-4."""
+    agree = torch.ones(shape, dtype=torch.bool, device=a_outs[0].device)
+    for a, b in zip(a_outs, b_outs):
+        close = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
+        agree &= close.reshape(shape + (-1,)).all(-1)
+    return agree
 
-    N = 2048
 
-    def with_iters(n, backend):
-        return SingleComponentMH(num_iters=n, locs_stdev=kernel.locs_stdev,
-                                 fluxes_stdev=kernel.fluxes_stdev,
-                                 fluxes_min=kernel.fluxes_min,
-                                 fluxes_max=kernel.fluxes_max,
-                                 backend=backend, device=dev)
+def _passthrough(dev, kernel, ctx, counts, state):
+    from smcdet_tpu_torch.inference.kernels import init_kernel_state
 
-    # the main path's shapes: 16 tiles x 7 strata x 2048 particles
-    ctx, counts, state = _kernel_inputs(dev, prior, model, 16, N, 0)
-
-    # zero-count passthrough is bit-exact and accepts nothing
     zc = torch.zeros_like(counts)
     zstate = init_kernel_state(ctx, zc, state.locs, state.fluxes)
-    out, acc = with_iters(20, "auto").run_from_state(
+    kernel.backend = "auto"
+    out, acc = kernel.run_from_state(
         torch.Generator(device=dev).manual_seed(1), ctx, zc, zstate)
     torch.cuda.synchronize()
     for a, b in zip(out, zstate):
         assert torch.equal(a, b), "zero-count passthrough changed the state"
     assert float(acc.max()) == 0.0
-    print("[kernel] zero-count passthrough: bit-exact, acc 0")
 
-    # same key, 20 sweeps: particle-by-particle agreement
-    res = {}
+
+def _same_stream(dev, kernel, ctx, counts, state, sweeps=20):
+    """``sweeps`` fused sweeps of the kernel and of the plain version on
+    one key: the share of particles that agree to rtol 1e-4, and the
+    largest absolute and relative errors of pll/lp on those."""
+    saved, res = kernel.num_iters, {}
+    kernel.num_iters = sweeps
     for backend in ("auto", "torch"):
-        res[backend], _ = with_iters(20, backend).run_from_state(
+        kernel.backend = backend
+        res[backend], _ = kernel.run_from_state(
             torch.Generator(device=dev).manual_seed(2), ctx, counts, state)
+    kernel.num_iters, kernel.backend = saved, "auto"
     torch.cuda.synchronize()
-    agree = torch.ones(counts.shape, dtype=torch.bool, device=dev)
-    for a, b in zip(res["auto"], res["torch"]):
-        close = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
-        agree &= close.reshape(counts.shape + (-1,)).all(-1)
-    share = float(agree.float().mean())
-    # pll and lp of the agreeing particles (the per-particle scalars)
+    agree = _agreement(res["auto"], res["torch"], counts.shape)
     pairs = [(a[agree], b[agree]) for a, b in zip(res["auto"], res["torch"])
              if a.shape == counts.shape]
-    max_abs_err = max(float((a - b).abs().max()) for a, b in pairs)
-    max_rel_err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
-                      for a, b in pairs)
-    print(f"[kernel] 20 sweeps, same stream: {share:.6f} of particles agree "
-          f"to rtol 1e-4 (the rest are accept flips); on those, pll/lp max "
-          f"abs err {max_abs_err:.3e}, max rel err {max_rel_err:.3e}")
-    assert share >= 0.99, share
+    abs_err = max(float((a - b).abs().max()) for a, b in pairs)
+    rel_err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                  for a, b in pairs)
+    return float(agree.float().mean()), abs_err, rel_err
 
-    # time of 100 sweeps on the same inputs
-    G = counts.numel() // N
-    HW = model.height * model.width
-    key = torch.tensor([12345, 67890], dtype=torch.int64, device=dev)
-    args = (
-        key, kernel.proposal(prior), prior, model,
-        ctx.image.expand(16, prior.num_counts, 1, TILE, TILE)
-        .reshape(G, HW).contiguous(),
-        torch.full((G,), 0.8, device=dev),
-        counts.reshape(G, N).to(torch.int32).contiguous(),
-        state.locs.reshape(G, N, -1, 2).contiguous(),
-        state.fluxes.reshape(G, N, -1).contiguous(),
-        state.rate.reshape(G, N, HW).contiguous(),
-        state.parent_ll.reshape(G, N).contiguous(),
-        state.logprior.reshape(G, N).contiguous(),
-        100,
-    )
-    ms = _time_ms(lambda: mh_sweep.mh_sweeps(*args), reps=5)
-    plain_ms = _time_ms(lambda: mh_sweep.mh_sweeps_reference(*args), reps=1)
-    updates = G * N * 100
-    print(f"[kernel] 100 sweeps, {G} groups x {N} particles: kernel "
-          f"{ms:.3f} ms ({updates / (ms * 1e-3):.4e} updates/s), plain "
-          f"{plain_ms:.3f} ms ({updates / (plain_ms * 1e-3):.4e} updates/s)")
 
-    # 800 sweeps, different streams: equilibrium statistics, on two tiles
-    # (the size and bounds of tests/test_pallas.py:107-154)
-    ctx, counts, state = _kernel_inputs(dev, prior, model, 2, N, 0)
-    stk, acck = with_iters(800, "auto").run_from_state(
-        torch.Generator(device=dev).manual_seed(5), ctx, counts, state)
-    stp, accp = with_iters(800, "torch").run_from_state(
-        torch.Generator(device=dev).manual_seed(6), ctx, counts, state)
+def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
+    """Step the kernel and the plain version one sweep at a time on a
+    shared key, both from the plain version's state, and classify every
+    particle on which they disagree (to rtol 1e-4):
+
+    - an accept flip: one accepts and the other rejects, with ``u_acc``
+      within f32 rounding of the acceptance probability, ``|log u -
+      min(log alpha, 0)| <= 2e-5 (|log target| + |log target'|) + 1e-4``
+      (the targets are sums of H*W f32 terms);
+    - a tail proposal: both accept, every slot but the moved one is
+      bit-identical, and each coordinate ``v' = mu + sigma Phi^-1(p)`` of
+      the moved slot differs by at most ``sigma 8 2^-24 / phi(z) +
+      1e-5 |v'|``, ``z = (v' - mu) / sigma``: a few ulps of ``p`` (2^-24
+      near p = 1) through the inverse CDF, whose slope ``1 / phi(z)`` is
+      large in the tail; the cache, ``pll`` and ``lp`` then follow the
+      moved star.
+
+    Anything else fails. Returns ``(flips, tail proposals, worst flip
+    margin over its bound, worst proposal difference over its bound)``."""
+    from smcdet_tpu_torch.distributions import truncated_normal_log_mass
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    args = _sweep_args(None, kernel, ctx, counts, state, 1)
+    prop, prior, model = args[1], args[2], args[3]
+    G, N = args[6].shape
+    particle = torch.arange(G * N, device=dev).reshape(G, N)
+    lo, hi = prior.loc_low, prior.loc_high
+    tau = args[5][:, None]
+    n_flip = n_tail = 0
+    worst_flip = worst_tail = 0.0
+    for s in range(sweeps):
+        args[0] = torch.tensor([1000 + s, 4242], dtype=torch.int64,
+                               device=dev)
+        got = mh_sweep.mh_sweeps(*args)
+        want = mh_sweep.mh_sweeps_reference(*args)
+        dis = ~_agreement(got[:5], want[:5], (G, N))
+        if not bool(dis.any()):
+            args[7:12] = [t.contiguous() for t in want[:5]]
+            continue
+        flip = dis & (got[5] != want[5])  # accepted by one only
+        tail = dis & ~flip
+        u_j, u_y, u_x, u_f, u_acc = mh_sweep.philox_uniforms(
+            args[0].tolist(), particle, 0)
+        cnt = args[6].long()
+        j = torch.minimum(torch.floor(u_j * cnt).long(), cnt - 1)
+        jj = j.clamp(min=0)[..., None]
+
+        def slot(a):
+            return torch.gather(a, 2, jj).squeeze(-1)
+
+        y, x, f = slot(args[7][..., 0]), slot(args[7][..., 1]), slot(args[8])
+        if bool(tail.any()):
+            assert bool((got[5][tail] == 1.0).all()), "a rejected difference"
+            other = (torch.arange(args[8].shape[-1], device=dev)
+                     != j[..., None])[tail]
+            assert torch.equal(got[1][tail][other], want[1][tail][other])
+            assert torch.equal(got[0][tail][other], want[0][tail][other])
+            ratios = []
+            for v_got, v_want, mu, sigma in (
+                    (slot(got[0][..., 0]), slot(want[0][..., 0]), y,
+                     prop.locs_stdev),
+                    (slot(got[0][..., 1]), slot(want[0][..., 1]), x,
+                     prop.locs_stdev),
+                    (slot(got[1]), slot(want[1]), f, prop.fluxes_stdev)):
+                z = (v_want - mu) / sigma
+                phi = torch.exp(-0.5 * z * z) * 0.3989422804014327
+                bound = sigma * 8 * 2.0**-24 / phi + 1e-5 * v_want.abs()
+                ratios.append(((v_got - v_want).abs() / bound)[tail])
+            worst_tail = max(worst_tail, float(torch.stack(ratios).max()))
+            assert worst_tail <= 1.0, f"a proposal off rounding: {worst_tail}"
+            n_tail += int(tail.sum())
+        if bool(flip.any()):
+            # the proposal of every active particle, accepted (u_acc = 0)
+            p_locs, p_fluxes, _, p_pll, p_lp, _ = mh_sweep.sweep_with_uniforms(
+                u_j, torch.stack([u_y, u_x], -1), u_f, torch.zeros_like(u_acc),
+                prior=prior, model=model, proposal=prop,
+                image_flat=args[4][:, None], temperature=tau,
+                counts=args[6], locs=args[7], fluxes=args[8], rate=args[9],
+                pll=args[10], lp=args[11])
+            yp, xp, fp = slot(p_locs[..., 0]), slot(p_locs[..., 1]), slot(
+                p_fluxes)
+            lm = truncated_normal_log_mass
+            log_q = (lm(y, prop.locs_stdev, lo[0], hi[0])
+                     + lm(x, prop.locs_stdev, lo[1], hi[1])
+                     - lm(yp, prop.locs_stdev, lo[0], hi[0])
+                     - lm(xp, prop.locs_stdev, lo[1], hi[1])
+                     + lm(f, prop.fluxes_stdev, prop.flux_lo, prop.flux_hi)
+                     - lm(fp, prop.fluxes_stdev, prop.flux_lo, prop.flux_hi))
+            old = args[11] + tau * args[10]
+            new = p_lp + tau * p_pll
+            log_alpha = new - old + log_q
+            margin = (torch.log(u_acc) - log_alpha.clamp(max=0.0)).abs()
+            bound = 2e-5 * (old.abs() + new.abs()) + 1e-4
+            worst_flip = max(worst_flip, float((margin / bound)[flip].max()))
+            assert worst_flip <= 1.0, f"a flip off the boundary: {worst_flip}"
+            n_flip += int(flip.sum())
+        args[7:12] = [t.contiguous() for t in want[:5]]
     torch.cuda.synchronize()
+    return n_flip, n_tail, worst_flip, worst_tail
+
+
+def _equilibrium(dev, label, kernel, ctx, counts, state):
+    """800 sweeps of each on different streams: tempered-target q50/q75
+    within 5% + 5 nats, acceptance within 0.02 (the bounds of
+    tests/test_pallas.py:107-154), and the kernel's rate cache against a
+    fresh render."""
+    from smcdet_tpu_torch.inference.kernels import init_kernel_state
+
+    saved, res = kernel.num_iters, {}
+    kernel.num_iters = 800
+    for backend, seed in (("auto", 5), ("torch", 6)):
+        kernel.backend = backend
+        res[backend] = kernel.run_from_state(
+            torch.Generator(device=dev).manual_seed(seed), ctx, counts,
+            state)
+    kernel.num_iters, kernel.backend = saved, "auto"
+    torch.cuda.synchronize()
+    (stk, acck), (stp, accp) = res["auto"], res["torch"]
     ltk = (stk.logprior + 0.8 * stk.parent_ll).flatten().cpu().numpy()
     ltp = (stp.logprior + 0.8 * stp.parent_ll).flatten().cpu().numpy()
     for q in (50, 75):
         a, b = np.percentile(ltp, q), np.percentile(ltk, q)
-        print(f"[kernel] 800 sweeps q{q}: plain {a:.3f} kernel {b:.3f}")
+        print(f"[{label}] 800 sweeps q{q}: plain {a:.3f} kernel {b:.3f}")
         assert abs(a - b) <= 0.05 * abs(a) + 5.0, (q, a, b)
     ak, ap = float(acck.mean()), float(accp.mean())
-    print(f"[kernel] 800 sweeps acceptance: plain {ap:.5f} kernel {ak:.5f}")
+    print(f"[{label}] 800 sweeps acceptance: plain {ap:.5f} kernel {ak:.5f}")
     assert abs(ak - ap) < 0.02
     fresh = init_kernel_state(ctx, counts, stk.locs, stk.fluxes)
     drift = float(((stk.rate - fresh.rate).abs()
                    / fresh.rate.abs().clamp(min=1.0)).max())
+    pll_drift = float(((stk.parent_ll - fresh.parent_ll).abs()
+                       / fresh.parent_ll.abs().clamp(min=1.0)).max())
     lp_err = float((stk.logprior - fresh.logprior).abs().max())
-    print(f"[kernel] rate cache vs fresh render: max rel {drift:.3e}; "
-          f"logprior max abs {lp_err:.3e}")
-    assert drift < 2e-3 and lp_err < 0.01
-    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
+    print(f"[{label}] rate cache vs fresh render: max rel {drift:.3e}; "
+          f"pll max rel {pll_drift:.3e}; logprior max abs {lp_err:.3e}")
+    assert drift < 2e-3 and pll_drift < 2e-3 and lp_err < 0.01
+
+
+def _print_steps(label, counts, steps):
+    n_flip, n_tail, worst_flip, worst_tail = steps
+    print(f"[{label}] 20 single-sweep steps, {20 * counts.numel()} "
+          f"particle-sweeps: {n_flip} accept flips on the boundary "
+          f"(largest margin {worst_flip:.3f} of its bound), {n_tail} "
+          f"accepted tail proposals within the inverse-CDF rounding "
+          f"(largest {worst_tail:.3f} of its bound)")
+
+
+def kernel_vs_plain(dev, label, name, prior, model, kernel, num_tiles, N):
+    """Kernel ``name`` (K1 or K2) against its plain version on a target at
+    ``num_tiles`` tiles x C strata x N particles. Returns its record."""
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    M = prior.max_objects
+    assert mh_sweep.sweep_kernel(prior, model, M) == name
+    ctx, counts, state = _kernel_inputs(dev, prior, model, num_tiles, N, 0)
+    G = counts.numel() // N
+    shape = (f"{num_tiles} tiles x {prior.num_counts} x {N}, "
+             f"{model.height}x{model.width}, M={M}")
+    _passthrough(dev, kernel, ctx, counts, state)
+    print(f"[{label}] {name} at {shape}: zero-count passthrough bit-exact, "
+          f"acc 0")
+    share, abs_err, rel_err = _same_stream(dev, kernel, ctx, counts, state)
+    print(f"[{label}] 20 sweeps, same stream: {share:.6f} of particles "
+          f"agree to rtol 1e-4; on those, pll/lp max abs err "
+          f"{abs_err:.3e}, max rel err {rel_err:.3e}")
+    assert share >= 0.99, share
+    _print_steps(label, counts,
+                 _single_sweep_steps(dev, kernel, ctx, counts, state))
+
+    args = _sweep_args(torch.tensor([12345, 67890], dtype=torch.int64,
+                                    device=dev), kernel, ctx, counts, state,
+                       100)
+    ms = _time_ms(lambda: mh_sweep.mh_sweeps(*args), reps=5)
+    plain_ms = _time_ms(lambda: mh_sweep.mh_sweeps_reference(*args), reps=1)
+    updates = G * N * 100
+    print(f"[{label}] 100 sweeps, {G} groups x {N} particles: kernel "
+          f"{ms:.3f} ms ({updates / (ms * 1e-3):.4e} updates/s), plain "
+          f"{plain_ms:.3f} ms ({updates / (plain_ms * 1e-3):.4e} "
+          f"updates/s)")
+    del ctx, counts, state, args
+    # equilibrium on two tiles (the size of tests/test_pallas.py:107-154)
+    ctx, counts, state = _kernel_inputs(dev, prior, model, 2, N, 0)
+    _equilibrium(dev, label, kernel, ctx, counts, state)
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def branch_check(dev, label, prior, model, kernel, num_tiles=2, N=1000):
+    """Passthrough, same-stream agreement and flips of K2 on a branch."""
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    assert mh_sweep.sweep_kernel(prior, model, prior.max_objects) == "K2"
+    ctx, counts, state = _kernel_inputs(dev, prior, model, num_tiles, N, 0)
+    _passthrough(dev, kernel, ctx, counts, state)
+    share, abs_err, _ = _same_stream(dev, kernel, ctx, counts, state)
+    print(f"[{label}] K2 passthrough bit-exact; 20 sweeps: {share:.6f} "
+          f"agree (pll/lp max abs err {abs_err:.3e})")
+    _print_steps(label, counts,
+                 _single_sweep_steps(dev, kernel, ctx, counts, state))
+    assert share >= 0.99, share
+    return abs_err
 
 
 def phase_main_path(dev):
@@ -280,12 +522,14 @@ def phase_main_path(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
     mh_sweep.mh_sweeps.launches = 0
+    mh_sweep.mh_sweeps.k2_launches = 0
     start = time.perf_counter()
     res = run_csmc_chunked(gen, images, prior, model, kernel, cfg,
                            sort_tiles=True)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     launches = mh_sweep.mh_sweeps.launches
+    assert mh_sweep.mh_sweeps.k2_launches == 0
     peak = torch.cuda.max_memory_allocated(dev)
 
     iters = res.num_iters
@@ -319,6 +563,88 @@ def phase_main_path(dev):
     return launches
 
 
+def _entry_batch(dev, suite, num_images, out_root):
+    """One full batch of ``experiments/<suite>`` through ``run_experiment``;
+    returns (mutate calls, K1 launches, K2 launches, results, config)."""
+    from smcdet_tpu_torch.config import load_config
+    from smcdet_tpu_torch.inference.kernels import SingleComponentMH
+    from smcdet_tpu_torch.ops import mh_sweep
+    from smcdet_tpu_torch.runner import load_results, run_experiment
+
+    cfg = load_config(f"experiments/{suite}/config.yaml")
+    assert cfg.batch_size == num_images
+    cfg.num_images = num_images
+    cfg.output_dir = out_root
+    calls = 0
+    run_from_state = SingleComponentMH.run_from_state
+
+    def counted(self, *args, **kwargs):
+        nonlocal calls
+        calls += 1
+        return run_from_state(self, *args, **kwargs)
+
+    SingleComponentMH.run_from_state = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mh_sweep.mh_sweeps.launches = 0
+        mh_sweep.mh_sweeps.k2_launches = 0
+        start = time.perf_counter()
+        out = run_experiment(cfg, device=dev, verbose=False)
+        wall = time.perf_counter() - start
+        k1, k2 = mh_sweep.mh_sweeps.launches, mh_sweep.mh_sweeps.k2_launches
+    finally:
+        SingleComponentMH.run_from_state = run_from_state
+    res = load_results(out)
+    peak = torch.cuda.max_memory_allocated(dev)
+    T, C = num_images, cfg.prior.max_objects - cfg.prior.min_objects + 1
+    N, s = cfg.sampler.num_catalogs, cfg.sampler
+    iters = int(res["num_iters"][0])
+    runtime = float(res["runtime"][0])
+    sweeps = cfg.kernel.num_iters + s.relocate_sweeps
+    updates = T * C * N * sweeps * iters
+    print(f"[entry] {suite}: {T} tiles x {C} strata x N={N}, "
+          f"{cfg.kernel.num_iters} MH + {s.relocate_sweeps} relocation "
+          f"sweeps/iter: {iters} SMC iterations, batch {runtime:.3f} s "
+          f"({runtime / iters * 1e3:.1f} ms/iter; run_experiment "
+          f"{wall:.3f} s with the tile simulation)")
+    print(f"[entry] {suite}: {updates / runtime:.6e} updates/s "
+          f"(MH {T * C * N * cfg.kernel.num_iters * iters / runtime:.6e}), "
+          f"{T / runtime:.4f} tiles/s, peak memory {peak} B "
+          f"({peak / 2**30:.3f} GiB); mutate calls {calls}, K2 launches "
+          f"{k2}, K1 launches {k1}")
+    assert calls == iters and k2 == calls and k1 == 0, (calls, k2, k1, iters)
+    assert res["image_index"].tolist() == list(range(T))
+    assert np.all(res["temperature"] == 1.0), res["temperature"]
+    assert np.isfinite(res["log_normalizing_constant"]).all()
+    np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
+    return k2, res, cfg
+
+
+def phase_entry_point(dev):
+    from smcdet_tpu_torch.runner import simulate_tiles
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, res, cfg = _entry_batch(dev, "basic", 20, tmp)
+        truth = simulate_tiles(cfg)["true_counts"]
+        assert truth.tolist() == BASIC_TRUE_COUNTS, (
+            "the simulated basic tiles differ from the reference's",
+            truth.tolist())
+        mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+        within = np.abs(mean - truth) <= 1.0
+        print(f"[entry] basic: posterior mean pruned count within +-1 of "
+              f"truth on {int(within.sum())}/{len(within)} tiles (JAX "
+              f"reference share {BASIC_REFERENCE_COUNT_SHARE})")
+        print(f"[entry] basic: truth {truth.tolist()}")
+        print(f"[entry] basic: mean  {[round(float(x), 3) for x in mean]}")
+        assert within.mean() >= BASIC_REFERENCE_COUNT_SHARE - 1e-9
+        k2, res, _ = _entry_batch(dev, "cells", 10, tmp)
+        mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+        print(f"[entry] cells: posterior mean pruned count "
+              f"{[round(float(x), 3) for x in mean]}")
+    return launches + k2
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -327,20 +653,31 @@ def main():
     start = time.perf_counter()
     phase_build()
     _, prior, model, kernel, _ = build_problem(dev)
-    timing = phase_kernel(dev, prior, model, kernel)
-    launches = phase_main_path(dev)
-    print(f"[done] phases 2-4 in {time.perf_counter() - start:.1f} s on "
+    records = {"K1": kernel_vs_plain(dev, "K1", "K1", prior, model, kernel,
+                                     16, 2048)}
+    for suite, tiles, N in (("basic", 20, 512), ("cells", 10, 4096)):
+        prior, model, kernel, _ = suite_problem(dev, suite)
+        records[f"K2 {suite}"] = kernel_vs_plain(
+            dev, f"K2 {suite}", "K2", prior, model, kernel, tiles, N)
+    branch_err = max(branch_check(dev, f"K2 {name}", *problem)
+                     for name, problem in branch_problems(dev).items())
+    launches = {"K1": phase_main_path(dev), "K2": phase_entry_point(dev)}
+    print(f"[done] phases 2-6 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
-    print(json.dumps({"kernels": [{
-        "name": "mh_sweep",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-    }]}))
+    print(f"[done] K2 at the basic shapes: {records['K2 basic']['ms']:.3f} "
+          f"ms vs plain {records['K2 basic']['plain_ms']:.3f} ms per 100 "
+          f"sweeps; the K2 record below is at the cells shapes")
+    k2 = records["K2 cells"]
+    print(json.dumps({"kernels": [
+        {"name": "mh_sweep", "route": "cuda", "source": SOURCES["K1"],
+         "replaces": REPLACES, "launches": launches["K1"],
+         **records["K1"]},
+        {"name": "mh_sweep_k2", "route": "cuda", "source": SOURCES["K2"],
+         "replaces": REPLACES, "launches": launches["K2"],
+         "max_abs_err": max(k2["max_abs_err"],
+                            records["K2 basic"]["max_abs_err"], branch_err),
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Build the CUDA kernels in ``csrc/`` at first use and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface for Hopper (``sm_90a``); ``ctypes`` loads it. The library lands in
-``build/smcdet_tpu_torch/`` of the checkout, named by a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+``nvcc`` compiles every ``csrc/*.cu`` into an object for Hopper (``sm_90a``),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface; ``ctypes`` loads it. The
+library lands in ``build/smcdet_tpu_torch/`` of the checkout, named by a
+hash of the sources, headers and flags, so an edited source is rebuilt and
+an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "smcdet_tpu_torch
 # no --use_fast_math: it changes expf/logf against the plain versions
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -45,9 +47,9 @@ def _sources():
     return sorted(_SRC_DIR.glob("*.cu"))
 
 
-def _digest(sources) -> str:
+def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(_SRC_DIR.glob("*.cu*")):  # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -56,26 +58,43 @@ def _digest(sources) -> str:
 def build() -> dict:
     """Compile the kernels unless an up-to-date library exists.
 
-    Returns ``{"path", "seconds", "log"}``: the library, the compile time
-    (0.0 when reused) and ``nvcc``'s ``-Xptxas -v`` report (registers,
-    shared memory and spills per kernel).
+    Returns ``{"path", "seconds", "log"}``: the library, the wall time of
+    the parallel compile and the link (0.0 when reused) and ``nvcc``'s
+    ``-Xptxas -v`` report (registers, shared memory and spills per kernel).
     """
-    sources = _sources()
-    lib = BUILD_DIR / f"libsmcdet_kernels_{_digest(sources)}.so"
+    lib = BUILD_DIR / f"libsmcdet_kernels_{_digest()}.so"
     log_file = lib.with_suffix(".log")
     if lib.is_file():
         log = log_file.read_text() if log_file.is_file() else ""
         return {"path": lib, "seconds": 0.0, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = nvcc_path()
+    tag = f"{lib.stem}.{os.getpid()}"
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    tmp = lib.with_name(f"{tag}.so.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        failed = [link.returncode] if link.returncode != 0 else []
     seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     log_file.write_text(log)
     os.replace(tmp, lib)
     return {"path": lib, "seconds": seconds, "log": log}

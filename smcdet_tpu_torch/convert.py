@@ -9,7 +9,7 @@ Dict layouts::
 
     prior:  min_objects, max_objects, image_height, image_width, pad,
             counts = {"kind": "poisson", "rate"} | {"kind": "uniform",
-                     "low", "high"},
+                     "low", "high"} | {"kind": "geometric", "prob"},
             flux = None | {"kind": "truncated_pareto", "alpha", "lower",
                    "upper"} | {"kind": "pareto", "scale", "alpha"}
                    | {"kind": "normal", "mean", "stdev"}
@@ -26,6 +26,7 @@ from smcdet_tpu_torch.distributions import TruncatedPareto
 from smcdet_tpu_torch.inference.kernels import SingleComponentMH
 from smcdet_tpu_torch.models.imaging import ImageModel
 from smcdet_tpu_torch.models.priors import (
+    GeometricCounts,
     NormalFlux,
     ParetoFlux,
     PoissonCounts,
@@ -43,6 +44,8 @@ def _counts(d, device):
         return PoissonCounts(d["rate"], device=device)
     if d["kind"] == "uniform":
         return UniformCounts(d["low"], d["high"])
+    if d["kind"] == "geometric":
+        return GeometricCounts(d["prob"], device=device)
     raise ValueError(f"unknown count family {d['kind']!r}")
 
 

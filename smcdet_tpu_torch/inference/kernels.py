@@ -1,5 +1,5 @@
-"""Single-component MH mutation kernel, tile target (port of
-``smcdet_tpu/inference/kernels.py``).
+"""Single-component MH mutation kernel and prior-draw relocation moves,
+tile target (port of ``smcdet_tpu/inference/kernels.py``).
 
 The sweep carries the rendered rate image of every particle and updates it
 incrementally: moving one star costs two single-star renders, not M. The
@@ -22,6 +22,8 @@ __all__ = [
     "KernelState",
     "SingleComponentMH",
     "init_kernel_state",
+    "relocate_sweep",
+    "relocate_sweeps",
 ]
 
 
@@ -95,8 +97,9 @@ def _effective_flux_floor(kernel_fluxes_min, prior):
 class SingleComponentMH:
     """Random-walk single-component Metropolis-Hastings.
 
-    ``backend="auto"`` sends CUDA tensors to kernel K1 (raising for a
-    target K1 does not cover) and CPU tensors to the plain version;
+    ``backend="auto"`` sends CUDA tensors to kernel K1 or K2
+    (``mh_sweep.sweep_kernel``; raising for a target neither covers) and
+    CPU tensors to the plain version;
     ``backend="torch"`` always runs the plain version, which is how the
     kernel is compared with it on the card.
     """
@@ -201,3 +204,70 @@ class SingleComponentMH:
             logprior=lp.reshape(batch),
         )
         return new_state, acc.reshape(batch).mean(-1)
+
+
+def relocate_sweep(ctx: TargetContext, counts, state: KernelState, u_j,
+                   u_loc, f_prop, u_acc):
+    """One independence (prior-draw) relocation sweep given its draws.
+
+    Slot ``j`` (uniform over the occupied prefix, from ``u_j [..., N]``)
+    gets a location uniform over the padded box (``u_loc [..., N, 2]``) and
+    the flux ``f_prop [..., N]`` drawn from the prior's flux mark (ignored
+    when the prior has none). Proposal density and prior terms cancel, so
+    the acceptance ratio is the tempered likelihood ratio; counts never
+    change. Accepted where ``u_acc <= alpha``. Returns ``(state,
+    applied)``.
+    """
+    prior, model = ctx.prior, ctx.model
+    onehot, active, loc_j, f_j = mh_sweep.select_slot(u_j, counts,
+                                                      state.locs,
+                                                      state.fluxes)
+
+    loc_prop = prior.loc_low + (prior.loc_high - prior.loc_low) * u_loc
+    if prior.flux is None:
+        f_prop = f_j
+    d = model.adu_per_nmgy * (
+        f_prop[..., None] * model.star_image_flat(loc_prop)
+        - f_j[..., None] * model.star_image_flat(loc_j))
+    rate_prop = state.rate + torch.where(active[..., None], d, 0.0)
+    pll_prop = ctx.loglik(rate_prop)
+    delta = mh_sweep.flux_prior_delta(prior, active, f_j, f_prop)
+    lp_prop = state.logprior + delta
+
+    tau = ctx.temperature
+    log_alpha = ((lp_prop + tau * pll_prop)
+                 - (state.logprior + tau * state.parent_ll) - delta)
+    applied = active & (u_acc <= torch.exp(torch.clamp(log_alpha, max=0.0)))
+
+    sel = onehot & applied[..., None]
+    return KernelState(
+        locs=torch.where(sel[..., None], loc_prop[..., None, :], state.locs),
+        fluxes=torch.where(sel, f_prop[..., None], state.fluxes),
+        rate=torch.where(applied[..., None], rate_prop, state.rate),
+        parent_ll=torch.where(applied, pll_prop, state.parent_ll),
+        logprior=torch.where(applied, lp_prop, state.logprior),
+    ), applied
+
+
+def relocate_sweeps(generator, ctx: TargetContext, counts,
+                    state: KernelState, num_sweeps: int):
+    """``num_sweeps`` relocation sweeps (port of
+    ``smcdet_tpu/inference/kernels.py:relocate_sweeps``), plain PyTorch as
+    in the JAX package, which runs them outside its Pallas kernel. Each
+    sweep draws ``u_j``, ``u_loc``, the prior flux and ``u_acc`` from
+    ``generator`` in that order. Returns the state and the applied
+    fraction averaged over sweeps and particles (``[...]`` = ``counts``'
+    shape without N)."""
+    shape = counts.shape
+    dev = counts.device
+    flux = ctx.prior.flux
+    applied_sum = torch.zeros(shape, dtype=torch.float32, device=dev)
+    for _ in range(num_sweeps):
+        u_j = torch.rand(shape, generator=generator, device=dev)
+        u_loc = torch.rand(shape + (2,), generator=generator, device=dev)
+        f_prop = None if flux is None else flux.sample(shape, generator)
+        u_acc = torch.rand(shape, generator=generator, device=dev)
+        state, applied = relocate_sweep(ctx, counts, state, u_j, u_loc,
+                                        f_prop, u_acc)
+        applied_sum = applied_sum + applied.to(torch.float32)
+    return state, (applied_sum / num_sweeps).mean(-1)

@@ -29,6 +29,7 @@ from smcdet_tpu_torch.inference.kernels import (
     KernelState,
     TargetContext,
     init_kernel_state,
+    relocate_sweeps,
 )
 from smcdet_tpu_torch.ops.catalogs import prune_catalog, slot_mask
 from smcdet_tpu_torch.ops.resampling import gather_particles, resample_indices
@@ -58,14 +59,18 @@ class SMCConfig:
     resample_method: str = "multinomial"
     max_smc_iters: int = 100
     flux_detection_threshold: float = 0.0
-    # prior-draw relocation and pair-redistribute sweeps are not ported yet
+    # prior-draw relocation sweeps appended to each mutation
+    # (kernels.relocate_sweeps): a star jumps between source modes that the
+    # random walk cannot connect
     relocate_sweeps: int = 0
+    # pair-redistribute sweeps are not ported yet
     pair_sweeps: int = 0
 
     def __post_init__(self):
-        if self.relocate_sweeps or self.pair_sweeps:
+        if self.pair_sweeps:
             raise NotImplementedError(
-                "relocate_sweeps / pair_sweeps are not ported yet"
+                "pair_sweeps is not ported yet (ROADMAP item 7: "
+                "pair_redistribute_sweeps)"
             )
 
 
@@ -181,7 +186,8 @@ def csmc_init(generator, images, prior, model, cfg: SMCConfig) -> SMCState:
 
 def csmc_step(images, prior, model, kernel, cfg: SMCConfig,
               state: SMCState) -> SMCState:
-    """One resample -> re-render -> mutate -> temper/reweight iteration."""
+    """One resample -> re-render -> mutate (+ relocate) -> temper/reweight
+    iteration."""
     T, C, N = state.loglik.shape
     counts = _counts(prior, T, N)
     done = state.temperature >= 1.0
@@ -202,6 +208,14 @@ def csmc_step(images, prior, model, kernel, cfg: SMCConfig,
     with record_function("smc.mutate"):
         kstate, acc_rate = kernel.run_from_state(state.generator, ctx,
                                                  counts, kstate)
+    if cfg.relocate_sweeps:
+        with record_function("smc.relocate"):
+            kstate, acc_rel = relocate_sweeps(state.generator, ctx, counts,
+                                              kstate, cfg.relocate_sweeps)
+            # the acceptance rate over all sweeps of the mutation
+            n_mh = kernel.num_iters
+            acc_rate = (acc_rate * n_mh + acc_rel * cfg.relocate_sweeps) / (
+                n_mh + cfg.relocate_sweeps)
     state = state._replace(
         locs=torch.where(keep[..., None, None], state.locs, kstate.locs),
         fluxes=torch.where(keep[..., None], state.fluxes, kstate.fluxes),

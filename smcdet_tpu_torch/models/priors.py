@@ -19,10 +19,15 @@ from smcdet_tpu_torch.ops.catalogs import slot_mask
 __all__ = [
     "UniformCounts",
     "PoissonCounts",
+    "GeometricCounts",
     "NormalFlux",
     "ParetoFlux",
     "TruncatedPareto",
     "PointProcessPrior",
+    "PoissonProcessPrior",
+    "GeometricProcessPrior",
+    "StarPrior",
+    "ParetoStarPrior",
     "M71Prior",
 ]
 
@@ -52,6 +57,28 @@ class PoissonCounts:
         return value * torch.log(self.rate) - self.rate - torch.lgamma(
             value + 1.0
         )
+
+
+class GeometricCounts:
+    """Geometric count prior, ``pmf(k) = (1 - p)^k p`` for k = 0, 1, ...,
+    with ``p = 1 - exp(-1.5)`` by default (rounded in float32, as the
+    reference rounds it)."""
+
+    def __init__(self, prob=None, device="cpu"):
+        if prob is None:
+            prob = 1.0 - torch.exp(torch.tensor(-1.5))
+        self.prob = _t(prob, device)
+
+    def sample(self, shape, generator=None, device="cpu"):
+        u = torch.rand(tuple(shape), generator=generator, device=device)
+        p = self.prob.to(device)
+        return torch.floor(torch.log1p(-u) / torch.log1p(-p)).to(torch.int32)
+
+    def log_prob(self, value):
+        value = torch.as_tensor(value, device=self.prob.device).to(
+            torch.float32
+        )
+        return value * torch.log1p(-self.prob) + torch.log(self.prob)
 
 
 class NormalFlux:
@@ -204,12 +231,56 @@ class PointProcessPrior:
         return lp
 
 
+def _padded_rate(counts_rate, image_height, image_width, pad):
+    return counts_rate * (image_height + 2 * pad) * (image_width + 2 * pad)
+
+
+def PoissonProcessPrior(min_objects, max_objects, counts_rate, image_height,
+                        image_width, pad=0.0, device="cpu"):
+    """Poisson counts with rate ``counts_rate * padded area``, no flux
+    mark."""
+    rate = _padded_rate(counts_rate, image_height, image_width, pad)
+    return PointProcessPrior(min_objects, max_objects, image_height,
+                             image_width, pad=pad,
+                             counts=PoissonCounts(rate, device=device),
+                             device=device)
+
+
+def GeometricProcessPrior(min_objects, max_objects, image_height,
+                          image_width, pad=0.0, device="cpu"):
+    """Geometric counts, no flux mark."""
+    return PointProcessPrior(min_objects, max_objects, image_height,
+                             image_width, pad=pad,
+                             counts=GeometricCounts(device=device),
+                             device=device)
+
+
+def StarPrior(min_objects, max_objects, image_height, image_width,
+              flux_mean, flux_stdev, pad=0.0, device="cpu"):
+    """Uniform counts and Normal fluxes."""
+    return PointProcessPrior(
+        min_objects, max_objects, image_height, image_width, pad=pad,
+        counts=UniformCounts(min_objects, max_objects),
+        flux=NormalFlux(flux_mean, flux_stdev, device=device), device=device,
+    )
+
+
+def ParetoStarPrior(min_objects, max_objects, image_height, image_width,
+                    flux_scale, flux_alpha, pad=0.0, device="cpu"):
+    """Uniform counts and Pareto fluxes."""
+    return PointProcessPrior(
+        min_objects, max_objects, image_height, image_width, pad=pad,
+        counts=UniformCounts(min_objects, max_objects),
+        flux=ParetoFlux(flux_scale, flux_alpha, device=device), device=device,
+    )
+
+
 def M71Prior(min_objects, max_objects, counts_rate, image_height,
              image_width, flux_alpha, flux_lower, flux_upper, pad=0.0,
              device="cpu") -> PointProcessPrior:
     """Poisson counts with rate ``counts_rate * padded area`` and
     truncated-Pareto fluxes (the reference ``M71Prior``)."""
-    rate = counts_rate * (image_height + 2 * pad) * (image_width + 2 * pad)
+    rate = _padded_rate(counts_rate, image_height, image_width, pad)
     return PointProcessPrior(
         min_objects=min_objects,
         max_objects=max_objects,

@@ -1,11 +1,14 @@
-"""Kernel K1: the fused single-component MH sweep loop, and its plain version.
+"""Kernels K1 and K2: the fused single-component MH sweep loop, and its
+plain version.
 
 ``mh_sweeps`` runs ``num_iters`` MH sweeps over a batch of particles. On a
-CUDA tensor it launches the hand-written kernel in ``csrc/mh_sweep.cu``
-(which replaces ``smcdet_tpu/ops/pallas_sweep.py:_make_kernel`` in its
-main-path specialization) or raises; on a CPU tensor it runs the plain
-PyTorch version, ``mh_sweeps_reference``. There is no fallback from one to
-the other.
+CUDA tensor it launches one of two hand-written kernels, which together
+replace ``smcdet_tpu/ops/pallas_sweep.py:_make_kernel`` for the tile
+target: K1 (``csrc/mh_sweep.cu``, the M71 main path: Gaussian noise, SDSS
+beta = 3, Pareto flux, 8x8) or K2 (``csrc/mh_sweep_k2.cu``, every other
+noise, PSF and flux prior on 8x8 and 16x16 tiles); ``sweep_kernel`` picks
+one or raises. On a CPU tensor it runs the plain PyTorch version,
+``mh_sweeps_reference``. There is no fallback from one to the other.
 
 Both versions draw the same random stream: Philox4x32-10 with a 64-bit key
 drawn once per call and the counter ``(particle, sweep, draw,
@@ -23,6 +26,7 @@ Layouts (flattened groups ``G`` = tiles x strata): ``image [G, H*W]``,
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import torch
@@ -35,11 +39,13 @@ from smcdet_tpu_torch.distributions import (
 
 __all__ = [
     "MHProposal",
-    "k1_unsupported_reason",
+    "flux_prior_delta",
     "mh_sweeps",
     "mh_sweeps_reference",
     "philox4x32",
     "philox_uniforms",
+    "select_slot",
+    "sweep_kernel",
     "sweep_with_uniforms",
 ]
 
@@ -111,7 +117,26 @@ def philox_uniforms(key, particle, sweep: int):
 # ----------------------------------------------------------------------
 # The plain version
 # ----------------------------------------------------------------------
-def _flux_prior_delta(prior, active, f_old, f_new):
+def select_slot(u_j, counts, locs, fluxes):
+    """The slot each particle moves, uniform over its occupied prefix
+    ``0..count-1`` from ``u_j``: ``(onehot [..., N, M], active [..., N],
+    loc_j [..., N, 2], f_j [..., N])``, with location and flux 0 where the
+    particle has no occupied slot."""
+    M = fluxes.shape[-1]
+    j = torch.minimum(torch.floor(u_j * counts).to(torch.int64),
+                      counts.to(torch.int64) - 1)
+    active = counts > 0
+    onehot = torch.arange(M, device=counts.device) == j[..., None]
+    j_safe = j.clamp(min=0)[..., None]
+    loc_j = torch.gather(locs, -2, j_safe[..., None].expand(
+        j_safe.shape + (2,))).squeeze(-2)
+    f_j = torch.gather(fluxes, -1, j_safe).squeeze(-1)
+    return (onehot, active, torch.where(active[..., None], loc_j, 0.0),
+            torch.where(active, f_j, 0.0))
+
+
+def flux_prior_delta(prior, active, f_old, f_new):
+    """Flux-prior log-density change of the moved slot (0 where inactive)."""
     if prior.flux is None:
         return torch.zeros_like(f_old)
     ref = prior.flux.reference_point
@@ -134,17 +159,7 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
     ``image_flat`` and ``temperature`` broadcast against ``[..., N, H*W]``
     and ``[..., N]``. Returns ``(locs, fluxes, rate, pll, lp, applied)``.
     """
-    M = fluxes.shape[-1]
-    j = torch.minimum(torch.floor(u_j * counts).to(torch.int64),
-                      counts.to(torch.int64) - 1)
-    active = counts > 0
-    onehot = torch.arange(M, device=counts.device) == j[..., None]
-    j_safe = j.clamp(min=0)[..., None]
-    loc_j = torch.gather(locs, -2, j_safe[..., None].expand(
-        j_safe.shape + (2,))).squeeze(-2)
-    f_j = torch.gather(fluxes, -1, j_safe).squeeze(-1)
-    loc_j = torch.where(active[..., None], loc_j, 0.0)
-    f_j = torch.where(active, f_j, 0.0)
+    onehot, active, loc_j, f_j = select_slot(u_j, counts, locs, fluxes)
 
     lo, hi = prior.loc_low, prior.loc_high
     p = proposal
@@ -157,7 +172,7 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
     d = model.adu_per_nmgy * (f_prop[..., None] * new - f_j[..., None] * old)
     rate_prop = rate + torch.where(active[..., None], d, 0.0)
     pll_prop = model.loglikelihood_from_rate_flat(image_flat, rate_prop)
-    lp_prop = lp + _flux_prior_delta(prior, active, f_j, f_prop)
+    lp_prop = lp + flux_prior_delta(prior, active, f_j, f_prop)
 
     log_target_old = lp + temperature * pll
     log_target_new = lp_prop + temperature * pll_prop
@@ -206,71 +221,142 @@ def mh_sweeps_reference(key, proposal, prior, model, image, temperature,
 
 
 # ----------------------------------------------------------------------
-# The CUDA kernel
+# The CUDA kernels
 # ----------------------------------------------------------------------
-_PARAM_NAMES = (
+_K1_PARAMS = (
     "locs_stdev", "fluxes_stdev", "flux_lo", "flux_hi",
     "loc_low_y", "loc_low_x", "loc_high_y", "loc_high_x",
     "adu", "noise_add", "noise_mult", "psf_radius",
     "s1", "s2", "sp", "beta", "b", "p0", "norm",
     "pareto_alpha", "pareto_lognorm",
 )
+_K2_FLOATS = (
+    "locs_stdev", "fluxes_stdev", "flux_lo", "flux_hi",
+    "loc_low_y", "loc_low_x", "loc_high_y", "loc_high_x",
+    "adu", "noise_add", "noise_mult", "psf_radius", "normal_tail",
+    "s1", "s2", "sp", "beta", "b", "p0", "norm",
+    "gauss_stdev", "gauss_norm", "flux_a", "flux_b", "flux_c",
+)
+_K2_INTS = ("noise_kind", "psf_kind", "flux_kind")
+# K2's tile sizes and slot range (csrc/mh_sweep_k2.cu)
+K2_TILES = ((8, 8), (16, 16))
+K2_MAX_SLOTS = 16
 
 
 class _MHParams(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_float) for name in _PARAM_NAMES]
+    _fields_ = [(name, ctypes.c_float) for name in _K1_PARAMS]
 
 
-def k1_unsupported_reason(prior, model, M: int):
-    """``None`` if K1 covers this target, else why not, naming the kernel
-    that would (K2: the other tile-target specializations)."""
+class _K2Params(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_float) for name in _K2_FLOATS]
+                + [(name, ctypes.c_int) for name in _K2_INTS])
+
+
+def sweep_kernel(prior, model, M: int) -> str:
+    """The CUDA kernel that runs this tile target: ``"K1"`` (Gaussian
+    noise, SDSS beta = 3, Pareto flux, 8x8, 1..8 slots) or ``"K2"`` (every
+    other noise, PSF and flux prior on 8x8 or 16x16 tiles with 1..16
+    slots). Raises ``NotImplementedError`` naming what is missing for a
+    target neither covers. The aggregation bridge (a child term) is kernel
+    K3, which the port's tile target does not carry yet."""
+    from smcdet_tpu_torch.models.priors import NormalFlux, ParetoFlux
+    from smcdet_tpu_torch.models.psf import SDSSPSF, GaussianPSF
+
+    pareto = isinstance(prior.flux, (TruncatedPareto, ParetoFlux))
+    if (model.noise == "gaussian" and isinstance(model.psf, SDSSPSF)
+            and model.psf.wing_beta3 and pareto
+            and (model.height, model.width) == (8, 8) and 1 <= M <= 8):
+        return "K1"
+    if (model.height, model.width) not in K2_TILES or not (
+            1 <= M <= K2_MAX_SLOTS):
+        raise NotImplementedError(
+            f"no CUDA sweep kernel for {model.height}x{model.width} tiles "
+            f"with M={M}: K2 is built for "
+            f"{' and '.join(f'{h}x{w}' for h, w in K2_TILES)} tiles with "
+            f"1..{K2_MAX_SLOTS} slots")
+    if not isinstance(model.psf, (SDSSPSF, GaussianPSF)):
+        raise NotImplementedError(
+            f"no CUDA sweep kernel for the PSF {type(model.psf).__name__}")
+    if prior.flux is not None and not (
+            pareto or isinstance(prior.flux, NormalFlux)):
+        raise NotImplementedError(
+            f"no CUDA sweep kernel for the flux prior "
+            f"{type(prior.flux).__name__}")
+    return "K2"
+
+
+def _host_floats(values):
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32).cpu()
+                        for v in values]).tolist()
+
+
+def _pareto_lognorm(flux):
     from smcdet_tpu_torch.models.priors import ParetoFlux
-    from smcdet_tpu_torch.models.psf import SDSSPSF
 
-    if model.noise != "gaussian":
-        return f"noise={model.noise!r} needs kernel K2 (not yet ported)"
-    if not isinstance(model.psf, SDSSPSF) or not model.psf.wing_beta3:
-        return ("only the SDSS PSF with the beta = 3 wing is in K1; this PSF "
-                "needs kernel K2 (not yet ported)")
-    if not isinstance(prior.flux, (TruncatedPareto, ParetoFlux)):
-        return ("only Pareto flux priors are in K1; this flux prior needs "
-                "kernel K2 (not yet ported)")
-    if (model.height, model.width) != (8, 8) or not 1 <= M <= 8:
-        return (f"K1 is built for 8x8 tiles and 1..8 slots, got "
-                f"{model.height}x{model.width} with M={M}; other sizes need "
-                "kernel K2 (not yet ported)")
-    return None
+    if isinstance(flux, ParetoFlux):
+        return torch.log(flux.alpha) + flux.alpha * torch.log(flux.scale)
+    return flux.logpdf_norm_const
 
 
 def _k1_params(proposal, prior, model) -> _MHParams:
-    from smcdet_tpu_torch.models.priors import ParetoFlux
-
     psf, flux = model.psf, prior.flux
-    if isinstance(flux, ParetoFlux):
-        lognorm = torch.log(flux.alpha) + flux.alpha * torch.log(flux.scale)
-    else:
-        lognorm = flux.logpdf_norm_const
     values = [
         proposal.locs_stdev, proposal.fluxes_stdev, proposal.flux_lo,
         proposal.flux_hi, prior.loc_low[0], prior.loc_low[1],
         prior.loc_high[0], prior.loc_high[1], model.adu_per_nmgy,
         model.noise_additive, model.noise_multiplicative,
         torch.tensor(float(model.psf_radius)), *psf.params,
-        psf.normalizing_constant, flux.alpha, lognorm,
+        psf.normalizing_constant, flux.alpha, _pareto_lognorm(flux),
     ]
-    host = torch.stack([torch.as_tensor(v, dtype=torch.float32).cpu()
-                        for v in values]).tolist()
-    return _MHParams(*host)
+    return _MHParams(*_host_floats(values))
 
 
-def _entry():
+def _k2_params(proposal, prior, model) -> _K2Params:
+    from smcdet_tpu_torch.models.priors import NormalFlux
+    from smcdet_tpu_torch.models.psf import SDSSPSF
+
+    psf, flux = model.psf, prior.flux
+    zero = torch.tensor(0.0)
+    if isinstance(psf, SDSSPSF):
+        psf_kind = 1 if psf.wing_beta3 else 2
+        sdss = [*psf.params, psf.normalizing_constant]
+        gauss = [zero, zero]
+    else:
+        psf_kind = 0
+        sdss = [zero] * 7
+        # the plain version's normaliser, rounded as it rounds it
+        gauss = [psf.stdev, psf.stdev * math.sqrt(2.0 * math.pi)]
+    if flux is None:
+        flux_kind, marks = 0, [zero] * 3
+    elif isinstance(flux, NormalFlux):
+        flux_kind = 2
+        marks = [flux.mean, flux.stdev, torch.log(flux.stdev)]
+    else:
+        flux_kind, marks = 1, [flux.alpha, _pareto_lognorm(flux), zero]
+    values = [
+        proposal.locs_stdev, proposal.fluxes_stdev, proposal.flux_lo,
+        proposal.flux_hi, prior.loc_low[0], prior.loc_low[1],
+        prior.loc_high[0], prior.loc_high[1], model.adu_per_nmgy,
+        model.noise_additive, model.noise_multiplicative,
+        torch.tensor(float(model.psf_radius)),
+        torch.tensor(model.normal_tail_threshold), *sdss, *gauss, *marks,
+    ]
+    noise_kind = 1 if model.noise == "poisson" else 0
+    return _K2Params(*_host_floats(values), noise_kind, psf_kind, flux_kind)
+
+
+_ENTRY_POINTS = {"K1": "smcdet_mh_sweeps_launch",
+                 "K2": "smcdet_mh_sweeps_k2_launch"}
+_PARAM_TYPES = {"K1": _MHParams, "K2": _K2Params}
+
+
+def _entry(name: str):
     from smcdet_tpu_torch import _build
 
-    lib = _build.load_library()
-    fn = lib.smcdet_mh_sweeps_launch
+    fn = getattr(_build.load_library(), _ENTRY_POINTS[name])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
-                       + [_MHParams, ctypes.c_void_p])
+                       + [_PARAM_TYPES[name], ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -291,18 +377,17 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
               fluxes, rate, pll, lp, num_iters: int):
     """Run ``num_iters`` fused MH sweeps; returns ``(locs, fluxes, rate,
     pll, lp, acc)`` (the outputs of ``pallas_mh_sweeps`` for the tile
-    target). CPU tensors take the plain version; CUDA tensors launch K1 on
-    the current stream, without synchronising, or raise
-    ``NotImplementedError`` for a target K1 does not cover.
-    ``mh_sweeps.launches`` counts kernel launches."""
+    target). CPU tensors take the plain version; CUDA tensors launch the
+    kernel ``sweep_kernel`` names (K1 or K2) on the current stream, without
+    synchronising, or raise ``NotImplementedError`` for a target neither
+    covers. ``mh_sweeps.launches`` counts K1 launches and
+    ``mh_sweeps.k2_launches`` K2 launches."""
     if not locs.is_cuda:
         return mh_sweeps_reference(key, proposal, prior, model, image,
                                    temperature, counts, locs, fluxes, rate,
                                    pll, lp, num_iters)
     G, N, M = fluxes.shape
-    reason = k1_unsupported_reason(prior, model, M)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    name = sweep_kernel(prior, model, M)
     if num_iters < 1:
         raise ValueError("num_iters must be positive")
     HW = model.height * model.width
@@ -317,8 +402,9 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
     _check("rate", rate, (G, N, HW), f32, dev)
     _check("pll", pll, (G, N), f32, dev)
     _check("lp", lp, (G, N), f32, dev)
-    params = _k1_params(proposal, prior, model)
-    fn = _entry()
+    make_params = _k1_params if name == "K1" else _k2_params
+    params = make_params(proposal, prior, model)
+    fn = _entry(name)
     outs = [torch.empty_like(t) for t in (locs, fluxes, rate, pll, lp, pll)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -327,10 +413,14 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
                  *(t.data_ptr() for t in outs), G, N, M, model.height,
                  model.width, num_iters, params, stream)
     if err != 0:
-        raise RuntimeError(f"mh_sweep kernel launch failed with CUDA error "
-                           f"{err}")
-    mh_sweeps.launches += 1
+        raise RuntimeError(f"{name} sweep kernel launch failed with CUDA "
+                           f"error {err}")
+    if name == "K1":
+        mh_sweeps.launches += 1
+    else:
+        mh_sweeps.k2_launches += 1
     return tuple(outs)
 
 
 mh_sweeps.launches = 0
+mh_sweeps.k2_launches = 0

@@ -1,0 +1,83 @@
+"""Run an experiment suite through the port (the CLI of
+``experiments/common.py``, without JAX):
+
+    python -m smcdet_tpu_torch.run_experiment experiments/basic/config.yaml \\
+        [--num-images N] [--job-index i --num-jobs n] [--device cuda]
+    python -m smcdet_tpu_torch.run_experiment experiments/cells \\
+        --config config.yaml --generate
+
+The experiment is a config file, or a suite directory with ``--config``
+naming the file in it (default ``config.yaml``). ``--generate`` writes the
+simulated tiles to ``{output_dir}/{name}/tiles.npz`` instead of running.
+``--device`` defaults to ``cuda`` and is never swapped for another device:
+without a CUDA card, pass ``--device cpu`` to run the plain PyTorch
+versions of the kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from smcdet_tpu_torch.config import load_config
+
+
+def _config_path(experiment: str, config: str | None) -> Path:
+    path = Path(experiment)
+    if path.is_dir():
+        return path / (config or "config.yaml")
+    if config is not None:
+        raise SystemExit("--config names a file in a suite directory; give "
+                         "the directory, not a config file")
+    return path
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m smcdet_tpu_torch.run_experiment",
+        description="Run CS-SMC on an experiment suite with the PyTorch "
+                    "port.")
+    parser.add_argument("experiment",
+                        help="config YAML, or a suite directory")
+    parser.add_argument("--config", default=None,
+                        help="config file in the suite directory (default "
+                             "config.yaml)")
+    parser.add_argument("--num-images", type=int, default=None)
+    parser.add_argument("--job-index", type=int, default=0)
+    parser.add_argument("--num-jobs", type=int, default=1)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda)")
+    parser.add_argument("--generate", action="store_true",
+                        help="write the simulated tiles.npz and exit")
+    args = parser.parse_args(argv)
+
+    cfg = load_config(_config_path(args.experiment, args.config))
+    if args.num_images is not None:
+        cfg.num_images = args.num_images
+    if args.generate:
+        from smcdet_tpu_torch.runner import simulate_tiles
+
+        tiles = simulate_tiles(cfg)
+        out_dir = Path(cfg.output_dir) / cfg.name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / "tiles.npz"
+        np.savez_compressed(path, **tiles)
+        print(f"saved {tiles['images'].shape[0]} tiles to {path}")
+        return
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA card is available "
+                         "(torch.cuda.is_available() is False)")
+    from smcdet_tpu_torch.runner import run_experiment
+
+    out = run_experiment(cfg, job_index=args.job_index,
+                         num_jobs=args.num_jobs, device=device)
+    print(f"results in {out}")
+
+
+if __name__ == "__main__":
+    main()

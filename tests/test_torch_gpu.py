@@ -1,4 +1,5 @@
-"""Kernel K1 on the card (CUDA only; every test skips without a card).
+"""Kernels K1 and K2 on the card (CUDA only; every test skips without a
+card).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -20,6 +21,7 @@ from smcdet_tpu_torch.models.imaging import ImageModel, M71ImageModel
 from smcdet_tpu_torch.models.priors import (
     M71Prior,
     NormalFlux,
+    ParetoStarPrior,
     PointProcessPrior,
     UniformCounts,
 )
@@ -36,21 +38,55 @@ def dev():
     return torch.device("cuda")
 
 
-def _target(dev, k2=False, T=2, N=1000, max_objects=6):
-    if k2:
-        prior = PointProcessPrior(
-            0, 4, 8, 8, pad=1.0, counts=UniformCounts(0, 4),
-            flux=NormalFlux(2000.0, 300.0, device=dev), device=dev)
+def _m71_model(dev, tile=8, beta=3.0):
+    return M71ImageModel(tile, tile, 179.0, 155.0,
+                         (1.33, 4.82, 3.15, beta, 0.06, 0.002), 8, 0.0, 1.94,
+                         device=dev)
+
+
+def _normal_flux(dev, max_objects, tile):
+    prior = PointProcessPrior(
+        0, max_objects, tile, tile, pad=1.0,
+        counts=UniformCounts(0, max_objects),
+        flux=NormalFlux(2000.0, 300.0, device=dev), device=dev)
+    return prior, SingleComponentMH(20, 0.25, 60.0, 500.0, 5000.0,
+                                    device=dev)
+
+
+def _target(dev, k2=False, T=2, N=1000, max_objects=6, name=None):
+    """A tile target and its inputs. ``name`` picks a K2 target: "poisson"
+    (8x8, Gaussian PSF, Normal flux; also ``k2=True``), "basic" and
+    "cells" (the suites' targets), "wing" (general-beta SDSS wing),
+    "gauss16" (Gaussian noise on 16x16); the default is K1's M71 target."""
+    name = name or ("poisson" if k2 else "m71")
+    if name == "poisson":
+        prior, kernel = _normal_flux(dev, 4, 8)
         model = ImageModel(8, 8, 4, GaussianPSF(1.0, device=dev),
                            noise="poisson", background=100.0, device=dev)
-        kernel = SingleComponentMH(20, 0.25, 60.0, 500.0, 5000.0,
+    elif name == "basic":
+        prior = ParetoStarPrior(0, 8, 8, 8, 345.84, 2.0, pad=2.0, device=dev)
+        model = ImageModel(8, 8, 8, GaussianPSF(0.93, device=dev),
+                           noise="poisson", background=200.0, device=dev)
+        kernel = SingleComponentMH(20, 0.1, 100.0, 345.84, 1e6, device=dev)
+    elif name == "cells":
+        prior = M71Prior(0, 12, 0.02, 16, 16, 0.5, 100.0, 1e5, pad=1.0,
+                         device=dev)
+        model = ImageModel(16, 16, 6, GaussianPSF(1.4, device=dev),
+                           noise="poisson", background=50.0, device=dev)
+        kernel = SingleComponentMH(20, 0.3, 40.0, 50.0, 1e5, device=dev)
+    elif name == "wing":
+        prior = M71Prior(0, max_objects, 0.03, 8, 8, 0.214, 0.252,
+                         1804.679, pad=1.0, device=dev)
+        model = _m71_model(dev, beta=2.5)
+        kernel = SingleComponentMH(20, 0.25, 5.0, 0.252, 1804.679,
                                    device=dev)
+    elif name == "gauss16":
+        prior, kernel = _normal_flux(dev, max_objects, 16)
+        model = _m71_model(dev, tile=16)
     else:
         prior = M71Prior(0, max_objects, 0.03, 8, 8, 0.214, 0.252,
                          1804.679, pad=1.0, device=dev)
-        model = M71ImageModel(8, 8, 179.0, 155.0,
-                              (1.33, 4.82, 3.15, 3.0, 0.06, 0.002), 8,
-                              0.0, 1.94, device=dev)
+        model = _m71_model(dev)
         kernel = SingleComponentMH(20, 0.25, 5.0, 0.252, 1804.679,
                                    device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -78,12 +114,26 @@ def test_cuda_tensor_never_reaches_plain_version(dev, monkeypatch):
     assert mh_sweep.mh_sweeps.launches == before + 1
     assert torch.isfinite(st.parent_ll).all() and float(acc.mean()) > 0.0
 
-    # a K2 target on a CUDA tensor raises instead of running the plain path
+    # a K2 target launches K2, never the plain path
     kernel, ctx, counts, locs, fluxes = _target(dev, k2=True)
-    with pytest.raises(NotImplementedError, match="K2"):
+    k2_before = mh_sweep.mh_sweeps.k2_launches
+    st, acc = kernel.run(torch.Generator(device=dev).manual_seed(0), ctx,
+                         counts, locs, fluxes)
+    torch.cuda.synchronize()
+    assert mh_sweep.mh_sweeps.k2_launches == k2_before + 1
+    assert mh_sweep.mh_sweeps.launches == before + 1
+    assert torch.isfinite(st.parent_ll).all() and float(acc.mean()) > 0.0
+
+    # a target neither kernel covers raises instead of running the plain path
+    big = ImageModel(32, 32, 6, GaussianPSF(1.4, device=dev),
+                     noise="poisson", background=50.0, device=dev)
+    ctx = TargetContext(ctx.prior, big, torch.ones((2, 1, 1, 32, 32),
+                                                   device=dev),
+                        ctx.temperature)
+    with pytest.raises(NotImplementedError, match="32x32"):
         kernel.run(torch.Generator(device=dev).manual_seed(0), ctx, counts,
                    locs, fluxes)
-    assert mh_sweep.mh_sweeps.launches == before + 1
+    assert mh_sweep.mh_sweeps.k2_launches == k2_before + 1
 
 
 @pytest.mark.parametrize("max_objects", [1, 6, 8])
@@ -132,3 +182,36 @@ def test_cuda_wrapper_checks_inputs(dev):
     with pytest.raises(ValueError, match="image"):
         mh_sweep.mh_sweeps(*bad)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name,N", [("poisson", 1000), ("basic", 512),
+                                    ("cells", 4096), ("wing", 1000),
+                                    ("gauss16", 1000)])
+def test_k2_matches_plain_version(dev, name, N):
+    """K2 on each of its branches: zero-count passthrough bit-exact; same
+    key, 20 sweeps, >= 99% of particles agree with the plain version to
+    rtol 1e-4 (the rest are accept flips on the boundary)."""
+    kernel, ctx, counts, locs, fluxes = _target(dev, name=name, N=N)
+    assert mh_sweep.sweep_kernel(ctx.prior, ctx.model,
+                                 fluxes.shape[-1]) == "K2"
+    zc = torch.zeros_like(counts)
+    zstate = init_kernel_state(ctx, zc, locs, fluxes)
+    out, acc = kernel.run_from_state(
+        torch.Generator(device=dev).manual_seed(1), ctx, zc, zstate)
+    torch.cuda.synchronize()
+    for a, b in zip(out, zstate):
+        assert torch.equal(a, b)
+    assert float(acc.max()) == 0.0
+
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    outs = {}
+    for backend in ("auto", "torch"):
+        kernel.backend = backend
+        outs[backend], _ = kernel.run_from_state(
+            torch.Generator(device=dev).manual_seed(3), ctx, counts, state)
+    torch.cuda.synchronize()
+    close = torch.ones(counts.shape, dtype=torch.bool, device=dev)
+    for a, b in zip(outs["auto"], outs["torch"]):
+        ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
+        close &= ok.reshape(counts.shape + (-1,)).all(-1)
+    assert float(close.float().mean()) >= 0.99

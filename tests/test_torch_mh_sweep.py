@@ -1,7 +1,9 @@
-"""Kernel K1's plain version (smcdet_tpu_torch/ops/mh_sweep.py) against
-the JAX package's MH sweep, and the stream it shares with the CUDA kernel.
+"""The plain version of kernels K1 and K2 (smcdet_tpu_torch/ops/mh_sweep.py)
+against the JAX package's MH sweep, the stream it shares with the CUDA
+kernels, and the choice of kernel for a target.
 
-The CUDA kernel itself runs only on the card: see tests/test_torch_gpu.py.
+The CUDA kernels themselves run only on the card: see
+tests/test_torch_gpu.py.
 """
 
 import functools
@@ -109,32 +111,77 @@ def test_philox_uniforms_match_numpy():
 # ----------------------------------------------------------------------
 # One sweep against JAX given the same uniforms
 # ----------------------------------------------------------------------
-@functools.cache
-def _jax_setup(noise="gaussian", T=2, N=256, max_objects=4, seed=0):
-    """The test_pallas.py target at small size (M71 Gaussian/Pareto, or the
-    Poisson/Gaussian-PSF/Normal-flux target that K2 will cover)."""
-    from smcdet_tpu.models.imaging import ImageModel
+def _normal_flux_prior(max_objects, tile):
     from smcdet_tpu.models.priors import NormalFlux, PointProcessPrior, \
         UniformCounts
+
+    return PointProcessPrior(
+        min_objects=0, max_objects=max_objects, image_height=tile,
+        image_width=tile, pad=1.0, counts=UniformCounts(0, max_objects),
+        flux=NormalFlux(mean=jnp.float32(2000.0), stdev=jnp.float32(300.0)),
+    )
+
+
+def _normal_flux_kernel():
+    return JaxMH(num_iters=1, locs_stdev=jnp.float32(0.25),
+                 fluxes_stdev=jnp.float32(60.0),
+                 fluxes_min=jnp.float32(500.0),
+                 fluxes_max=jnp.float32(5000.0))
+
+
+@functools.cache
+def _jax_setup(noise="gaussian", T=2, N=256, max_objects=4, seed=0):
+    """The test_pallas.py target at small size. ``noise`` names the target:
+
+    - "gaussian": M71 (Gaussian noise, SDSS beta = 3, truncated Pareto), K1;
+    - "poisson": Poisson noise, Gaussian PSF, Normal flux, 8x8;
+    - "cells": the cells suite's target (Poisson, Gaussian PSF of radius 6
+      on 16x16 tiles, truncated Pareto, ``max_objects`` slots);
+    - "wing": Gaussian noise with the general-beta SDSS wing (beta = 2.5);
+    - "gauss16": Gaussian noise, SDSS beta = 3 and Normal flux on 16x16.
+    """
+    from smcdet_tpu.models.imaging import ImageModel, M71ImageModel
     from smcdet_tpu.models.psf import GaussianPSF
 
     if noise == "gaussian":
         prior, model, kernel = m71_problem(max_objects=max_objects)
         kernel = kernel.replace(num_iters=1)
-    else:
-        prior = PointProcessPrior(
-            min_objects=0, max_objects=max_objects, image_height=8,
-            image_width=8, pad=1.0, counts=UniformCounts(0, max_objects),
-            flux=NormalFlux(mean=jnp.float32(2000.0),
-                            stdev=jnp.float32(300.0)),
-        )
+    elif noise == "poisson":
+        prior = _normal_flux_prior(max_objects, 8)
         model = ImageModel(height=8, width=8, psf_radius=4, noise="poisson",
                            background=jnp.float32(100.0),
                            psf=GaussianPSF(stdev=jnp.float32(1.0)))
-        kernel = JaxMH(num_iters=1, locs_stdev=jnp.float32(0.25),
-                       fluxes_stdev=jnp.float32(60.0),
-                       fluxes_min=jnp.float32(500.0),
-                       fluxes_max=jnp.float32(5000.0))
+        kernel = _normal_flux_kernel()
+    elif noise == "cells":
+        from smcdet_tpu.models.priors import M71Prior
+
+        prior = M71Prior(min_objects=0, max_objects=max_objects,
+                         counts_rate=0.02, image_height=16, image_width=16,
+                         flux_alpha=0.5, flux_lower=100.0,
+                         flux_upper=100000.0, pad=1.0)
+        model = ImageModel(height=16, width=16, psf_radius=6,
+                           noise="poisson", background=jnp.float32(50.0),
+                           psf=GaussianPSF(stdev=jnp.float32(1.4)))
+        kernel = JaxMH(num_iters=1, locs_stdev=jnp.float32(0.3),
+                       fluxes_stdev=jnp.float32(40.0),
+                       fluxes_min=jnp.float32(50.0),
+                       fluxes_max=jnp.float32(100000.0))
+    elif noise == "wing":
+        prior, _, kernel = m71_problem(max_objects=max_objects)
+        kernel = kernel.replace(num_iters=1)
+        model = M71ImageModel(
+            image_height=8, image_width=8, background=179.0,
+            adu_per_nmgy=155.0,
+            psf_params=(1.33, 4.82, 3.15, 2.5, 0.06, 0.002), psf_radius=8,
+            noise_additive=0.0, noise_multiplicative=1.94,
+        )
+        assert not model.psf.wing_beta3
+    elif noise == "gauss16":
+        prior = _normal_flux_prior(max_objects, 16)
+        _, model, _ = m71_problem(max_objects=max_objects, tile=16)
+        kernel = _normal_flux_kernel()
+    else:
+        raise ValueError(noise)
     C = prior.num_counts
 
     @jax.jit
@@ -172,9 +219,19 @@ def _jax_sweep_uniforms(key, shape):
     )
 
 
-@pytest.mark.parametrize("noise", ["gaussian", "poisson"])
+_SWEEP_TARGETS = {
+    "gaussian": {},
+    "poisson": {},
+    "cells": {"N": 64, "max_objects": 12},
+    "wing": {},
+    "gauss16": {"N": 64, "max_objects": 6},
+}
+
+
+@pytest.mark.parametrize("noise", list(_SWEEP_TARGETS))
 def test_one_sweep_matches_jax(noise):
-    prior, model, kernel, ctx, counts, locs, fluxes = _jax_setup(noise)
+    prior, model, kernel, ctx, counts, locs, fluxes = _jax_setup(
+        noise, **_SWEEP_TARGETS[noise])
     state = jax.jit(jax_init_state)(ctx, counts, locs, fluxes)
     key = jax.random.key(11)
     jst, japplied = jax.jit(
@@ -286,17 +343,17 @@ def test_plain_sweep_loop_matches_jax_equilibrium():
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("noise", ["gaussian", "poisson"])
 def test_auto_backend_on_cpu_runs_plain_version(noise):
-    """A CPU tensor takes the plain version whatever the target, including
-    a K2 target that the CUDA kernel does not cover, and never counts a
-    launch."""
+    """A CPU tensor takes the plain version whatever the target, K1's or
+    K2's, and never counts a launch."""
     prior, model, kernel, ctx, counts, locs, fluxes = _jax_setup(noise, N=64)
     p_prior, p_model, p_kernel, p_ctx = _port(prior, model, kernel, ctx)
     assert p_kernel.backend == "auto"
-    before = mh_sweep.mh_sweeps.launches
+    before = (mh_sweep.mh_sweeps.launches, mh_sweep.mh_sweeps.k2_launches)
     pcounts = t(counts, torch.int32)
     out, acc = p_kernel.run(torch.Generator().manual_seed(1), p_ctx, pcounts,
                             t(locs), t(fluxes))
-    assert mh_sweep.mh_sweeps.launches == before
+    assert (mh_sweep.mh_sweeps.launches,
+            mh_sweep.mh_sweeps.k2_launches) == before
     assert torch.isfinite(out.parent_ll).all()
     # the same key through the plain version directly gives the same state
     ref, _ = port_kernel(kernel, backend="torch").run(
@@ -306,13 +363,26 @@ def test_auto_backend_on_cpu_runs_plain_version(noise):
 
 
 def test_k1_coverage_names_missing_kernel():
+    """``sweep_kernel`` routes each CUDA target to K1 or K2, and names
+    what is missing for a target neither covers."""
+    from smcdet_tpu_torch.models.imaging import ImageModel
+    from smcdet_tpu_torch.models.psf import GaussianPSF
+
     prior, model, *_ = _jax_setup("gaussian")
-    assert mh_sweep.k1_unsupported_reason(port_prior(prior),
-                                          port_model(model), 6) is None
-    reason = mh_sweep.k1_unsupported_reason(port_prior(prior),
-                                            port_model(model), 12)
-    assert "K2" in reason
-    prior, model, *_ = _jax_setup("poisson")
-    reason = mh_sweep.k1_unsupported_reason(port_prior(prior),
-                                            port_model(model), 4)
-    assert "K2" in reason
+    pp, pm = port_prior(prior), port_model(model)
+    assert mh_sweep.sweep_kernel(pp, pm, 6) == "K1"
+    assert mh_sweep.sweep_kernel(pp, pm, 8) == "K1"
+    # more slots than K1 is built for: K2
+    assert mh_sweep.sweep_kernel(pp, pm, 12) == "K2"
+    for target, M in (("poisson", 4), ("wing", 4), ("cells", 12),
+                      ("gauss16", 6)):
+        prior, model, *_ = _jax_setup(target, **_SWEEP_TARGETS[target])
+        assert mh_sweep.sweep_kernel(port_prior(prior), port_model(model),
+                                     M) == "K2", target
+    prior, model, *_ = _jax_setup("cells", **_SWEEP_TARGETS["cells"])
+    pp = port_prior(prior)
+    with pytest.raises(NotImplementedError, match="16 slots"):
+        mh_sweep.sweep_kernel(pp, port_model(model), 17)
+    big = ImageModel(32, 32, 6, GaussianPSF(1.4))
+    with pytest.raises(NotImplementedError, match="32x32"):
+        mh_sweep.sweep_kernel(pp, big, 12)

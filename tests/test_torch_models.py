@@ -123,10 +123,15 @@ def _priors():
                          pad=1.0)
     pareto = jpr.ParetoStarPrior(1, 4, 8, 8, flux_scale=1.5, flux_alpha=0.7,
                                  pad=0.5)
-    return {"m71": m71, "star": star, "pareto": pareto}
+    poisson = jpr.PoissonProcessPrior(0, 5, counts_rate=0.05,
+                                      image_height=8, image_width=8, pad=1.0)
+    geometric = jpr.GeometricProcessPrior(0, 4, 8, 8, pad=1.0)
+    return {"m71": m71, "star": star, "pareto": pareto, "poisson": poisson,
+            "geometric": geometric}
 
 
-@pytest.mark.parametrize("name", ["m71", "star", "pareto"])
+@pytest.mark.parametrize("name", ["m71", "star", "pareto", "poisson",
+                                  "geometric"])
 def test_prior_log_prob_and_count_log_prob(name):
     jp = _priors()[name]
     tp = port_prior(jp)
@@ -146,6 +151,65 @@ def test_prior_log_prob_and_count_log_prob(name):
         np.asarray(jp.count_log_prob_truncated(support)), rtol=RTOL,
         atol=ATOL,
     )
+
+
+# the port's factories against the JAX ones, built from the same arguments
+_FACTORIES = {
+    "PoissonProcessPrior": dict(min_objects=0, max_objects=5,
+                                counts_rate=0.05, image_height=8,
+                                image_width=8, pad=1.0),
+    "GeometricProcessPrior": dict(min_objects=0, max_objects=4,
+                                  image_height=16, image_width=16, pad=2.0),
+    "StarPrior": dict(min_objects=0, max_objects=3, image_height=8,
+                      image_width=8, flux_mean=2000.0, flux_stdev=300.0,
+                      pad=1.0),
+    "ParetoStarPrior": dict(min_objects=0, max_objects=8, image_height=8,
+                            image_width=8, flux_scale=345.84, flux_alpha=2.0,
+                            pad=2.0),
+    "M71Prior": dict(min_objects=0, max_objects=12, counts_rate=0.02,
+                     image_height=16, image_width=16, flux_alpha=0.5,
+                     flux_lower=100.0, flux_upper=100000.0, pad=1.0),
+}
+
+
+@pytest.mark.parametrize("name", list(_FACTORIES))
+def test_prior_factories_match_jax(name):
+    from smcdet_tpu_torch.models import priors as tpr
+
+    kw = _FACTORIES[name]
+    jp = getattr(jpr, name)(**kw)
+    tp = getattr(tpr, name)(**kw)
+    M = jp.max_objects
+    assert (tp.min_objects, tp.max_objects, tp.num_counts) == (
+        jp.min_objects, M, jp.num_counts)
+    np.testing.assert_array_equal(tp.loc_low.numpy(), np.asarray(jp.loc_low))
+    np.testing.assert_array_equal(tp.loc_high.numpy(),
+                                  np.asarray(jp.loc_high))
+    rng = np.random.default_rng(5)
+    counts = rng.integers(0, M + 1, (40,)).astype(np.int32)
+    locs = rng.uniform(-1.0, 17.0, (40, M, 2)).astype(np.float32)
+    fluxes = rng.uniform(400.0, 5000.0, (40, M)).astype(np.float32)
+    np.testing.assert_allclose(
+        tp.log_prob(torch.from_numpy(counts), t(locs), t(fluxes)).numpy(),
+        np.asarray(jp.log_prob(counts, locs, fluxes)), rtol=RTOL, atol=1e-4)
+    support = np.arange(0, M + 1, dtype=np.int32)
+    np.testing.assert_allclose(
+        tp.count_log_prob_truncated(torch.from_numpy(support)).numpy(),
+        np.asarray(jp.count_log_prob_truncated(support)), rtol=RTOL,
+        atol=ATOL)
+
+
+def test_geometric_counts_sample_matches_pmf():
+    from smcdet_tpu_torch.models.priors import GeometricCounts
+
+    gc = GeometricCounts()
+    draws = gc.sample((200_000,), torch.Generator().manual_seed(0))
+    assert draws.dtype == torch.int32 and int(draws.min()) == 0
+    ks = torch.arange(5)
+    freq = torch.stack([(draws == k).float().mean() for k in ks])
+    # Monte Carlo error of a frequency near 0.78 at n = 2e5 is ~1e-3
+    np.testing.assert_allclose(freq.numpy(), gc.log_prob(ks).exp().numpy(),
+                               atol=5e-3)
 
 
 def test_prior_sample_stratified_layout():

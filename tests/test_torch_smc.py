@@ -183,7 +183,9 @@ def test_smc_sampler_end_to_end():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tsmc.SMCConfig(num_catalogs=8, relocate_sweeps=4)
+    # relocate_sweeps is ported (tests/test_torch_relocate.py)
+    assert tsmc.SMCConfig(num_catalogs=8, relocate_sweeps=4).relocate_sweeps
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tsmc.SMCConfig(num_catalogs=8, pair_sweeps=4)
     with pytest.raises(NotImplementedError):
         SingleComponentMH(num_iters=10, sqjumpdist_tol=1e-2)

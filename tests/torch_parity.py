@@ -27,6 +27,8 @@ def prior_params(prior) -> dict:
         counts = {"kind": "poisson", "rate": _f(c.rate)}
     elif isinstance(c, jpriors.UniformCounts):
         counts = {"kind": "uniform", "low": c.low, "high": c.high}
+    elif isinstance(c, jpriors.GeometricCounts):
+        counts = {"kind": "geometric", "prob": _f(c.prob)}
     else:
         raise NotImplementedError(type(c))
     f = prior.flux
