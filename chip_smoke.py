@@ -14,23 +14,39 @@ Phases (a failing phase raises; there is no CPU fallback):
    agreement over 20 sweeps on the shared Philox stream, every
    disagreement of 20 single-sweep steps shown to be an accept flip on
    the boundary or an accepted tail proposal within the f32 rounding of
-   the inverse CDF, the time of 100 sweeps of both, and equilibrium
-   statistics and rate-cache drift over 800 sweeps on two tiles;
+   the inverse CDF, the time of 100 sweeps of both against the bound, and
+   equilibrium statistics and rate-cache drift over 800 sweeps on two
+   tiles;
 4. K2 against plain, the same checks at the shapes of the ``basic`` suite
    (20 8x8 tiles, M = 8, C = 9, N = 512) and the ``cells`` suite (10
    16x16 tiles, M = 12, C = 13, N = 4096), both built from the suites'
    configs; then passthrough, agreement and flips on the K2 branches
    neither suite runs (Normal flux, the general-beta SDSS wing, Gaussian
    noise on 16x16);
-5. main path: the M71 quick cell (16 tiles from ``generate_images`` with
+5. K3 against plain on the aggregation bridge, at both bridge shapes of
+   the ``divideandconquer`` suite, from real merged states (the tile SMC of
+   2 images, then the merge): the same checks with both caches, the time
+   of 50 sweeps at one image's launch and at 64 groups, equilibrium on 512
+   particles per group; then the location-side mode and Poisson noise
+   with a Gaussian PSF;
+6. main path: the M71 quick cell (16 tiles from ``generate_images`` with
    seed 7, N = 2048, 100 sweeps per SMC iteration, systematic resampling,
    ESS 0.5) through ``run_csmc_chunked(sort_tiles=True)``, with every
    mutate call counted against K1's launch counter;
-6. entry point: ``run_experiment`` on ``experiments/basic/config.yaml``
+7. entry point: ``run_experiment`` on ``experiments/basic/config.yaml``
    (one batch of 20 images) and ``experiments/cells/config.yaml`` (one
    batch of 10 images) at the shipped configurations, into a temporary
    directory, with every mutate call counted against K2's launch counter
-   and the basic batch's detection share held to the JAX reference's.
+   and the basic batch's detection share held to the JAX reference's;
+8. aggregation entry point: ``run_experiment`` on one batch of 4 images of
+   ``experiments/divideandconquer/config.yaml`` (K1 tile stage, K3
+   bridges) and on the first 8 tiles of the m71 real-data fixture
+   (``experiments/m71/config.yaml``: fitted params, per-tile backgrounds,
+   K2), tile and bridge mutate calls counted against the launches, each
+   level's bridge iterations and temperatures printed, the convergence and
+   detection shares held to the JAX runner's;
+9. profile: ``torch.profiler`` over one divideandconquer image, device time
+   by ``agg.*`` / ``smc.*`` range and the device's idle share.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -64,10 +80,89 @@ BASIC_TRUE_COUNTS = [3, 0, 1, 1, 3, 3, 5, 1, 0, 0, 3, 2, 1, 0, 0, 0, 0, 0,
                      4, 1]
 BASIC_REFERENCE_COUNT_SHARE = 0.95
 
+# The divideandconquer suite's first batch through ``run_experiment`` with
+# num_images = batch_size = 4 (the port's simulated 16x16 images, config
+# seed 5): their true pruned counts, and the shares the JAX runner
+# (``smcdet_tpu.runner.run_experiment``) reaches on the CPU on the same
+# images at the shipped configuration, with config seeds 5 and 6 (the lower
+# of the two; PERF.md): every image's aggregation levels all at
+# temperature 1 below the 150-iteration cap (4/4 with both seeds), and the
+# posterior mean pruned count within +-1 of the truth (4/4 with both).
+DNC_TRUE_COUNTS = [2, 5, 1, 4]
+DNC_REFERENCE_CONVERGED_SHARE = 1.0
+DNC_REFERENCE_COUNT_SHARE = 1.0
+
+# The m71 real-data suite (experiments/m71/config.yaml: the fitted-params
+# overlay, per-tile background maps) on the first 8 fixture tiles of
+# experiments/m71/data/m71/tiles.npz: the share of them whose posterior mean
+# pruned count lies within +-1 of ``true_counts`` for the JAX runner on the
+# CPU at the shipped configuration: 5/8 with config seeds 3 and 4 (PERF.md).
+M71_REFERENCE_COUNT_SHARE = 5 / 8
+
 TILE = 8
 REPLACES = "smcdet_tpu/ops/pallas_sweep.py:178"
 SOURCES = {"K1": "smcdet_tpu_torch/csrc/mh_sweep.cu",
-           "K2": "smcdet_tpu_torch/csrc/mh_sweep_k2.cu"}
+           "K2": "smcdet_tpu_torch/csrc/mh_sweep_k2.cu",
+           "K3": "smcdet_tpu_torch/csrc/mh_sweep_k3.cu"}
+
+# The least time of a sweep loop (``bound_ms``): the larger of its bytes
+# over the memory rate and its operations over the peak rate of their unit.
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores 67
+# TFLOP/s, HBM3 3.35 TB/s; the special-function unit (ex2, lg2, rcp, rsqrt)
+# 16 results per SM per clock (NVIDIA's CUDA C++ documentation, arithmetic
+# instruction throughput, compute capability 9.0) x 132 SMs x 1.98 GHz.
+PEAK_FP32 = 67e12
+PEAK_SFU = 16 * 132 * 1.98e9
+PEAK_BYTES = 3.35e12
+# (FP32 operations, SFU operations) that the function needs, counted from
+# its mathematics, not from the kernels' source. An FMA counts 2. Every
+# divisor of the model and the proposal (the PSF widths and normaliser, the
+# proposal stdevs) is fixed for a launch, so a division by it is one FP32
+# multiply by a reciprocal worked out once on the host, and a constant
+# factor folds into an FMA or an exponent. The special-function unit (ex2,
+# lg2, rcp, rsqrt) is charged only where the operand depends on the
+# particle.
+#
+# RENDER_OPS, per pixel and star rendered (the old and the proposed star):
+#   geometry: dy, dx (2), r^2 = dy dy + dx dx (3), the patch test
+#     |h - fy| <= R and |w - fx| <= R (4): 9 FP32;
+#   Gaussian PSF, exp(-r^2 / 2s^2) / (s sqrt(2 pi)) = ex2(a r^2 + c):
+#     1 FMA, 1 ex2;
+#   SDSS PSF, k (exp(-r^2 / 2s1) + b exp(-r^2 / 2s2) + p0 q^(-beta/2)),
+#     q = 1 + r^2 / (beta sp): the two Gaussians as ex2(a r^2 + c) (2 FMA,
+#     2 ex2), q (1 FMA), the sum (2); beta = 3: p0 k rsqrt(q q q) (3 mul,
+#     1 rsqrt); general beta: ex2(-beta/2 lg2 q + log2 p0 k) (1 FMA, lg2
+#     and ex2).
+# LOGLIK_OPS, per pixel and likelihood term (the parent's; on the bridge
+# also the child's), of the proposed rate rp, summed (1):
+#   Gaussian noise, -(img - rp)^2 / 2 var - ln(var) / 2 - c with
+#     var = a + m rp: var (FMA), the difference and its square (2), times
+#     rcp(var) (1), the two terms (2 FMA): 10 FP32, rcp and lg2;
+#   Poisson noise, img ln rp - rp - lgamma(img + 1): lg2 rp (1), 1 FMA
+#     (img ln 2 per pixel is fixed), 1 subtraction: 4 FP32, lg2; where rp
+#     is above the Normal-tail threshold (POISSON_TAIL_OPS on top, counted
+#     for the share of this run's rate-cache pixels above it), the Normal
+#     form's (img - rp)^2 rcp(rp) and one more FMA: 4 FP32, rcp.
+# CACHE_OPS, per pixel: rate + adu (f' psi' - f psi): mul and 2 FMA.
+# CHILD_OPS, per pixel on the bridge: the child cache adds the same
+#   difference inside the moved star's window (a select and an add).
+# UPDATE_OPS, per update: the slot (u count, floor, min); for each of the
+#   three coordinates the truncated normal's Phi at both box ends around
+#   the old value and around the proposal (4 Phi, one ex2 each) and its
+#   inverse CDF (lg2 and rsqrt); the log of the ratio of the six box
+#   masses (one rcp, one lg2); the accept test, u <= ex2(log alpha) (one
+#   ex2): 21 SFU, and about 150 FP32 for the standardising FMAs, the
+#   polynomials of Phi and its inverse and the accept arithmetic.
+#   PARETO_OPS on top for the Pareto flux prior: (alpha + 1) ln(f / f'),
+#   one rcp and one lg2 (the Normal prior is FP32 only).
+# Philox is integer work and is not counted.
+RENDER_OPS = {"gaussian": (11, 1), "sdss_beta3": (20, 3), "sdss": (19, 4)}
+LOGLIK_OPS = {"gaussian": (10, 2), "poisson": (4, 1)}
+POISSON_TAIL_OPS = (4, 1)
+CACHE_OPS = (5, 0)
+CHILD_OPS = (2, 0)
+UPDATE_OPS = (150, 21)
+PARETO_OPS = (4, 2)
 
 
 def build_problem(device, num_tiles=16, num_catalogs=2048, mh_steps=100,
@@ -248,6 +343,12 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _present(state):
+    """The tensors of a ``KernelState`` (the tile target has no child
+    pair)."""
+    return [t for t in state if t is not None]
+
+
 def _agreement(a_outs, b_outs, shape):
     """Per particle: every output of the two runs equal to rtol 1e-4."""
     agree = torch.ones(shape, dtype=torch.bool, device=a_outs[0].device)
@@ -266,7 +367,7 @@ def _passthrough(dev, kernel, ctx, counts, state):
     out, acc = kernel.run_from_state(
         torch.Generator(device=dev).manual_seed(1), ctx, zc, zstate)
     torch.cuda.synchronize()
-    for a, b in zip(out, zstate):
+    for a, b in zip(_present(out), _present(zstate)):
         assert torch.equal(a, b), "zero-count passthrough changed the state"
     assert float(acc.max()) == 0.0
 
@@ -283,13 +384,29 @@ def _same_stream(dev, kernel, ctx, counts, state, sweeps=20):
             torch.Generator(device=dev).manual_seed(2), ctx, counts, state)
     kernel.num_iters, kernel.backend = saved, "auto"
     torch.cuda.synchronize()
-    agree = _agreement(res["auto"], res["torch"], counts.shape)
-    pairs = [(a[agree], b[agree]) for a, b in zip(res["auto"], res["torch"])
+    outs = [_present(res["auto"]), _present(res["torch"])]
+    agree = _agreement(*outs, counts.shape)
+    pairs = [(a[agree], b[agree]) for a, b in zip(*outs)
              if a.shape == counts.shape]
     abs_err = max(float((a - b).abs().max()) for a, b in pairs)
     rel_err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
                   for a, b in pairs)
     return float(agree.float().mean()), abs_err, rel_err
+
+
+def _flat_child(ctx, counts, state):
+    """The child term of a bridge state flattened to the kernels' ``[G, N,
+    ...]`` layout (None for the tile target)."""
+    child = ctx.child_term(state, counts.shape)
+    if child is None:
+        return None
+    G, N = counts.numel() // counts.shape[-1], counts.shape[-1]
+    tags = child.slot_side
+    return child._replace(
+        rate=child.rate.reshape(G, N, -1).contiguous(),
+        ll=child.ll.reshape(G, N).contiguous(),
+        slot_side=None if tags is None
+        else tags.reshape(G, N, -1).contiguous())
 
 
 def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
@@ -300,13 +417,14 @@ def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
     - an accept flip: one accepts and the other rejects, with ``u_acc``
       within f32 rounding of the acceptance probability, ``|log u -
       min(log alpha, 0)| <= 2e-5 (|log target| + |log target'|) + 1e-4``
-      (the targets are sums of H*W f32 terms);
+      (the targets are sums of H*W f32 terms; on the bridge, of both
+      likelihood terms);
     - a tail proposal: both accept, every slot but the moved one is
       bit-identical, and each coordinate ``v' = mu + sigma Phi^-1(p)`` of
       the moved slot differs by at most ``sigma 8 2^-24 / phi(z) +
       1e-5 |v'|``, ``z = (v' - mu) / sigma``: a few ulps of ``p`` (2^-24
       near p = 1) through the inverse CDF, whose slope ``1 / phi(z)`` is
-      large in the tail; the cache, ``pll`` and ``lp`` then follow the
+      large in the tail; the caches, ``pll`` and ``lp`` then follow the
       moved star.
 
     Anything else fails. Returns ``(flips, tail proposals, worst flip
@@ -315,6 +433,7 @@ def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
     from smcdet_tpu_torch.ops import mh_sweep
 
     args = _sweep_args(None, kernel, ctx, counts, state, 1)
+    child = _flat_child(ctx, counts, state)
     prop, prior, model = args[1], args[2], args[3]
     G, N = args[6].shape
     particle = torch.arange(G * N, device=dev).reshape(G, N)
@@ -322,14 +441,21 @@ def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
     tau = args[5][:, None]
     n_flip = n_tail = 0
     worst_flip = worst_tail = 0.0
+
+    def advance(want):
+        """The next step's inputs: the plain version's outputs."""
+        args[7:12] = [t.contiguous() for t in want[:5]]
+        return None if child is None else child._replace(
+            rate=want[6].contiguous(), ll=want[7].contiguous())
+
     for s in range(sweeps):
         args[0] = torch.tensor([1000 + s, 4242], dtype=torch.int64,
                                device=dev)
-        got = mh_sweep.mh_sweeps(*args)
-        want = mh_sweep.mh_sweeps_reference(*args)
-        dis = ~_agreement(got[:5], want[:5], (G, N))
+        got = mh_sweep.mh_sweeps(*args, child=child)
+        want = mh_sweep.mh_sweeps_reference(*args, child=child)
+        dis = ~_agreement(got[:5] + got[6:], want[:5] + want[6:], (G, N))
         if not bool(dis.any()):
-            args[7:12] = [t.contiguous() for t in want[:5]]
+            child = advance(want)
             continue
         flip = dis & (got[5] != want[5])  # accepted by one only
         tail = dis & ~flip
@@ -365,12 +491,13 @@ def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
             n_tail += int(tail.sum())
         if bool(flip.any()):
             # the proposal of every active particle, accepted (u_acc = 0)
-            p_locs, p_fluxes, _, p_pll, p_lp, _ = mh_sweep.sweep_with_uniforms(
+            p = mh_sweep.sweep_with_uniforms(
                 u_j, torch.stack([u_y, u_x], -1), u_f, torch.zeros_like(u_acc),
                 prior=prior, model=model, proposal=prop,
                 image_flat=args[4][:, None], temperature=tau,
                 counts=args[6], locs=args[7], fluxes=args[8], rate=args[9],
-                pll=args[10], lp=args[11])
+                pll=args[10], lp=args[11], child=child)
+            p_locs, p_fluxes, _, p_pll, p_lp = p[:5]
             yp, xp, fp = slot(p_locs[..., 0]), slot(p_locs[..., 1]), slot(
                 p_fluxes)
             lm = truncated_normal_log_mass
@@ -382,13 +509,16 @@ def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
                      - lm(fp, prop.fluxes_stdev, prop.flux_lo, prop.flux_hi))
             old = args[11] + tau * args[10]
             new = p_lp + tau * p_pll
+            if child is not None:  # the bridge's child likelihood term
+                old = old + (1.0 - tau) * child.ll
+                new = new + (1.0 - tau) * p[7]
             log_alpha = new - old + log_q
             margin = (torch.log(u_acc) - log_alpha.clamp(max=0.0)).abs()
             bound = 2e-5 * (old.abs() + new.abs()) + 1e-4
             worst_flip = max(worst_flip, float((margin / bound)[flip].max()))
             assert worst_flip <= 1.0, f"a flip off the boundary: {worst_flip}"
             n_flip += int(flip.sum())
-        args[7:12] = [t.contiguous() for t in want[:5]]
+        child = advance(want)
     torch.cuda.synchronize()
     return n_flip, n_tail, worst_flip, worst_tail
 
@@ -396,8 +526,8 @@ def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
 def _equilibrium(dev, label, kernel, ctx, counts, state):
     """800 sweeps of each on different streams: tempered-target q50/q75
     within 5% + 5 nats, acceptance within 0.02 (the bounds of
-    tests/test_pallas.py:107-154), and the kernel's rate cache against a
-    fresh render."""
+    tests/test_pallas.py:107-154), and the kernel's caches (the rate, and
+    the child rate on the bridge) against a fresh render."""
     from smcdet_tpu_torch.inference.kernels import init_kernel_state
 
     saved, res = kernel.num_iters, {}
@@ -410,8 +540,9 @@ def _equilibrium(dev, label, kernel, ctx, counts, state):
     kernel.num_iters, kernel.backend = saved, "auto"
     torch.cuda.synchronize()
     (stk, acck), (stp, accp) = res["auto"], res["torch"]
-    ltk = (stk.logprior + 0.8 * stk.parent_ll).flatten().cpu().numpy()
-    ltp = (stp.logprior + 0.8 * stp.parent_ll).flatten().cpu().numpy()
+    ltk = ctx.combine(stk.logprior, stk.parent_ll, stk.child_ll)
+    ltp = ctx.combine(stp.logprior, stp.parent_ll, stp.child_ll)
+    ltk, ltp = (x.flatten().cpu().numpy() for x in (ltk, ltp))
     for q in (50, 75):
         a, b = np.percentile(ltp, q), np.percentile(ltk, q)
         print(f"[{label}] 800 sweeps q{q}: plain {a:.3f} kernel {b:.3f}")
@@ -420,14 +551,19 @@ def _equilibrium(dev, label, kernel, ctx, counts, state):
     print(f"[{label}] 800 sweeps acceptance: plain {ap:.5f} kernel {ak:.5f}")
     assert abs(ak - ap) < 0.02
     fresh = init_kernel_state(ctx, counts, stk.locs, stk.fluxes)
-    drift = float(((stk.rate - fresh.rate).abs()
-                   / fresh.rate.abs().clamp(min=1.0)).max())
-    pll_drift = float(((stk.parent_ll - fresh.parent_ll).abs()
-                       / fresh.parent_ll.abs().clamp(min=1.0)).max())
+    for cache, ll in (("rate", "parent_ll"), ("child_rate", "child_ll")):
+        if getattr(fresh, cache) is None:
+            continue
+        a, b = getattr(stk, cache), getattr(fresh, cache)
+        drift = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        a, b = getattr(stk, ll), getattr(fresh, ll)
+        ll_drift = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+        print(f"[{label}] {cache} cache vs fresh render: max rel "
+              f"{drift:.3e}; {ll} max rel {ll_drift:.3e}")
+        assert drift < 2e-3 and ll_drift < 2e-3
     lp_err = float((stk.logprior - fresh.logprior).abs().max())
-    print(f"[{label}] rate cache vs fresh render: max rel {drift:.3e}; "
-          f"pll max rel {pll_drift:.3e}; logprior max abs {lp_err:.3e}")
-    assert drift < 2e-3 and pll_drift < 2e-3 and lp_err < 0.01
+    print(f"[{label}] logprior max abs {lp_err:.3e}")
+    assert lp_err < 0.01
 
 
 def _print_steps(label, counts, steps):
@@ -467,15 +603,18 @@ def kernel_vs_plain(dev, label, name, prior, model, kernel, num_tiles, N):
     ms = _time_ms(lambda: mh_sweep.mh_sweeps(*args), reps=5)
     plain_ms = _time_ms(lambda: mh_sweep.mh_sweeps_reference(*args), reps=1)
     updates = G * N * 100
+    bound_ms, bound_by = sweep_bound(prior, model, args[6], args[9],
+                                     M, 100)
     print(f"[{label}] 100 sweeps, {G} groups x {N} particles: kernel "
           f"{ms:.3f} ms ({updates / (ms * 1e-3):.4e} updates/s), plain "
           f"{plain_ms:.3f} ms ({updates / (plain_ms * 1e-3):.4e} "
-          f"updates/s)")
+          f"updates/s), bound {bound_ms:.4f} ms ({bound_by})")
     del ctx, counts, state, args
     # equilibrium on two tiles (the size of tests/test_pallas.py:107-154)
     ctx, counts, state = _kernel_inputs(dev, prior, model, 2, N, 0)
     _equilibrium(dev, label, kernel, ctx, counts, state)
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def branch_check(dev, label, prior, model, kernel, num_tiles=2, N=1000):
@@ -492,6 +631,289 @@ def branch_check(dev, label, prior, model, kernel, num_tiles=2, N=1000):
                  _single_sweep_steps(dev, kernel, ctx, counts, state))
     assert share >= 0.99, share
     return abs_err
+
+
+def sweep_bound(prior, model, counts, rate, M, sweeps, child=False):
+    """``(bound_ms, bound_by)`` of ``sweeps`` sweeps over particles with
+    ``counts [G, N]`` and rate cache ``rate [G, N, H*W]`` (only particles
+    with a star move, so only theirs are counted) on the tile target or,
+    with ``child``, the bridge's."""
+    from smcdet_tpu_torch.distributions import TruncatedPareto
+    from smcdet_tpu_torch.models.priors import ParetoFlux
+    from smcdet_tpu_torch.models.psf import GaussianPSF
+
+    G, N = counts.shape
+    HW = model.height * model.width
+    updates = int((counts > 0).sum()) * sweeps
+    psf = ("gaussian" if isinstance(model.psf, GaussianPSF)
+           else "sdss_beta3" if model.psf.wing_beta3 else "sdss")
+    terms = 2 if child else 1
+    tail = 0.0
+    if model.noise == "poisson":
+        tail = float((rate > model.normal_tail_threshold).float().mean())
+    pareto = isinstance(prior.flux, (TruncatedPareto, ParetoFlux))
+    ops = [HW * (2 * RENDER_OPS[psf][i]
+                 + terms * (LOGLIK_OPS[model.noise][i]
+                            + tail * POISSON_TAIL_OPS[i])
+                 + CACHE_OPS[i] + (CHILD_OPS[i] if child else 0))
+           + UPDATE_OPS[i] + (PARETO_OPS[i] if pareto else 0)
+           for i in (0, 1)]
+    ops_s = max(updates * ops[0] / PEAK_FP32, updates * ops[1] / PEAK_SFU)
+    # each input read once and each output written once: image and
+    # temperature per group; counts, catalog, caches, pll, lp (and child
+    # ll, tags) per particle in; catalog, caches, pll, lp, acc out
+    per_particle = (4 + 12 * M + 4 * HW * terms + 8 + 12 * (terms - 1)) + (
+        12 * M + 4 * HW * terms + 12 + 4 * (terms - 1))
+    nbytes = G * (4 * HW + 4) + G * N * per_particle
+    bytes_s = nbytes / PEAK_BYTES
+    if ops_s >= bytes_s:
+        return ops_s * 1e3, "operations"
+    return bytes_s * 1e3, "bytes"
+
+
+def _dnc_problem(dev):
+    """The divideandconquer suite's config on the card: its full-image
+    prior, image model and MH kernel, the tile-level prior and model, and
+    the aggregation config."""
+    from smcdet_tpu_torch.config import (
+        build_image_model,
+        build_kernel,
+        build_prior,
+        load_config,
+    )
+    from smcdet_tpu_torch.inference.aggregate import (
+        AggregateConfig,
+        expand_prior,
+    )
+
+    cfg = load_config("experiments/divideandconquer/config.yaml")
+    prior = build_prior(cfg.prior, dev)
+    model = build_image_model(cfg.image_model, dev)
+    kernel = build_kernel(cfg.kernel, dev)
+    td = cfg.sampler.tile_dim
+    a = cfg.aggregation
+    agg_cfg = AggregateConfig(
+        ess_threshold_prop=a.ess_threshold_prop,
+        resample_method=a.resample_method, max_smc_iters=a.max_smc_iters,
+        relocate_sweeps=a.relocate_sweeps)
+    return (cfg, expand_prior(prior, td, td, prior.max_objects),
+            model.with_shape(td, td), kernel, agg_cfg)
+
+
+def bridge_states(dev):
+    """Real inputs of K3 at both bridge shapes: the tile SMC of the
+    divideandconquer suite's first 2 images (the port's simulated 16x16
+    images, the shipped config), merged to level 0 (2 merged 16x8 tiles of
+    C*N = 4608 particles per image, M = 16); the level-0 bridge run, merged
+    to level 1 (one 16x16 tile per image, M = 32). Each level's two images
+    are stacked along the grid's first axis; the bridge context is at
+    temperature 0.5. Returns the MH kernel and ``[(ctx, counts, state)]``
+    for levels 0 and 1."""
+    from smcdet_tpu_torch.inference.aggregate import (
+        Aggregate,
+        SideMask,
+        _merge,
+        _run_level,
+        expand_prior,
+    )
+    from smcdet_tpu_torch.inference.kernels import (
+        TargetContext,
+        init_kernel_state,
+    )
+    from smcdet_tpu_torch.inference.smc import SMCSampler
+    from smcdet_tpu_torch.runner import simulate_tiles
+
+    cfg, prior, model, kernel, agg_cfg = _dnc_problem(dev)
+    cfg.num_images = 2
+    s = cfg.sampler
+    gen = torch.Generator(device=dev).manual_seed(11)
+    merged = [[], []]
+    for img in simulate_tiles(cfg)["images"]:
+        sampler = SMCSampler(
+            torch.as_tensor(img, device=dev), s.tile_dim, prior, model,
+            kernel, num_catalogs=s.num_catalogs,
+            ess_threshold_prop=s.ess_threshold_prop,
+            resample_method=s.resample_method,
+            flux_detection_threshold=s.flux_detection_threshold,
+            max_smc_iters=s.max_smc_iters)
+        sampler.run(gen)
+        state = Aggregate.from_smc(sampler).state
+        merged[0].append(_merge(gen, state, 0, (2, 2, 8, 8), 16, agg_cfg,
+                                model.with_shape(16, 8)))
+        state, _ = _run_level(gen, state, prior, model, kernel, agg_cfg, 0,
+                              (2, 2, 8, 8))
+        merged[1].append(_merge(gen, state, 1, (1, 2, 16, 8), 32, agg_cfg,
+                                model.with_shape(16, 16)))
+    out = []
+    for (axis, M, (h, w)), level in zip(((0, 16, (16, 8)), (1, 32, (16, 16))),
+                                        merged):
+        st = [torch.cat([m[0][i] for m in level]) for i in range(6)]
+        side = torch.cat([m[1] for m in level])
+        ghost = torch.cat([m[2] for m in level])
+        data, counts, locs, fluxes = st[:4]
+        model_l = model.with_shape(h, w)
+        ctx = TargetContext(
+            expand_prior(prior, h, w, M), model_l, data[:, :, None],
+            torch.full(counts.shape[:2] + (1,), 0.5, device=dev),
+            child_model=model_l, child_side_mask=SideMask(axis, 8, h, w),
+            child_slot_side=side, child_ghost_rate=ghost)
+        out.append((ctx, counts, init_kernel_state(ctx, counts, locs,
+                                                   fluxes)))
+    return kernel, out
+
+
+def _first_particles(ctx, counts, state, n):
+    """The bridge problem cut to its first ``n`` particles per group."""
+    cut = [None if v is None else v[:, :, :n] for v in state]
+    tags = ctx.child_slot_side
+    return (ctx._replace(child_slot_side=None if tags is None
+                         else tags[:, :, :n],
+                         child_ghost_rate=ctx.child_ghost_rate[:, :, :n]),
+            counts[:, :, :n], type(state)(*cut))
+
+
+def _groups(args, child, groups):
+    """Flattened kernel arguments with ``groups`` groups: the first ones,
+    or the groups repeated to fill the card."""
+    G = args[4].shape[0]
+
+    def take(t):
+        if groups <= G:
+            return t[:groups].contiguous()
+        reps = -(-groups // G)
+        return t.repeat((reps,) + (1,) * (t.ndim - 1))[:groups].contiguous()
+
+    out = list(args)
+    out[4:12] = [take(t) for t in args[4:12]]
+    child = child._replace(rate=take(child.rate), ll=take(child.ll),
+                           slot_side=None if child.slot_side is None
+                           else take(child.slot_side))
+    return out, child
+
+
+def bridge_vs_plain(dev, label, kernel, ctx, counts, state, sweeps=50):
+    """K3 against its plain version on a bridge state: zero-count
+    passthrough, same-stream agreement over 20 sweeps, 20 single-sweep
+    steps, the time of ``sweeps`` sweeps at one image's launch and at 64
+    groups of the same shape (a batch that fills the card), and the
+    equilibrium over 800 sweeps on the first 512 particles of each group.
+    Returns the record of the one-image launch."""
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    Th, Tw, N = counts.shape
+    M = state.fluxes.shape[-1]
+    model = ctx.model
+    assert mh_sweep.sweep_kernel(ctx.prior, model, M, child=True) == "K3"
+    mode = ("origin tags" if ctx.child_slot_side is not None
+            else "location sides")
+    shape = f"{model.height}x{model.width}, M={M}, {mode}"
+    _passthrough(dev, kernel, ctx, counts, state)
+    print(f"[{label}] K3 at {Th * Tw} groups x {N}, {shape}: zero-count "
+          f"passthrough bit-exact, acc 0")
+    share, abs_err, rel_err = _same_stream(dev, kernel, ctx, counts, state)
+    print(f"[{label}] 20 sweeps, same stream: {share:.6f} of particles "
+          f"agree to rtol 1e-4 (both caches); on those, pll/cll/lp max abs "
+          f"err {abs_err:.3e}, max rel err {rel_err:.3e}")
+    assert share >= 0.99, share
+    _print_steps(label, counts,
+                 _single_sweep_steps(dev, kernel, ctx, counts, state))
+
+    key = torch.tensor([12345, 67890], dtype=torch.int64, device=dev)
+    args = _sweep_args(key, kernel, ctx, counts, state, sweeps)
+    child = _flat_child(ctx, counts, state)
+    record = {"max_abs_err": abs_err}
+    for groups in (Tw, 64):  # one image's launch, and 64 groups
+        a, c = _groups(args, child, groups)
+        ms = _time_ms(lambda: mh_sweep.mh_sweeps(*a, child=c), reps=5)
+        plain_ms = _time_ms(lambda: mh_sweep.mh_sweeps_reference(
+            *a, child=c), reps=1)
+        bound_ms, bound_by = sweep_bound(ctx.prior, model, a[6], a[9], M,
+                                         sweeps, child=True)
+        updates = a[6].numel() * sweeps
+        print(f"[{label}] {sweeps} sweeps, {groups} groups x {N} particles: "
+              f"kernel {ms:.3f} ms ({updates / (ms * 1e-3):.4e} updates/s), "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        if groups == Tw:
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by,
+                          shape=f"{groups} groups x {N}, {shape}")
+    _equilibrium(dev, label, kernel, *_first_particles(ctx, counts, state,
+                                                         512))
+    return record
+
+
+def bridge_branch_check(dev, label, kernel, ctx, counts, state):
+    """Passthrough, same-stream agreement and flips of K3 on a branch."""
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    M = state.fluxes.shape[-1]
+    assert mh_sweep.sweep_kernel(ctx.prior, ctx.model, M, child=True) == "K3"
+    _passthrough(dev, kernel, ctx, counts, state)
+    share, abs_err, _ = _same_stream(dev, kernel, ctx, counts, state)
+    print(f"[{label}] K3 passthrough bit-exact; 20 sweeps: {share:.6f} "
+          f"agree (pll/cll/lp max abs err {abs_err:.3e})")
+    _print_steps(label, counts,
+                 _single_sweep_steps(dev, kernel, ctx, counts, state))
+    assert share >= 0.99, share
+    return abs_err
+
+
+def poisson_bridge(dev, N=2048):
+    """A K3 branch the suites do not run: Poisson noise, a Gaussian PSF and
+    a Normal flux prior on the joined 16x16 tile (M = 32), random catalogs
+    with counts varying per particle, origin tags and a ghost rate."""
+    from smcdet_tpu_torch.inference.aggregate import SideMask, expand_prior
+    from smcdet_tpu_torch.inference.kernels import (
+        SingleComponentMH,
+        TargetContext,
+        init_kernel_state,
+    )
+    from smcdet_tpu_torch.models.imaging import ImageModel
+    from smcdet_tpu_torch.models.priors import StarPrior
+    from smcdet_tpu_torch.models.psf import GaussianPSF
+
+    prior = expand_prior(StarPrior(0, 16, 8, 8, 2000.0, 300.0, pad=1.0,
+                                   device=dev), 16, 16, 32)
+    model = ImageModel(16, 16, 4, GaussianPSF(1.0, device=dev),
+                       noise="poisson", background=100.0, device=dev)
+    kernel = SingleComponentMH(20, 0.25, 60.0, 500.0, 5000.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    counts = torch.randint(0, 33, (1, 2, N), generator=g, device=dev,
+                           dtype=torch.int32)
+    locs, fluxes = prior.sample_marks(g, counts, (1, 2, N))
+    tags = (torch.rand((1, 2, N, 32), generator=g, device=dev) < 0.5).float()
+    ghost = 50.0 * torch.rand((1, 2, N, 256), generator=g, device=dev)
+    images = model.sample(g, locs[0, :, 0, :8], fluxes[0, :, 0, :8]).abs()
+    ctx = TargetContext(prior, model, images[None, :, None],
+                        torch.full((1, 2, 1), 0.5, device=dev),
+                        child_model=model,
+                        child_side_mask=SideMask(1, 8, 16, 16),
+                        child_slot_side=tags, child_ghost_rate=ghost)
+    return kernel, ctx, counts, init_kernel_state(ctx, counts, locs, fluxes)
+
+
+def phase_bridge_kernel(dev):
+    """K3 against its plain version at both bridge shapes, then its
+    branches: the location-side mode and Poisson noise."""
+    from smcdet_tpu_torch.inference.kernels import init_kernel_state
+
+    kernel, levels = bridge_states(dev)
+    records = [bridge_vs_plain(dev, f"K3 level {i}", kernel, *lv)
+               for i, lv in enumerate(levels)]
+    ctx, counts, state = levels[0]
+    loc_ctx = ctx._replace(child_slot_side=None)
+    errs = [bridge_branch_check(
+        dev, "K3 location sides", kernel, loc_ctx, counts,
+        init_kernel_state(loc_ctx, counts, state.locs, state.fluxes)),
+        bridge_branch_check(dev, "K3 poisson", *poisson_bridge(dev))]
+    rec = dict(records[0])
+    rec["max_abs_err"] = max([r["max_abs_err"] for r in records] + errs)
+    print(f"[K3] level 1 ({records[1]['shape']}): {records[1]['ms']:.3f} ms "
+          f"vs plain {records[1]['plain_ms']:.3f} ms per 50 sweeps, bound "
+          f"{records[1]['bound_ms']:.4f} ms; the K3 record below is level "
+          f"0's ({rec['shape']})")
+    return rec
 
 
 def phase_main_path(dev):
@@ -521,8 +943,7 @@ def phase_main_path(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
-    mh_sweep.mh_sweeps.launches = 0
-    mh_sweep.mh_sweeps.k2_launches = 0
+    _reset_launches()
     start = time.perf_counter()
     res = run_csmc_chunked(gen, images, prior, model, kernel, cfg,
                            sort_tiles=True)
@@ -587,8 +1008,7 @@ def _entry_batch(dev, suite, num_images, out_root):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        mh_sweep.mh_sweeps.launches = 0
-        mh_sweep.mh_sweeps.k2_launches = 0
+        _reset_launches()
         start = time.perf_counter()
         out = run_experiment(cfg, device=dev, verbose=False)
         wall = time.perf_counter() - start
@@ -645,6 +1065,217 @@ def phase_entry_point(dev):
     return launches + k2
 
 
+class _Calls:
+    """Counts ``SingleComponentMH.run_from_state`` calls on the tile target
+    and on the bridge, and keeps every ``Aggregate.run``'s diagnostics,
+    while the ``with`` block runs."""
+
+    def __enter__(self):
+        from smcdet_tpu_torch.inference.aggregate import Aggregate
+        from smcdet_tpu_torch.inference.kernels import SingleComponentMH
+
+        self.tile = self.bridge = 0
+        self.levels = []
+        self._saved = (SingleComponentMH.run_from_state, Aggregate.run)
+        run_from_state, agg_run = self._saved
+
+        def counted(kernel, gen, ctx, *args, **kwargs):
+            if ctx.child_model is None:
+                self.tile += 1
+            else:
+                self.bridge += 1
+            return run_from_state(kernel, gen, ctx, *args, **kwargs)
+
+        def recorded(agg, *args, **kwargs):
+            out = agg_run(agg, *args, **kwargs)
+            self.levels.append([(d["iterations"], d["temperature"].tolist())
+                                for d in agg.diagnostics])
+            return out
+
+        SingleComponentMH.run_from_state = counted
+        Aggregate.run = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from smcdet_tpu_torch.inference.aggregate import Aggregate
+        from smcdet_tpu_torch.inference.kernels import SingleComponentMH
+
+        SingleComponentMH.run_from_state, Aggregate.run = self._saved
+
+
+def _reset_launches():
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    mh_sweep.mh_sweeps.launches = 0
+    mh_sweep.mh_sweeps.k2_launches = 0
+    mh_sweep.mh_sweeps.k3_launches = 0
+
+
+def _launches():
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    f = mh_sweep.mh_sweeps
+    return {"K1": f.launches, "K2": f.k2_launches, "K3": f.k3_launches}
+
+
+def _aggregation_batch(dev, cfg, label):
+    """One batch of an aggregation-enabled suite through ``run_experiment``
+    with the tile and bridge mutate calls counted against the kernels'
+    launches; returns (launches, results, per-image level diagnostics)."""
+    from smcdet_tpu_torch.runner import load_results, run_experiment
+
+    with _Calls() as calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        start = time.perf_counter()
+        out = run_experiment(cfg, device=dev, verbose=False)
+        wall = time.perf_counter() - start
+        launches = _launches()
+    res = load_results(out)
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_image = res["runtime_per_image"]
+    print(f"[{label}] {len(per_image)} images: batch "
+          f"{float(res['runtime'][0]):.3f} s (run_experiment {wall:.3f} s "
+          f"with loading), seconds per image "
+          f"{[round(float(x), 3) for x in per_image]}, mean "
+          f"{float(per_image.mean()):.3f} s, peak memory {peak} B")
+    print(f"[{label}] tile mutate calls {calls.tile}, bridge mutate calls "
+          f"{calls.bridge}; launches {launches}")
+    assert launches["K1"] + launches["K2"] == calls.tile, (launches, calls)
+    assert launches["K3"] == calls.bridge, (launches, calls.bridge)
+    assert res["image_index"].tolist() == list(range(cfg.num_images))
+    assert np.isfinite(res["log_normalizing_constant"].max(-1)).all()
+    np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
+    return launches, res, calls.levels
+
+
+def _count_share(label, res, truth):
+    mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+    within = np.abs(mean - truth) <= 1.0
+    print(f"[{label}] posterior mean pruned count within +-1 of truth on "
+          f"{int(within.sum())}/{len(within)} images")
+    print(f"[{label}] truth {list(map(int, truth))}")
+    print(f"[{label}] mean  {[round(float(x), 3) for x in mean]}")
+    return float(within.mean())
+
+
+def phase_aggregation(dev):
+    """The aggregation entry point: ``run_experiment`` on one batch of
+    divideandconquer (4 16x16 images, shipped N, M, sweeps, ESS and bridge
+    settings: tile stage K1, bridges K3) and on the first 8 tiles of the
+    m71 real-data fixture (fitted params, per-tile backgrounds, the general
+    SDSS wing: K2), each held to the JAX runner's shares."""
+    from smcdet_tpu_torch.config import load_config
+    from smcdet_tpu_torch.runner import simulate_tiles
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config("experiments/divideandconquer/config.yaml")
+        cfg.num_images = cfg.batch_size = 4
+        cfg.output_dir = tmp
+        dnc, res, levels = _aggregation_batch(dev, cfg, "dnc")
+        assert dnc["K1"] > 0 and dnc["K3"] > 0 and dnc["K2"] == 0, dnc
+        cap = cfg.aggregation.max_smc_iters
+        converged = 0
+        for i, lv in enumerate(levels):
+            ok = all(it < cap and np.all(np.asarray(t) == 1.0)
+                     for it, t in lv)
+            converged += ok
+            print(f"[dnc] image {i}: " + "; ".join(
+                f"level {k} {it} bridge iterations, temperatures {t}"
+                for k, (it, t) in enumerate(lv)))
+        truth = simulate_tiles(cfg)["true_counts"]
+        assert truth.tolist() == DNC_TRUE_COUNTS, truth.tolist()
+        share = _count_share("dnc", res, truth)
+        print(f"[dnc] levels all at temperature 1 below the {cap}-iteration "
+              f"cap on {converged}/{len(levels)} images (JAX reference "
+              f"share {DNC_REFERENCE_CONVERGED_SHARE}); count share {share} "
+              f"(JAX reference {DNC_REFERENCE_COUNT_SHARE})")
+        assert converged / len(levels) >= DNC_REFERENCE_CONVERGED_SHARE - 1e-9
+        assert share >= DNC_REFERENCE_COUNT_SHARE - 1e-9
+
+        cfg = load_config("experiments/m71/config.yaml")
+        cfg.data_path = "experiments/m71/data/m71/tiles.npz"
+        cfg.num_images = cfg.batch_size = 8
+        cfg.output_dir = tmp
+        m71, res, levels = _aggregation_batch(dev, cfg, "m71")
+        assert m71["K2"] > 0 and m71["K1"] == m71["K3"] == 0, m71
+        assert all(lv == [] for lv in levels)  # one tile: no level
+        truth = np.load(cfg.data_path)["true_counts"][:8]
+        share = _count_share("m71", res, truth)
+        print(f"[m71] count share {share} (JAX reference "
+              f"{M71_REFERENCE_COUNT_SHARE})")
+        assert share >= M71_REFERENCE_COUNT_SHARE - 1e-9
+    return dnc, m71
+
+
+def phase_profile(dev):
+    """``torch.profiler`` over one warm divideandconquer image through
+    ``run_experiment``: device time by range (``agg.*`` and ``smc.*``, the
+    kernels launched inside each) and the device's idle share, 1 - the sum
+    of kernel time over the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smcdet_tpu_torch.config import load_config
+    from smcdet_tpu_torch.runner import run_experiment
+
+    cfg = load_config("experiments/divideandconquer/config.yaml")
+    cfg.num_images = cfg.batch_size = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.output_dir = tmp
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            run_experiment(cfg, device=dev, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+    # A range's device time is that of the PyTorch kernels launched inside
+    # it (the host-side range event's; its device-side twin spans the gaps
+    # too). The sweep kernels launch through their own statically linked
+    # CUDA runtime, which the profiler does not tie to a host range, so
+    # they are summed by name: K1 and K2 run in smc.mutate, K3 in
+    # agg.mutate.
+    names = {"mh_sweep_k3": "K3", "mh_sweep_k2": "K2",
+             "mh_sweep_kernel": "K1"}
+    ranges, sweeps, kernel_ms = {}, {}, 0.0
+    for e in prof.events():
+        in_range = e.name.startswith(("agg.", "smc."))
+        if e.device_type == DeviceType.CPU and in_range:
+            n, ms = ranges.get(e.name, (0, 0.0))
+            ranges[e.name] = (n + 1, ms + e.device_time_total / 1e3)
+        elif e.device_type == DeviceType.CUDA and not in_range:
+            kernel_ms += e.device_time_total / 1e3
+            kid = next((k for pat, k in names.items() if pat in e.name),
+                       None)
+            if kid is not None:
+                n, ms = sweeps.get(kid, (0, 0.0))
+                sweeps[kid] = (n + 1, ms + e.device_time_total / 1e3)
+    print(f"[profile] one divideandconquer image under the profiler: wall "
+          f"{wall * 1e3:.1f} ms, kernels {kernel_ms:.1f} ms, device idle "
+          f"{1 - kernel_ms / (wall * 1e3):.3f}")
+    for kid, (n, ms) in sorted(sweeps.items()):
+        print(f"[profile] {kid} (the sweeps of "
+              f"{'agg' if kid == 'K3' else 'smc'}.mutate): {n} launches, "
+              f"device {ms:.3f} ms")
+    for key in sorted(ranges, key=lambda k: -ranges[k][1]):
+        n, ms = ranges[key]
+        print(f"[profile] {key}: {n} calls, PyTorch kernels {ms:.3f} ms")
+    rest = kernel_ms - sum(ms for _, ms in ranges.values()) - sum(
+        ms for _, ms in sweeps.values())
+    print(f"[profile] outside the ranges: device {rest:.3f} ms")
+
+
+def _record(name, kernel_id, launches, rec):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return {"name": name, "route": "cuda", "source": SOURCES[kernel_id],
+            "replaces": REPLACES, "launches": launches,
+            **{k: rec[k] for k in keys},
+            # no single PyTorch call computes a fused MH sweep loop
+            "library_ms": None}
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -661,22 +1292,27 @@ def main():
             dev, f"K2 {suite}", "K2", prior, model, kernel, tiles, N)
     branch_err = max(branch_check(dev, f"K2 {name}", *problem)
                      for name, problem in branch_problems(dev).items())
+    records["K3"] = phase_bridge_kernel(dev)
+    # each path is driven with the launch counts set to 0 just before it
     launches = {"K1": phase_main_path(dev), "K2": phase_entry_point(dev)}
-    print(f"[done] phases 2-6 in {time.perf_counter() - start:.1f} s on "
+    dnc, m71 = phase_aggregation(dev)
+    for k in launches:
+        launches[k] += dnc[k] + m71[k]
+    launches["K3"] = dnc["K3"] + m71["K3"]
+    phase_profile(dev)
+    print(f"[done] phases 2-9 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     print(f"[done] K2 at the basic shapes: {records['K2 basic']['ms']:.3f} "
           f"ms vs plain {records['K2 basic']['plain_ms']:.3f} ms per 100 "
-          f"sweeps; the K2 record below is at the cells shapes")
-    k2 = records["K2 cells"]
+          f"sweeps (bound {records['K2 basic']['bound_ms']:.4f} ms); the K2 "
+          f"record below is at the cells shapes")
+    k2 = dict(records["K2 cells"])
+    k2["max_abs_err"] = max(k2["max_abs_err"],
+                            records["K2 basic"]["max_abs_err"], branch_err)
     print(json.dumps({"kernels": [
-        {"name": "mh_sweep", "route": "cuda", "source": SOURCES["K1"],
-         "replaces": REPLACES, "launches": launches["K1"],
-         **records["K1"]},
-        {"name": "mh_sweep_k2", "route": "cuda", "source": SOURCES["K2"],
-         "replaces": REPLACES, "launches": launches["K2"],
-         "max_abs_err": max(k2["max_abs_err"],
-                            records["K2 basic"]["max_abs_err"], branch_err),
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        _record("mh_sweep", "K1", launches["K1"], records["K1"]),
+        _record("mh_sweep_k2", "K2", launches["K2"], k2),
+        _record("mh_sweep_k3", "K3", launches["K3"], records["K3"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

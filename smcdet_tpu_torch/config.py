@@ -146,7 +146,7 @@ class ExperimentConfig:
     mcmc: MCMCExperimentConfig = field(default_factory=MCMCExperimentConfig)
 
 
-def build_prior(cfg: PriorConfig, device="cpu"):
+def build_prior(cfg: PriorConfig, device="cuda"):
     from smcdet_tpu_torch.models.priors import (
         GeometricProcessPrior,
         M71Prior,
@@ -181,7 +181,7 @@ def build_prior(cfg: PriorConfig, device="cpu"):
     raise ValueError(f"unknown prior family {cfg.family!r}")
 
 
-def build_image_model(cfg: ImageModelConfig, device="cpu"):
+def build_image_model(cfg: ImageModelConfig, device="cuda"):
     """``kind: m71`` is the SDSS PSF with Gaussian noise; ``kind:
     gaussian`` is a Gaussian PSF with *Poisson* noise (the generic model:
     the name refers to the PSF)."""
@@ -213,7 +213,7 @@ def build_image_model(cfg: ImageModelConfig, device="cpu"):
     raise ValueError(f"unknown image model kind {cfg.kind!r}")
 
 
-def build_kernel(cfg: KernelConfig, device="cpu"):
+def build_kernel(cfg: KernelConfig, device="cuda"):
     from smcdet_tpu_torch.inference.kernels import SingleComponentMH
 
     if cfg.kind == "mala":

@@ -63,7 +63,7 @@ def _flux(d, device):
     raise ValueError(f"unknown flux family {kind!r}")
 
 
-def prior_from_params(d: dict, device="cpu") -> PointProcessPrior:
+def prior_from_params(d: dict, device="cuda") -> PointProcessPrior:
     return PointProcessPrior(
         min_objects=d["min_objects"],
         max_objects=d["max_objects"],
@@ -76,7 +76,7 @@ def prior_from_params(d: dict, device="cpu") -> PointProcessPrior:
     )
 
 
-def image_model_from_params(d: dict, device="cpu") -> ImageModel:
+def image_model_from_params(d: dict, device="cuda") -> ImageModel:
     p = d["psf"]
     if p["kind"] == "sdss":
         psf = SDSSPSF(*p["params"],
@@ -101,7 +101,7 @@ def image_model_from_params(d: dict, device="cpu") -> ImageModel:
     )
 
 
-def mh_kernel_from_params(d: dict, device="cpu",
+def mh_kernel_from_params(d: dict, device="cuda",
                           backend="auto") -> SingleComponentMH:
     return SingleComponentMH(
         num_iters=d["num_iters"],

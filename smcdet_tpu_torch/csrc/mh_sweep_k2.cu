@@ -34,23 +34,11 @@
 // particle >> 32), so the stream is that of the plain PyTorch version
 // (ops/mh_sweep.py), and the two agree particle by particle up to the
 // library's expf/logf/powf/lgammaf rounding and the order of the pixel sum.
+// The tile model (PSF, pixel likelihood, flux prior) is in mh_pixel.cuh,
+// shared with K3.
 
 #include "mh_common.cuh"
-
-// Scalar parameters, passed by value; the field order is mirrored by
-// ops/mh_sweep.py:_K2Params.
-struct K2Params {
-  float locs_stdev, fluxes_stdev, flux_lo, flux_hi;
-  float loc_low_y, loc_low_x, loc_high_y, loc_high_x;
-  float adu, noise_add, noise_mult, psf_radius, normal_tail;
-  float s1, s2, sp, beta, b, p0, norm;  // SDSS PSF
-  float gauss_stdev, gauss_norm;        // Gaussian PSF: stdev, stdev sqrt(2 pi)
-  float flux_a, flux_b, flux_c;  // Pareto: alpha, log-normaliser;
-                                 // Normal: mean, stdev, log(stdev)
-  int noise_kind;  // 0 Gaussian, 1 Poisson
-  int psf_kind;    // 0 Gaussian, 1 SDSS beta = 3, 2 SDSS general beta
-  int flux_kind;   // 0 none, 1 Pareto, 2 Normal
-};
+#include "mh_pixel.cuh"
 
 namespace {
 
@@ -58,56 +46,6 @@ using namespace smcdet;
 
 constexpr int kBlock = 256;
 constexpr int kMaxSlots = 16;
-
-__device__ __forceinline__ float psf_eval(float r2, const K2Params& P) {
-  if (P.psf_kind == 0) {
-    return expf((-0.5f * r2) / (P.gauss_stdev * P.gauss_stdev)) /
-           P.gauss_norm;
-  }
-  const float t1 = expf(-r2 / (2.f * P.s1));
-  const float t2 = P.b * expf(-r2 / (2.f * P.s2));
-  const float q = 1.f + r2 / (P.beta * P.sp);
-  const float t3 = P.psf_kind == 1 ? P.p0 * rsqrtf(q * q * q)
-                                   : P.p0 * powf(q, -P.beta / 2.f);
-  return ((t1 + t2 + t3) / (1.f + P.b + P.p0)) / P.norm;
-}
-
-template <int W>
-__device__ __forceinline__ float star_pixel(int p, float ly, float lx,
-                                            float fy, float fx,
-                                            const K2Params& P) {
-  const float h = (float)(p / W);
-  const float w = (float)(p % W);
-  const float dy = (h + 0.5f) - ly;
-  const float dx = (w + 0.5f) - lx;
-  const bool in_patch =
-      (fabsf(h - fy) <= P.psf_radius) && (fabsf(w - fx) <= P.psf_radius);
-  const float psi = psf_eval(dy * dy + dx * dx, P);
-  return in_patch ? psi : 0.f;
-}
-
-__device__ __forceinline__ float pixel_loglik(float img, float lg, float rp,
-                                              const K2Params& P) {
-  const float diff = img - rp;
-  if (P.noise_kind == 0) {
-    const float var = P.noise_add + P.noise_mult * rp;
-    return (-0.5f * (diff * diff)) / var - 0.5f * logf(var) - kHalfLog2Pi;
-  }
-  const float lr = logf(rp);
-  if (rp > P.normal_tail) {
-    return -0.5f * ((diff * diff) / rp) - 0.5f * lr - kHalfLog2Pi;
-  }
-  return img * lr - rp - lg;
-}
-
-__device__ __forceinline__ float flux_log_prob(float f, const K2Params& P) {
-  if (P.flux_kind == 1) return P.flux_b - (P.flux_a + 1.f) * logf(f);
-  if (P.flux_kind == 2) {
-    const float z = (f - P.flux_a) / P.flux_b;
-    return -0.5f * z * z - P.flux_c - kHalfLog2Pi;
-  }
-  return 0.f;
-}
 
 template <int H, int W, int L>
 __global__ void __launch_bounds__(kBlock)

@@ -75,7 +75,11 @@ class DiscreteUniform:
         self.low = int(low)
         self.high = int(high)
 
-    def sample(self, shape, generator=None, device="cpu"):
+    def sample(self, shape, generator=None, device=None):
+        """Integer draws on ``device``, by default the generator's (the
+        card without one)."""
+        if device is None:
+            device = generator.device if generator is not None else "cuda"
         return torch.randint(self.low, self.high + 1, tuple(shape),
                              generator=generator, device=device,
                              dtype=torch.int32)
@@ -92,7 +96,7 @@ class TruncatedPareto:
     inverse-CDF sampling and log-pdf). ``alpha``, ``lower`` and ``upper``
     are 0-d float32 tensors on the distribution's device."""
 
-    def __init__(self, alpha, lower, upper, device="cpu"):
+    def __init__(self, alpha, lower, upper, device="cuda"):
         def t(v):
             return torch.as_tensor(v, dtype=torch.float32, device=device)
 

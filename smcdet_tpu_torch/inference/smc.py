@@ -59,6 +59,9 @@ class SMCConfig:
     resample_method: str = "multinomial"
     max_smc_iters: int = 100
     flux_detection_threshold: float = 0.0
+    # print the temperature and acceptance ranges every k iterations
+    # (0 = silent)
+    print_every: int = 0
     # prior-draw relocation sweeps appended to each mutation
     # (kernels.relocate_sweeps): a star jumps between source modes that the
     # random walk cannot connect
@@ -277,6 +280,11 @@ def run_csmc(generator, images, prior, model, kernel,
             ):
                 break
         state = csmc_step(images, prior, model, kernel, cfg, state)
+        if cfg.print_every and state.iteration % cfg.print_every == 0:
+            t, a = state.temperature, state.acc_rate
+            print(f"iteration {state.iteration}: temperature in "
+                  f"[{float(t.min()):.2f}, {float(t.max()):.2f}], acceptance "
+                  f"rate in [{float(a.min()):.2f}, {float(a.max()):.2f}]")
     return csmc_finalize(prior, model, cfg, state)
 
 
@@ -359,13 +367,19 @@ def run_csmc_chunked(generator, images, prior, model, kernel,
 
 class SMCSampler:
     """User-facing wrapper (the reference ``SMCsampler`` API): tile the
-    image, run CS-SMC over difficulty-sorted chunks, expose posterior
-    summaries."""
+    image (row-major, as ``Aggregate.from_smc`` reads it), run CS-SMC over
+    difficulty-sorted chunks, expose posterior summaries.
+
+    The image model's background is a scalar, a bare ``[h, w]`` map shared
+    by every tile, or a per-tile map ``[T, 1, 1, h, w]`` in ``tile_image``
+    order. ``dispatch_iters`` is accepted and ignored: the port's SMC loop
+    already runs on the host one iteration at a time."""
 
     def __init__(self, image, tile_dim, Prior, ImageModel, MutationKernel,
                  num_catalogs, ess_threshold_prop=0.5,
                  resample_method="multinomial", flux_detection_threshold=0.0,
-                 max_smc_iters=100, budget_bytes=None):
+                 max_smc_iters=100, print_every=0, relocate_sweeps=0,
+                 pair_sweeps=0, dispatch_iters=None, budget_bytes=None):
         self.image = torch.as_tensor(image, dtype=torch.float32,
                                      device=Prior.device)
         self.image_height, self.image_width = self.image.shape
@@ -384,6 +398,9 @@ class SMCSampler:
             resample_method=resample_method,
             max_smc_iters=max_smc_iters,
             flux_detection_threshold=flux_detection_threshold,
+            print_every=print_every,
+            relocate_sweeps=relocate_sweeps,
+            pair_sweeps=pair_sweeps,
         )
         self.result: SMCResult | None = None
 

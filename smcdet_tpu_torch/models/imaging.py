@@ -38,7 +38,7 @@ class ImageModel:
     def __init__(self, height, width, psf_radius, psf, noise="poisson",
                  background=0.0, adu_per_nmgy=1.0, noise_additive=0.0,
                  noise_multiplicative=1.0, normal_tail_threshold=50000.0,
-                 device="cpu"):
+                 device="cuda"):
         if noise not in ("poisson", "gaussian"):
             raise ValueError(f"unknown noise model {noise!r}")
         self.height = int(height)
@@ -58,6 +58,14 @@ class ImageModel:
         out = object.__new__(ImageModel)
         out.__dict__.update(self.__dict__)
         out.background = background
+        return out
+
+    def with_shape(self, height, width) -> "ImageModel":
+        """A copy on a ``height x width`` tile sharing everything else (the
+        JAX package's ``model.replace(height=, width=)``)."""
+        out = object.__new__(ImageModel)
+        out.__dict__.update(self.__dict__)
+        out.height, out.width = int(height), int(width)
         return out
 
     # ------------------------------------------------------------------
@@ -125,7 +133,7 @@ class ImageModel:
 
 def M71ImageModel(image_height, image_width, background, adu_per_nmgy,
                   psf_params, psf_radius, noise_additive=0.0,
-                  noise_multiplicative=1.0, device="cpu") -> ImageModel:
+                  noise_multiplicative=1.0, device="cuda") -> ImageModel:
     """SDSS 6-parameter PSF, Gaussian read-noise likelihood, nmgy->ADU
     calibration (the reference ``M71ImageModel`` signature)."""
     return ImageModel(

@@ -43,11 +43,12 @@ UniformCounts = DiscreteUniform
 class PoissonCounts:
     """Poisson count prior with rate ``mu * padded_area``."""
 
-    def __init__(self, rate, device="cpu"):
+    def __init__(self, rate, device="cuda"):
         self.rate = _t(rate, device)
 
-    def sample(self, shape, generator=None, device="cpu"):
-        rates = self.rate.to(device).expand(tuple(shape)).contiguous()
+    def sample(self, shape, generator=None, device=None):
+        rates = self.rate.to(device or self.rate.device)
+        rates = rates.expand(tuple(shape)).contiguous()
         return torch.poisson(rates, generator=generator).to(torch.int32)
 
     def log_prob(self, value):
@@ -64,12 +65,13 @@ class GeometricCounts:
     with ``p = 1 - exp(-1.5)`` by default (rounded in float32, as the
     reference rounds it)."""
 
-    def __init__(self, prob=None, device="cpu"):
+    def __init__(self, prob=None, device="cuda"):
         if prob is None:
             prob = 1.0 - torch.exp(torch.tensor(-1.5))
         self.prob = _t(prob, device)
 
-    def sample(self, shape, generator=None, device="cpu"):
+    def sample(self, shape, generator=None, device=None):
+        device = device or self.prob.device
         u = torch.rand(tuple(shape), generator=generator, device=device)
         p = self.prob.to(device)
         return torch.floor(torch.log1p(-u) / torch.log1p(-p)).to(torch.int32)
@@ -84,7 +86,7 @@ class GeometricCounts:
 class NormalFlux:
     """Normal flux mark."""
 
-    def __init__(self, mean, stdev, device="cpu"):
+    def __init__(self, mean, stdev, device="cuda"):
         self.mean = _t(mean, device)
         self.stdev = _t(stdev, device)
 
@@ -115,7 +117,7 @@ class NormalFlux:
 class ParetoFlux:
     """Pareto flux mark with scale (minimum) and shape ``alpha``."""
 
-    def __init__(self, scale, alpha, device="cpu"):
+    def __init__(self, scale, alpha, device="cuda"):
         self.scale = _t(scale, device)
         self.alpha = _t(alpha, device)
 
@@ -148,7 +150,7 @@ class PointProcessPrior:
 
     def __init__(self, min_objects, max_objects, image_height, image_width,
                  pad=0.0, counts: Any = None, flux: Optional[Any] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.min_objects = int(min_objects)
         self.max_objects = int(max_objects)
         self.image_height = int(image_height)
@@ -236,7 +238,7 @@ def _padded_rate(counts_rate, image_height, image_width, pad):
 
 
 def PoissonProcessPrior(min_objects, max_objects, counts_rate, image_height,
-                        image_width, pad=0.0, device="cpu"):
+                        image_width, pad=0.0, device="cuda"):
     """Poisson counts with rate ``counts_rate * padded area``, no flux
     mark."""
     rate = _padded_rate(counts_rate, image_height, image_width, pad)
@@ -247,7 +249,7 @@ def PoissonProcessPrior(min_objects, max_objects, counts_rate, image_height,
 
 
 def GeometricProcessPrior(min_objects, max_objects, image_height,
-                          image_width, pad=0.0, device="cpu"):
+                          image_width, pad=0.0, device="cuda"):
     """Geometric counts, no flux mark."""
     return PointProcessPrior(min_objects, max_objects, image_height,
                              image_width, pad=pad,
@@ -256,7 +258,7 @@ def GeometricProcessPrior(min_objects, max_objects, image_height,
 
 
 def StarPrior(min_objects, max_objects, image_height, image_width,
-              flux_mean, flux_stdev, pad=0.0, device="cpu"):
+              flux_mean, flux_stdev, pad=0.0, device="cuda"):
     """Uniform counts and Normal fluxes."""
     return PointProcessPrior(
         min_objects, max_objects, image_height, image_width, pad=pad,
@@ -266,7 +268,7 @@ def StarPrior(min_objects, max_objects, image_height, image_width,
 
 
 def ParetoStarPrior(min_objects, max_objects, image_height, image_width,
-                    flux_scale, flux_alpha, pad=0.0, device="cpu"):
+                    flux_scale, flux_alpha, pad=0.0, device="cuda"):
     """Uniform counts and Pareto fluxes."""
     return PointProcessPrior(
         min_objects, max_objects, image_height, image_width, pad=pad,
@@ -277,7 +279,7 @@ def ParetoStarPrior(min_objects, max_objects, image_height, image_width,
 
 def M71Prior(min_objects, max_objects, counts_rate, image_height,
              image_width, flux_alpha, flux_lower, flux_upper, pad=0.0,
-             device="cpu") -> PointProcessPrior:
+             device="cuda") -> PointProcessPrior:
     """Poisson counts with rate ``counts_rate * padded area`` and
     truncated-Pareto fluxes (the reference ``M71Prior``)."""
     rate = _padded_rate(counts_rate, image_height, image_width, pad)

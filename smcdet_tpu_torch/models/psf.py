@@ -22,7 +22,7 @@ class GaussianPSF:
     the radius (the reference's convention: peak ``1 / (stdev sqrt(2 pi))``,
     no normalisation over the patch)."""
 
-    def __init__(self, stdev, device="cpu"):
+    def __init__(self, stdev, device="cuda"):
         self.stdev = _t(stdev, device)
 
     def normalized(self, r2):
@@ -43,7 +43,7 @@ class SDSSPSF:
     """
 
     def __init__(self, sigma1, sigma2, sigmap, beta, b, p0,
-                 normalizing_constant=1.0, wing_beta3=False, device="cpu"):
+                 normalizing_constant=1.0, wing_beta3=False, device="cuda"):
         self.sigma1 = _t(sigma1, device)
         self.sigma2 = _t(sigma2, device)
         self.sigmap = _t(sigmap, device)
@@ -60,7 +60,7 @@ class SDSSPSF:
             )
 
     @classmethod
-    def create(cls, psf_params, psf_radius: int, device="cpu") -> "SDSSPSF":
+    def create(cls, psf_params, psf_radius: int, device="cuda") -> "SDSSPSF":
         params = [float(p) for p in psf_params]
         wing_beta3 = abs(params[3] - 3.0) < 1e-6
         unnorm = cls(*params, wing_beta3=wing_beta3, device=device)

@@ -1,14 +1,16 @@
-"""Kernels K1 and K2: the fused single-component MH sweep loop, and its
-plain version.
+"""Kernels K1, K2 and K3: the fused single-component MH sweep loop, and
+its plain version.
 
 ``mh_sweeps`` runs ``num_iters`` MH sweeps over a batch of particles. On a
-CUDA tensor it launches one of two hand-written kernels, which together
-replace ``smcdet_tpu/ops/pallas_sweep.py:_make_kernel`` for the tile
-target: K1 (``csrc/mh_sweep.cu``, the M71 main path: Gaussian noise, SDSS
-beta = 3, Pareto flux, 8x8) or K2 (``csrc/mh_sweep_k2.cu``, every other
-noise, PSF and flux prior on 8x8 and 16x16 tiles); ``sweep_kernel`` picks
-one or raises. On a CPU tensor it runs the plain PyTorch version,
-``mh_sweeps_reference``. There is no fallback from one to the other.
+CUDA tensor it launches one of three hand-written kernels, which together
+replace ``smcdet_tpu/ops/pallas_sweep.py:_make_kernel``: K1
+(``csrc/mh_sweep.cu``, the M71 main path: Gaussian noise, SDSS beta = 3,
+Pareto flux, 8x8), K2 (``csrc/mh_sweep_k2.cu``, every other tile target on
+8x8 and 16x16 tiles) or K3 (``csrc/mh_sweep_k3.cu``, the aggregation
+bridge target with its child term, on the joined 16x8 and 16x16 tiles);
+``sweep_kernel`` picks one or raises. On a CPU tensor it runs the plain
+PyTorch version, ``mh_sweeps_reference``. There is no fallback from one to
+the other.
 
 Both versions draw the same random stream: Philox4x32-10 with a 64-bit key
 drawn once per call and the counter ``(particle, sweep, draw,
@@ -20,7 +22,10 @@ kernel and the plain version can be compared particle by particle.
 Layouts (flattened groups ``G`` = tiles x strata): ``image [G, H*W]``,
 ``temperature [G]``, ``counts [G, N]`` int32, ``locs [G, N, M, 2]``,
 ``fluxes [G, N, M]``, ``rate [G, N, H*W]``, ``pll``/``lp`` ``[G, N]``,
-``key`` int64 ``[2]`` holding two 32-bit words.
+``key`` int64 ``[2]`` holding two 32-bit words. The bridge target adds
+``ChildTerm``: the child rate ``[G, N, H*W]``, the child log-likelihood
+``[G, N]`` and the slot origin tags ``[G, N, M]`` (or none, for the side of
+the star's location).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import math
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,15 +42,21 @@ from smcdet_tpu_torch.distributions import (
     truncated_normal_log_mass,
     truncated_normal_sample,
 )
+from smcdet_tpu_torch.models.priors import NormalFlux, ParetoFlux
+from smcdet_tpu_torch.models.psf import SDSSPSF, GaussianPSF
 
 __all__ = [
+    "ChildTerm",
     "MHProposal",
+    "even_pixels",
     "flux_prior_delta",
+    "location_window",
     "mh_sweeps",
     "mh_sweeps_reference",
     "philox4x32",
     "philox_uniforms",
     "select_slot",
+    "side_window",
     "sweep_kernel",
     "sweep_with_uniforms",
 ]
@@ -62,6 +74,43 @@ class MHProposal:
     fluxes_stdev: torch.Tensor
     flux_lo: torch.Tensor
     flux_hi: torch.Tensor
+
+
+class ChildTerm(NamedTuple):
+    """The aggregation bridge's child term: the child rate cache and
+    log-likelihood, the slot origin tags (1 = the even child; ``None``
+    assigns each star the side of its location instead), and the split of
+    the joined tile: pixels with ``coord < boundary`` along ``axis``
+    belong to the even child."""
+
+    rate: torch.Tensor
+    ll: torch.Tensor
+    slot_side: Optional[torch.Tensor]
+    axis: int
+    boundary: float
+
+
+def even_pixels(axis: int, boundary, height: int, width: int, device):
+    """``[H*W]`` bool: the flat pixels of the even child tile."""
+    p = torch.arange(height * width, device=device)
+    coord = torch.div(p, width, rounding_mode="floor") if axis == 0 \
+        else p % width
+    return coord < boundary
+
+
+def side_window(side_mask, model, side):
+    """Child pixel window ``[..., H*W]`` of stars with origin tags ``side
+    [...]`` (``side_mask`` carries ``.axis`` and ``.boundary``)."""
+    even = even_pixels(side_mask.axis, side_mask.boundary, model.height,
+                       model.width, side.device)
+    return torch.where(side[..., None] > 0.5, even, ~even)
+
+
+def location_window(axis: int, boundary, model, loc):
+    """Child pixel window ``[..., H*W]`` of stars at ``loc [..., 2]``: the
+    even child's pixels when ``loc[axis] <= boundary``."""
+    even = even_pixels(axis, boundary, model.height, model.width, loc.device)
+    return torch.where((loc[..., axis] <= boundary)[..., None], even, ~even)
 
 
 # ----------------------------------------------------------------------
@@ -148,16 +197,19 @@ def flux_prior_delta(prior, active, f_old, f_new):
 
 def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
                         image_flat, temperature, counts, locs, fluxes, rate,
-                        pll, lp):
+                        pll, lp, child: ChildTerm | None = None):
     """One single-component MH sweep given explicit uniforms.
 
     Port of ``smcdet_tpu/inference/kernels.py:SingleComponentMH.sweep``:
     one slot per particle, chosen uniformly over the occupied prefix, gets
     a truncated-normal move of its location and flux, accepted with the
-    tempered MH ratio including the truncation-mass correction.
+    tempered MH ratio including the truncation-mass correction. With
+    ``child`` the target is the bridge's ``lp + tau pll + (1 - tau) cll``
+    and the child rate follows the moved star inside its child window.
     ``u_j``/``u_f``/``u_acc`` are ``[..., N]``, ``u_loc`` ``[..., N, 2]``;
     ``image_flat`` and ``temperature`` broadcast against ``[..., N, H*W]``
-    and ``[..., N]``. Returns ``(locs, fluxes, rate, pll, lp, applied)``.
+    and ``[..., N]``. Returns ``(locs, fluxes, rate, pll, lp, applied)``,
+    and with ``child`` also ``(child_rate, cll)``.
     """
     onehot, active, loc_j, f_j = select_slot(u_j, counts, locs, fluxes)
 
@@ -169,13 +221,28 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
 
     old = model.star_image_flat(loc_j)
     new = model.star_image_flat(loc_prop)
+    a = active[..., None]
     d = model.adu_per_nmgy * (f_prop[..., None] * new - f_j[..., None] * old)
-    rate_prop = rate + torch.where(active[..., None], d, 0.0)
+    rate_prop = rate + torch.where(a, d, 0.0)
     pll_prop = model.loglikelihood_from_rate_flat(image_flat, rate_prop)
     lp_prop = lp + flux_prior_delta(prior, active, f_j, f_prop)
 
     log_target_old = lp + temperature * pll
     log_target_new = lp_prop + temperature * pll_prop
+    if child is not None:
+        if child.slot_side is not None:
+            side_j = (child.slot_side * onehot).sum(-1)
+            w_old = w_new = side_window(child, model, side_j)
+        else:
+            w_old = location_window(child.axis, child.boundary, model, loc_j)
+            w_new = location_window(child.axis, child.boundary, model,
+                                    loc_prop)
+        dc = model.adu_per_nmgy * (f_prop[..., None] * (new * w_new)
+                                   - f_j[..., None] * (old * w_old))
+        crate_prop = child.rate + torch.where(a, dc, 0.0)
+        cll_prop = model.loglikelihood_from_rate_flat(image_flat, crate_prop)
+        log_target_old = log_target_old + (1.0 - temperature) * child.ll
+        log_target_new = log_target_new + (1.0 - temperature) * cll_prop
     log_q = (
         truncated_normal_log_mass(loc_j, p.locs_stdev, lo, hi).sum(-1)
         - truncated_normal_log_mass(loc_prop, p.locs_stdev, lo, hi).sum(-1)
@@ -188,20 +255,26 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
     applied = accept & active
 
     sel = onehot & applied[..., None]
+    ap = applied[..., None]
     locs = torch.where(sel[..., None], loc_prop[..., None, :], locs)
     fluxes = torch.where(sel, f_prop[..., None], fluxes)
-    rate = torch.where(applied[..., None], rate_prop, rate)
+    rate = torch.where(ap, rate_prop, rate)
     pll = torch.where(applied, pll_prop, pll)
     lp = torch.where(applied, lp_prop, lp)
-    return locs, fluxes, rate, pll, lp, applied
+    if child is None:
+        return locs, fluxes, rate, pll, lp, applied
+    return (locs, fluxes, rate, pll, lp, applied,
+            torch.where(ap, crate_prop, child.rate),
+            torch.where(applied, cll_prop, child.ll))
 
 
 def mh_sweeps_reference(key, proposal, prior, model, image, temperature,
-                        counts, locs, fluxes, rate, pll, lp, num_iters: int):
-    """Plain PyTorch version of K1 for any target the eager model supports:
-    ``num_iters`` sweeps over the kernel's random stream. Returns
-    ``(locs, fluxes, rate, pll, lp, acc)`` with ``acc`` the applied fraction
-    per particle."""
+                        counts, locs, fluxes, rate, pll, lp, num_iters: int,
+                        child: ChildTerm | None = None):
+    """Plain PyTorch version of K1, K2 and K3 for any target the eager
+    model supports: ``num_iters`` sweeps over the kernels' random stream.
+    Returns ``(locs, fluxes, rate, pll, lp, acc)`` with ``acc`` the applied
+    fraction per particle, and with ``child`` also ``(child_rate, cll)``."""
     G, N = counts.shape
     key = [int(k) for k in key.tolist()]  # one host read, not one a sweep
     particle = torch.arange(G * N, device=counts.device).reshape(G, N)
@@ -210,14 +283,19 @@ def mh_sweeps_reference(key, proposal, prior, model, image, temperature,
     acc = torch.zeros((G, N), dtype=torch.float32, device=counts.device)
     for it in range(num_iters):
         u_j, u_y, u_x, u_f, u_acc = philox_uniforms(key, particle, it)
-        locs, fluxes, rate, pll, lp, applied = sweep_with_uniforms(
+        out = sweep_with_uniforms(
             u_j, torch.stack([u_y, u_x], -1), u_f, u_acc, prior=prior,
             model=model, proposal=proposal, image_flat=image_flat,
             temperature=tau, counts=counts, locs=locs, fluxes=fluxes,
-            rate=rate, pll=pll, lp=lp,
+            rate=rate, pll=pll, lp=lp, child=child,
         )
+        locs, fluxes, rate, pll, lp, applied = out[:6]
+        if child is not None:
+            child = child._replace(rate=out[6], ll=out[7])
         acc = acc + applied.to(torch.float32)
-    return locs, fluxes, rate, pll, lp, acc / num_iters
+    if child is None:
+        return locs, fluxes, rate, pll, lp, acc / num_iters
+    return locs, fluxes, rate, pll, lp, acc / num_iters, child.rate, child.ll
 
 
 # ----------------------------------------------------------------------
@@ -241,6 +319,9 @@ _K2_INTS = ("noise_kind", "psf_kind", "flux_kind")
 # K2's tile sizes and slot range (csrc/mh_sweep_k2.cu)
 K2_TILES = ((8, 8), (16, 16))
 K2_MAX_SLOTS = 16
+# K3's joined tiles and the most slots each is built for
+# (csrc/mh_sweep_k3.cu): the two levels of a 2x2 tile grid of 8x8 tiles
+K3_TILES = {(16, 8): 16, (16, 16): 32}
 
 
 class _MHParams(ctypes.Structure):
@@ -252,28 +333,12 @@ class _K2Params(ctypes.Structure):
                 + [(name, ctypes.c_int) for name in _K2_INTS])
 
 
-def sweep_kernel(prior, model, M: int) -> str:
-    """The CUDA kernel that runs this tile target: ``"K1"`` (Gaussian
-    noise, SDSS beta = 3, Pareto flux, 8x8, 1..8 slots) or ``"K2"`` (every
-    other noise, PSF and flux prior on 8x8 or 16x16 tiles with 1..16
-    slots). Raises ``NotImplementedError`` naming what is missing for a
-    target neither covers. The aggregation bridge (a child term) is kernel
-    K3, which the port's tile target does not carry yet."""
-    from smcdet_tpu_torch.models.priors import NormalFlux, ParetoFlux
-    from smcdet_tpu_torch.models.psf import SDSSPSF, GaussianPSF
+class _K3Params(ctypes.Structure):
+    _fields_ = [("base", _K2Params), ("boundary", ctypes.c_float),
+                ("child_axis", ctypes.c_int), ("side_from_tag", ctypes.c_int)]
 
-    pareto = isinstance(prior.flux, (TruncatedPareto, ParetoFlux))
-    if (model.noise == "gaussian" and isinstance(model.psf, SDSSPSF)
-            and model.psf.wing_beta3 and pareto
-            and (model.height, model.width) == (8, 8) and 1 <= M <= 8):
-        return "K1"
-    if (model.height, model.width) not in K2_TILES or not (
-            1 <= M <= K2_MAX_SLOTS):
-        raise NotImplementedError(
-            f"no CUDA sweep kernel for {model.height}x{model.width} tiles "
-            f"with M={M}: K2 is built for "
-            f"{' and '.join(f'{h}x{w}' for h, w in K2_TILES)} tiles with "
-            f"1..{K2_MAX_SLOTS} slots")
+
+def _check_target(prior, model, pareto):
     if not isinstance(model.psf, (SDSSPSF, GaussianPSF)):
         raise NotImplementedError(
             f"no CUDA sweep kernel for the PSF {type(model.psf).__name__}")
@@ -282,6 +347,37 @@ def sweep_kernel(prior, model, M: int) -> str:
         raise NotImplementedError(
             f"no CUDA sweep kernel for the flux prior "
             f"{type(prior.flux).__name__}")
+
+
+def sweep_kernel(prior, model, M: int, child: bool = False) -> str:
+    """The CUDA kernel that runs this target: ``"K1"`` (Gaussian noise,
+    SDSS beta = 3, Pareto flux, 8x8, 1..8 slots), ``"K2"`` (every other
+    noise, PSF and flux prior on 8x8 or 16x16 tiles with 1..16 slots) or,
+    for the aggregation bridge (``child``), ``"K3"`` (the joined 16x8 tile
+    with 1..16 slots and 16x16 with 1..32). Raises ``NotImplementedError``
+    naming what is missing for a target none covers."""
+    pareto = isinstance(prior.flux, (TruncatedPareto, ParetoFlux))
+    shape = (model.height, model.width)
+    if child:
+        if M < 1 or M > K3_TILES.get(shape, 0):
+            raise NotImplementedError(
+                f"no CUDA bridge sweep kernel for {shape[0]}x{shape[1]} "
+                f"tiles with M={M}: K3 is built for "
+                + " and ".join(f"{h}x{w} with 1..{m} slots"
+                               for (h, w), m in K3_TILES.items()))
+        _check_target(prior, model, pareto)
+        return "K3"
+    if (model.noise == "gaussian" and isinstance(model.psf, SDSSPSF)
+            and model.psf.wing_beta3 and pareto
+            and shape == (8, 8) and 1 <= M <= 8):
+        return "K1"
+    if shape not in K2_TILES or not 1 <= M <= K2_MAX_SLOTS:
+        raise NotImplementedError(
+            f"no CUDA sweep kernel for {shape[0]}x{shape[1]} tiles "
+            f"with M={M}: K2 is built for "
+            f"{' and '.join(f'{h}x{w}' for h, w in K2_TILES)} tiles with "
+            f"1..{K2_MAX_SLOTS} slots")
+    _check_target(prior, model, pareto)
     return "K2"
 
 
@@ -291,8 +387,6 @@ def _host_floats(values):
 
 
 def _pareto_lognorm(flux):
-    from smcdet_tpu_torch.models.priors import ParetoFlux
-
     if isinstance(flux, ParetoFlux):
         return torch.log(flux.alpha) + flux.alpha * torch.log(flux.scale)
     return flux.logpdf_norm_const
@@ -312,9 +406,6 @@ def _k1_params(proposal, prior, model) -> _MHParams:
 
 
 def _k2_params(proposal, prior, model) -> _K2Params:
-    from smcdet_tpu_torch.models.priors import NormalFlux
-    from smcdet_tpu_torch.models.psf import SDSSPSF
-
     psf, flux = model.psf, prior.flux
     zero = torch.tensor(0.0)
     if isinstance(psf, SDSSPSF):
@@ -345,9 +436,17 @@ def _k2_params(proposal, prior, model) -> _K2Params:
     return _K2Params(*_host_floats(values), noise_kind, psf_kind, flux_kind)
 
 
+def _k3_params(proposal, prior, model, child) -> _K3Params:
+    return _K3Params(_k2_params(proposal, prior, model),
+                     float(child.boundary), int(child.axis),
+                     int(child.slot_side is not None))
+
+
 _ENTRY_POINTS = {"K1": "smcdet_mh_sweeps_launch",
-                 "K2": "smcdet_mh_sweeps_k2_launch"}
-_PARAM_TYPES = {"K1": _MHParams, "K2": _K2Params}
+                 "K2": "smcdet_mh_sweeps_k2_launch",
+                 "K3": "smcdet_mh_sweeps_k3_launch"}
+_PARAMS = {"K1": (_MHParams, 15), "K2": (_K2Params, 15),
+           "K3": (_K3Params, 20)}
 
 
 def _entry(name: str):
@@ -355,8 +454,9 @@ def _entry(name: str):
 
     fn = getattr(_build.load_library(), _ENTRY_POINTS[name])
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
-                       + [_PARAM_TYPES[name], ctypes.c_void_p])
+        params, n_ptr = _PARAMS[name]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+                       + [params, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -373,21 +473,32 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def tag_bits(slot_side):
+    """Origin tags ``[G, N, M]`` (M <= 32) as one int64 bit mask per
+    particle, bit ``m`` set where slot ``m`` came from the even child."""
+    M = slot_side.shape[-1]
+    weights = torch.ones((), dtype=torch.int64, device=slot_side.device) \
+        << torch.arange(M, device=slot_side.device)
+    return ((slot_side > 0.5).to(torch.int64) * weights).sum(-1)
+
+
 def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
-              fluxes, rate, pll, lp, num_iters: int):
+              fluxes, rate, pll, lp, num_iters: int,
+              child: ChildTerm | None = None):
     """Run ``num_iters`` fused MH sweeps; returns ``(locs, fluxes, rate,
-    pll, lp, acc)`` (the outputs of ``pallas_mh_sweeps`` for the tile
-    target). CPU tensors take the plain version; CUDA tensors launch the
-    kernel ``sweep_kernel`` names (K1 or K2) on the current stream, without
-    synchronising, or raise ``NotImplementedError`` for a target neither
-    covers. ``mh_sweeps.launches`` counts K1 launches and
-    ``mh_sweeps.k2_launches`` K2 launches."""
+    pll, lp, acc)``, and with ``child`` also ``(child_rate, cll)`` (the
+    outputs of ``pallas_mh_sweeps``).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    ``sweep_kernel`` names (K1, K2, or K3 with ``child``) on the current
+    stream, without synchronising, or raise ``NotImplementedError`` for a
+    target none covers. ``mh_sweeps.launches``, ``.k2_launches`` and
+    ``.k3_launches`` count the launches of each."""
     if not locs.is_cuda:
         return mh_sweeps_reference(key, proposal, prior, model, image,
                                    temperature, counts, locs, fluxes, rate,
-                                   pll, lp, num_iters)
+                                   pll, lp, num_iters, child)
     G, N, M = fluxes.shape
-    name = sweep_kernel(prior, model, M)
+    name = sweep_kernel(prior, model, M, child=child is not None)
     if num_iters < 1:
         raise ValueError("num_iters must be positive")
     HW = model.height * model.width
@@ -402,14 +513,26 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
     _check("rate", rate, (G, N, HW), f32, dev)
     _check("pll", pll, (G, N), f32, dev)
     _check("lp", lp, (G, N), f32, dev)
-    make_params = _k1_params if name == "K1" else _k2_params
-    params = make_params(proposal, prior, model)
-    fn = _entry(name)
+    ins = [key, image, temperature, counts, locs, fluxes, rate, pll, lp]
     outs = [torch.empty_like(t) for t in (locs, fluxes, rate, pll, lp, pll)]
+    if name == "K3":
+        _check("child_rate", child.rate, (G, N, HW), f32, dev)
+        _check("cll", child.ll, (G, N), f32, dev)
+        tags = None
+        if child.slot_side is not None:
+            _check("slot_side", child.slot_side, (G, N, M), f32, dev)
+            tags = tag_bits(child.slot_side)
+        ins += [child.rate, child.ll, tags]
+        outs += [torch.empty_like(child.rate), torch.empty_like(child.ll)]
+        params = _k3_params(proposal, prior, model, child)
+    elif name == "K2":
+        params = _k2_params(proposal, prior, model)
+    else:
+        params = _k1_params(proposal, prior, model)
+    fn = _entry(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in (key, image, temperature, counts,
-                                           locs, fluxes, rate, pll, lp)),
+        err = fn(*(None if t is None else t.data_ptr() for t in ins),
                  *(t.data_ptr() for t in outs), G, N, M, model.height,
                  model.width, num_iters, params, stream)
     if err != 0:
@@ -417,10 +540,13 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
                            f"error {err}")
     if name == "K1":
         mh_sweeps.launches += 1
-    else:
+    elif name == "K2":
         mh_sweeps.k2_launches += 1
+    else:
+        mh_sweeps.k3_launches += 1
     return tuple(outs)
 
 
 mh_sweeps.launches = 0
 mh_sweeps.k2_launches = 0
+mh_sweeps.k3_launches = 0

@@ -7,7 +7,10 @@
         --config config.yaml --generate
 
 The experiment is a config file, or a suite directory with ``--config``
-naming the file in it (default ``config.yaml``). ``--generate`` writes the
+naming the file in it (default ``config.yaml``); a relative ``data_path``
+that does not exist from the working directory is read from the suite
+directory (``experiments/m71/config.yaml`` reads
+``experiments/m71/data/m71/tiles.npz``). ``--generate`` writes the
 simulated tiles to ``{output_dir}/{name}/tiles.npz`` instead of running.
 ``--device`` defaults to ``cuda`` and is never swapped for another device:
 without a CUDA card, pass ``--device cpu`` to run the plain PyTorch
@@ -38,8 +41,8 @@ def _config_path(experiment: str, config: str | None) -> Path:
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m smcdet_tpu_torch.run_experiment",
-        description="Run CS-SMC on an experiment suite with the PyTorch "
-                    "port.")
+        description="Run an experiment suite (CS-SMC, and the aggregation "
+                    "when the config enables it) with the PyTorch port.")
     parser.add_argument("experiment",
                         help="config YAML, or a suite directory")
     parser.add_argument("--config", default=None,
@@ -54,7 +57,14 @@ def main(argv=None):
                         help="write the simulated tiles.npz and exit")
     args = parser.parse_args(argv)
 
-    cfg = load_config(_config_path(args.experiment, args.config))
+    path = _config_path(args.experiment, args.config)
+    cfg = load_config(path)
+    if cfg.data_path is not None and not Path(cfg.data_path).exists():
+        # a suite's data path is relative to its directory (the JAX
+        # experiment scripts run from there)
+        local = path.parent / cfg.data_path
+        if local.exists():
+            cfg.data_path = str(local)
     if args.num_images is not None:
         cfg.num_images = args.num_images
     if args.generate:

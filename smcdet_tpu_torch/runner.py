@@ -1,13 +1,17 @@
-"""Batch experiment runner with resume (port of ``smcdet_tpu/runner.py``,
-chunked CS-SMC path).
+"""Batch experiment runner with resume (port of ``smcdet_tpu/runner.py``).
 
-Simulate or load tiles, run CS-SMC per batch on ``device`` and write one
+Simulate or load tiles, run inference per batch on ``device`` and write one
 ``{output_dir}/{name}/smc_batch{b:04d}.npz`` per batch, with the keys,
 shapes and dtypes of the JAX runner's, so either package's
 ``load_results`` (and ``experiments/analyze.py``) reads either's output. A
 job skips batches whose file exists (resume) and takes every
-``num_jobs``-th batch from ``job_index`` (sharding). Aggregation, the
-streaming pool and the MCMC baseline are not ported yet and raise.
+``num_jobs``-th batch from ``job_index`` (sharding).
+
+Two pipelines: chunked CS-SMC over the batch's tiles, or, with
+``aggregation.enabled``, the per-image pipeline (tile the image, CS-SMC on
+its tiles, divide-and-conquer aggregation), which also takes per-tile
+background maps (``use_tile_backgrounds``). The streaming pool and the MCMC
+baseline are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -32,10 +36,11 @@ __all__ = ["batch_generator", "simulate_tiles", "run_experiment",
            "load_results"]
 
 
-def batch_generator(seed: int, batch: int, device) -> torch.Generator:
-    """The generator of batch ``batch``: seeded from ``(seed, batch)``
-    alone, so a resumed or sharded job reproduces the batch."""
-    words = np.random.SeedSequence([seed, batch]).generate_state(
+def batch_generator(seed: int, batch: int, device, *more) -> torch.Generator:
+    """The generator of batch ``batch`` (and of its image and replicate
+    ``*more`` in the per-image pipeline): seeded from these integers alone,
+    so a resumed or sharded job reproduces the batch."""
+    words = np.random.SeedSequence([seed, batch, *more]).generate_state(
         2, dtype=np.uint32)
     g = torch.Generator(device=device)
     g.manual_seed((int(words[0]) << 31) | (int(words[1]) >> 1))
@@ -48,8 +53,8 @@ def simulate_tiles(cfg: ExperimentConfig):
     machine. They differ from the JAX package's simulation of the same
     config, whose random stream is JAX's. Returns a dict of numpy arrays
     (the keys of the JAX runner's ``tiles.npz``)."""
-    prior = build_prior(cfg.prior)
-    model = build_image_model(cfg.image_model)
+    prior = build_prior(cfg.prior, "cpu")
+    model = build_image_model(cfg.image_model, "cpu")
     sim = generate_images(
         torch.Generator().manual_seed(cfg.seed),
         prior,
@@ -95,9 +100,7 @@ def _check_supported(cfg: ExperimentConfig, method: str):
     if method != "smc":
         raise ValueError(f"unknown method {method!r}")
     if cfg.aggregation.enabled:
-        raise NotImplementedError(
-            "aggregation is not ported yet (ROADMAP item 9; it needs "
-            "kernel K3, the bridge-target sweep)")
+        return
     if cfg.sampler.streaming:
         raise NotImplementedError(
             "the streaming tile pool is not ported yet (ROADMAP item 11)")
@@ -105,6 +108,103 @@ def _check_supported(cfg: ExperimentConfig, method: str):
         raise ValueError(
             "per-tile backgrounds require the per-image pipeline "
             "(aggregation.enabled: true)")
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _aggregate_runner(cfg: ExperimentConfig, prior, model, kernel,
+                      smc_cfg: SMCConfig, device):
+    """The per-image pipeline: tile each image, run CS-SMC on its tiles,
+    then aggregate them (the JAX runner's ``_make_smc_aggregate_runner``).
+    Images run one at a time; ``sampler.replicates`` independent runs of an
+    image pool into one particle set, their log Z by log-mean-exp. Returns
+    ``run(batch, imgs, bkgs)`` giving the JAX ``AggregatedResult`` fields
+    as numpy arrays stacked over the images."""
+    from smcdet_tpu_torch.inference.aggregate import Aggregate, expand_prior
+    from smcdet_tpu_torch.inference.smc import SMCSampler, tile_image
+
+    # the config describes the whole image; the tile sampler needs
+    # tile-level objects (the count rate rescaled to the padded tile area)
+    td = cfg.sampler.tile_dim
+    tile_prior = expand_prior(prior, td, td, prior.max_objects)
+    tile_model = model.with_shape(td, td)
+    replicates = cfg.sampler.replicates
+    agg_cfg = cfg.aggregation
+
+    def process_once(batch, i, r, img, bkg):
+        gen = batch_generator(cfg.seed, batch, device, i, r)
+        model_i = tile_model
+        if bkg is not None:
+            # the image's background map tiled like the image: a bare
+            # [h, w] map for a single tile, else [T, 1, 1, h, w]
+            bmap = tile_image(bkg, img.shape[0] // td, img.shape[1] // td,
+                              td)
+            model_i = tile_model.with_background(
+                bmap[0] if bmap.shape[0] == 1 else bmap[:, None, None])
+        sampler = SMCSampler(
+            image=img, tile_dim=td, Prior=tile_prior, ImageModel=model_i,
+            MutationKernel=kernel, num_catalogs=smc_cfg.num_catalogs,
+            ess_threshold_prop=smc_cfg.ess_threshold_prop,
+            resample_method=smc_cfg.resample_method,
+            flux_detection_threshold=smc_cfg.flux_detection_threshold,
+            max_smc_iters=smc_cfg.max_smc_iters,
+            relocate_sweeps=smc_cfg.relocate_sweeps,
+            pair_sweeps=smc_cfg.pair_sweeps,
+        )
+        sampler.run(gen)
+        agg = Aggregate.from_smc(
+            sampler, resample_method=agg_cfg.resample_method,
+            ess_threshold_prop=agg_cfg.ess_threshold_prop,
+            max_smc_iters=agg_cfg.max_smc_iters,
+            max_objects_cap=agg_cfg.max_objects_cap,
+            relocate_sweeps=agg_cfg.relocate_sweeps,
+            pair_sweeps=agg_cfg.pair_sweeps,
+        )
+        agg.run(gen)
+        return {
+            "counts": agg.state.counts[0, 0],
+            "locs": agg.state.locs[0, 0],
+            "fluxes": agg.state.fluxes[0, 0],
+            "pruned_counts": agg.pruned_counts[0, 0],
+            "pruned_locs": agg.pruned_locs[0, 0],
+            "pruned_fluxes": agg.pruned_fluxes[0, 0],
+            "weights": agg.state.weights[0, 0],
+            "log_normalizing_constant": agg.state.log_z[0, 0],
+        }
+
+    def process(batch, i, img, bkg):
+        runs = [process_once(batch, i, r, img, bkg)
+                for r in range(replicates)]
+        if replicates == 1:
+            return runs[0]
+        out = {k: torch.cat([o[k] for o in runs])
+               for k in runs[0] if k != "log_normalizing_constant"}
+        out["weights"] = out["weights"] / float(replicates)
+        out["log_normalizing_constant"] = torch.logsumexp(
+            torch.stack([o["log_normalizing_constant"] for o in runs]),
+            dim=0) - np.log(float(replicates))
+        return out
+
+    def run(batch, imgs, bkgs=None):
+        outs, per_image_s = [], []
+        for i in range(imgs.shape[0]):
+            _sync(device)
+            start = time.perf_counter()
+            out = process(batch, i, imgs[i],
+                          None if bkgs is None else bkgs[i])
+            _sync(device)
+            per_image_s.append(time.perf_counter() - start)
+            outs.append(out)
+        stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+                   for k in outs[0]}
+        stacked["runtime_per_image"] = np.asarray(per_image_s,
+                                                  dtype=np.float32)
+        return {k: stacked[k] for k in sorted(stacked)}
+
+    return run
 
 
 def _to_numpy(v):
@@ -116,13 +216,14 @@ def _to_numpy(v):
 def run_experiment(cfg: ExperimentConfig, method: str = "smc",
                    job_index: int = 0, num_jobs: int = 1,
                    verbose: bool = True, device="cuda"):
-    """Run CS-SMC over the experiment's images in batches of
-    ``cfg.batch_size`` on ``device``, writing
-    ``{output_dir}/{name}/smc_batch{b:04d}.npz`` and
+    """Run the experiment over its images in batches of ``cfg.batch_size``
+    on ``device``, writing ``{output_dir}/{name}/smc_batch{b:04d}.npz`` and
     ``smc_manifest_job{job_index}.json``; returns the output directory.
 
     A ragged last batch is padded with copies of its last image and the
-    results sliced back. Existing batch files are skipped (resume).
+    results sliced back. Existing batch files are skipped (resume). On the
+    card the kernel library is built and loaded before the first batch's
+    clock starts.
     """
     _check_supported(cfg, method)
     if not 0 <= job_index < num_jobs:
@@ -137,6 +238,14 @@ def run_experiment(cfg: ExperimentConfig, method: str = "smc",
                              dtype=torch.float32)
     num_images = images.shape[0]
     num_batches = -(-num_images // cfg.batch_size)
+    backgrounds = None
+    if cfg.use_tile_backgrounds:
+        if "background" not in tiles:
+            raise ValueError(
+                "use_tile_backgrounds=True but the tiles artifact has no "
+                "'background' maps: run the experiment's prepare step")
+        backgrounds = torch.as_tensor(
+            tiles["background"][: cfg.num_images], dtype=torch.float32)
 
     prior = build_prior(cfg.prior, device)
     model = build_image_model(cfg.image_model, device)
@@ -151,6 +260,19 @@ def run_experiment(cfg: ExperimentConfig, method: str = "smc",
         relocate_sweeps=s.relocate_sweeps,
         pair_sweeps=s.pair_sweeps,
     )
+    if cfg.aggregation.enabled:
+        run = _aggregate_runner(cfg, prior, model, kernel, smc_cfg, device)
+    else:
+        def run(batch, imgs, bkgs=None):
+            res = run_csmc_chunked(batch_generator(cfg.seed, batch, device),
+                                   imgs, prior, model, kernel, smc_cfg,
+                                   sort_tiles=s.sort_tiles)
+            return {f: _to_numpy(getattr(res, f)) for f in res._fields
+                    if getattr(res, f) is not None}
+    if device.type == "cuda":
+        from smcdet_tpu_torch import _build
+
+        _build.load_library()  # the nvcc build is set-up, not batch time
 
     manifest = {"config": cfg.name, "method": method, "batches": []}
     for b in range(num_batches):
@@ -164,31 +286,19 @@ def run_experiment(cfg: ExperimentConfig, method: str = "smc",
         lo, hi = b * cfg.batch_size, min((b + 1) * cfg.batch_size,
                                          num_images)
         n_real = hi - lo
-        imgs = images[lo:hi]
-        if n_real < cfg.batch_size:
-            pad = imgs[-1:].expand((cfg.batch_size - n_real,)
-                                   + imgs.shape[1:])
-            imgs = torch.cat([imgs, pad])
-        imgs = imgs.to(device)
+        imgs = _pad_batch(images[lo:hi], cfg.batch_size).to(device)
+        bkgs = None if backgrounds is None else _pad_batch(
+            backgrounds[lo:hi], cfg.batch_size).to(device)
 
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
         start = time.perf_counter()
-        result = run_csmc_chunked(batch_generator(cfg.seed, b, device), imgs,
-                                  prior, model, kernel, smc_cfg,
-                                  sort_tiles=s.sort_tiles)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        result = run(b, imgs, bkgs)
+        _sync(device)
         runtime = time.perf_counter() - start
 
-        arrays = {}
-        for f in result._fields:
-            v = getattr(result, f)
-            if v is None:
-                continue
-            v = _to_numpy(v)
-            arrays[f] = (v[:n_real] if v.ndim >= 1
-                         and v.shape[0] == cfg.batch_size else v)
+        arrays = {f: (v[:n_real] if v.ndim >= 1
+                      and v.shape[0] == cfg.batch_size else v)
+                  for f, v in result.items()}
         arrays["runtime"] = np.asarray(runtime)
         arrays["image_index"] = np.arange(lo, hi)
         np.savez_compressed(path, **arrays)
@@ -201,6 +311,14 @@ def run_experiment(cfg: ExperimentConfig, method: str = "smc",
     with open(out_dir / f"{method}_manifest_job{job_index}.json", "w") as f:
         json.dump(manifest, f, indent=2)
     return out_dir
+
+
+def _pad_batch(x, size: int):
+    """Pad a ragged batch to ``size`` with copies of its last entry."""
+    if x.shape[0] < size:
+        x = torch.cat([x, x[-1:].expand((size - x.shape[0],)
+                                         + x.shape[1:])])
+    return x
 
 
 def load_results(out_dir, method: str = "smc"):

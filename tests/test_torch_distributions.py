@@ -84,7 +84,7 @@ def test_truncated_pareto(alpha, lower, upper):
     jp = jd.TruncatedPareto(alpha=jnp.float32(alpha),
                             lower=jnp.float32(lower),
                             upper=jnp.float32(upper))
-    tp = td.TruncatedPareto(alpha, lower, upper)
+    tp = td.TruncatedPareto(alpha, lower, upper, device="cpu")
     np.testing.assert_allclose(float(tp.logpdf_norm_const),
                                float(jp.logpdf_norm_const), rtol=RTOL)
     key = jax.random.key(4)

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card (CUDA only; every test skips without a
+"""Kernels K1, K2 and K3 on the card (CUDA only; every test skips without a
 card).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -151,7 +151,7 @@ def test_cuda_kernel_matches_plain_version(dev, max_objects):
             torch.Generator(device=dev).manual_seed(3), ctx, counts, state)
     torch.cuda.synchronize()
     close = torch.ones(counts.shape, dtype=torch.bool, device=dev)
-    for a, b in zip(outs["auto"], outs["torch"]):
+    for a, b in zip(outs["auto"][:5], outs["torch"][:5]):  # tile fields
         ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
         close &= ok.reshape(counts.shape + (-1,)).all(-1)
     assert float(close.float().mean()) >= 0.99
@@ -199,7 +199,7 @@ def test_k2_matches_plain_version(dev, name, N):
     out, acc = kernel.run_from_state(
         torch.Generator(device=dev).manual_seed(1), ctx, zc, zstate)
     torch.cuda.synchronize()
-    for a, b in zip(out, zstate):
+    for a, b in zip(out[:5], zstate[:5]):  # the tile target's fields
         assert torch.equal(a, b)
     assert float(acc.max()) == 0.0
 
@@ -211,7 +211,109 @@ def test_k2_matches_plain_version(dev, name, N):
             torch.Generator(device=dev).manual_seed(3), ctx, counts, state)
     torch.cuda.synchronize()
     close = torch.ones(counts.shape, dtype=torch.bool, device=dev)
+    for a, b in zip(outs["auto"][:5], outs["torch"][:5]):  # tile fields
+        ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
+        close &= ok.reshape(counts.shape + (-1,)).all(-1)
+    assert float(close.float().mean()) >= 0.99
+
+
+def _bridge_target(dev, name="m71", shape=(16, 8), mode="tag", N=512,
+                   M=None):
+    """An aggregation-bridge target on a joined tile: random catalogs with
+    counts varying per particle, origin tags (``mode`` "tag") or the side
+    of each star's location ("location"), a ghost rate, temperature 0.4.
+    ``name``: "m71" (Gaussian noise, SDSS beta = 3, truncated Pareto) or
+    "poisson" (Poisson noise, Gaussian PSF, Normal flux)."""
+    from smcdet_tpu_torch.inference.aggregate import SideMask, expand_prior
+
+    h, w = shape
+    M = M or (16 if shape == (16, 8) else 32)
+    if name == "m71":
+        prior = M71Prior(0, 8, 0.012, 8, 8, 0.214, 7.0, 1804.679, pad=1.0,
+                         device=dev)
+        model = M71ImageModel(8, 8, 865.0, 856.0,
+                              (1.51, 4.85, 1.32, 3.0, 0.09, 0.002), 8,
+                              0.001, 1.94, device=dev)
+        kernel = SingleComponentMH(20, 0.25, 5.0, 7.0, 1804.679, device=dev)
+    else:
+        prior, kernel = _normal_flux(dev, 8, 8)
+        model = ImageModel(8, 8, 4, GaussianPSF(1.0, device=dev),
+                           noise="poisson", background=100.0, device=dev)
+    prior = expand_prior(prior, h, w, M)
+    model = model.with_shape(h, w)
+    g = torch.Generator(device=dev).manual_seed(0)
+    G = 2
+    counts = torch.randint(0, M + 1, (1, G, N), generator=g, device=dev,
+                           dtype=torch.int32)
+    locs, fluxes = prior.sample_marks(g, counts, (1, G, N))
+    tags = (torch.rand((1, G, N, M), generator=g, device=dev) < 0.5).float()
+    ghost = 50.0 * torch.rand((1, G, N, h * w), generator=g, device=dev)
+    images = model.sample(g, locs[0, :, 0], fluxes[0, :, 0]).abs()[None]
+    ctx = TargetContext(prior, model, images[:, :, None],
+                        torch.full((1, G, 1), 0.4, device=dev),
+                        child_model=model,
+                        child_side_mask=SideMask(0, h // 2, h, w),
+                        child_slot_side=tags if mode == "tag" else None,
+                        child_ghost_rate=ghost)
+    return kernel, ctx, counts, locs, fluxes
+
+
+@pytest.mark.parametrize("name,shape,mode", [
+    ("m71", (16, 8), "tag"), ("m71", (16, 16), "tag"),
+    ("m71", (16, 8), "location"), ("poisson", (16, 16), "tag")])
+def test_k3_matches_plain_version(dev, name, shape, mode):
+    """K3: zero-count passthrough bit-exact; same key, 20 sweeps, >= 99% of
+    particles agree with the plain version in both caches to rtol 1e-4
+    (the rest are accept flips on the boundary); a K3 launch per bridge
+    mutation, never a K1 or K2 one."""
+    kernel, ctx, counts, locs, fluxes = _bridge_target(dev, name, shape,
+                                                       mode)
+    M = fluxes.shape[-1]
+    assert mh_sweep.sweep_kernel(ctx.prior, ctx.model, M, child=True) == "K3"
+    zc = torch.zeros_like(counts)
+    zstate = init_kernel_state(ctx, zc, locs, fluxes)
+    before = (mh_sweep.mh_sweeps.launches, mh_sweep.mh_sweeps.k2_launches,
+              mh_sweep.mh_sweeps.k3_launches)
+    out, acc = kernel.run_from_state(
+        torch.Generator(device=dev).manual_seed(1), ctx, zc, zstate)
+    torch.cuda.synchronize()
+    for a, b in zip(out, zstate):
+        assert torch.equal(a, b)
+    assert float(acc.max()) == 0.0
+    assert (mh_sweep.mh_sweeps.launches, mh_sweep.mh_sweeps.k2_launches,
+            mh_sweep.mh_sweeps.k3_launches) == (before[0], before[1],
+                                                before[2] + 1)
+
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    outs = {}
+    for backend in ("auto", "torch"):
+        kernel.backend = backend
+        outs[backend], acc = kernel.run_from_state(
+            torch.Generator(device=dev).manual_seed(3), ctx, counts, state)
+    torch.cuda.synchronize()
+    assert float(acc.mean()) > 0.01
+    close = torch.ones(counts.shape, dtype=torch.bool, device=dev)
     for a, b in zip(outs["auto"], outs["torch"]):
         ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
         close &= ok.reshape(counts.shape + (-1,)).all(-1)
     assert float(close.float().mean()) >= 0.99
+
+
+def test_k3_raises_for_an_unbuilt_joined_tile(dev):
+    """A bridge on a joined tile K3 is not built for (the 32x16 tile of a
+    4x4 grid) raises on the card instead of running the plain version."""
+    kernel, ctx, *_ = _bridge_target(dev, shape=(16, 8))
+    wide = ctx.model.with_shape(32, 16)
+    G, N, M, HW = 2, 64, 16, 512
+    z = torch.zeros
+    child = mh_sweep.ChildTerm(torch.ones((G, N, HW), device=dev),
+                               z((G, N), device=dev),
+                               z((G, N, M), device=dev), 0, 16)
+    with pytest.raises(NotImplementedError, match="32x16"):
+        mh_sweep.mh_sweeps(
+            z(2, dtype=torch.int64, device=dev), kernel.proposal(ctx.prior),
+            ctx.prior, wide, z((G, HW), device=dev), z(G, device=dev),
+            z((G, N), dtype=torch.int32, device=dev),
+            z((G, N, M, 2), device=dev), z((G, N, M), device=dev),
+            torch.ones((G, N, HW), device=dev), z((G, N), device=dev),
+            z((G, N), device=dev), 5, child=child)

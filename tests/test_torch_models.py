@@ -30,7 +30,7 @@ PSF_PARAMS = (1.33, 4.82, 3.15, 3.0, 0.06, 0.002)
 def test_sdss_psf_normalizing_constant_and_profile(beta, radius):
     params = PSF_PARAMS[:3] + (beta,) + PSF_PARAMS[4:]
     jp = jpsf.SDSSPSF.create(params, radius)
-    tp = tpsf.SDSSPSF.create(params, radius)
+    tp = tpsf.SDSSPSF.create(params, radius, device="cpu")
     assert tp.wing_beta3 == jp.wing_beta3 == (beta == 3.0)
     np.testing.assert_allclose(float(tp.normalizing_constant),
                                float(jp.normalizing_constant), rtol=RTOL)
@@ -42,13 +42,14 @@ def test_sdss_psf_normalizing_constant_and_profile(beta, radius):
 
 def test_sdss_psf_wing_flag_guard():
     with pytest.raises(ValueError, match="wing_beta3"):
-        tpsf.SDSSPSF(*PSF_PARAMS[:3], 2.5, *PSF_PARAMS[4:], wing_beta3=True)
+        tpsf.SDSSPSF(*PSF_PARAMS[:3], 2.5, *PSF_PARAMS[4:], wing_beta3=True,
+                     device="cpu")
 
 
 def test_gaussian_psf():
     r2 = np.linspace(0.0, 30.0, 301, dtype=np.float32)
     np.testing.assert_allclose(
-        tpsf.GaussianPSF(1.3).normalized(t(r2)).numpy(),
+        tpsf.GaussianPSF(1.3, device="cpu").normalized(t(r2)).numpy(),
         np.asarray(jpsf.GaussianPSF(stdev=jnp.float32(1.3)).normalized(r2)),
         rtol=RTOL, atol=ATOL,
     )
@@ -178,7 +179,7 @@ def test_prior_factories_match_jax(name):
 
     kw = _FACTORIES[name]
     jp = getattr(jpr, name)(**kw)
-    tp = getattr(tpr, name)(**kw)
+    tp = getattr(tpr, name)(**kw, device="cpu")
     M = jp.max_objects
     assert (tp.min_objects, tp.max_objects, tp.num_counts) == (
         jp.min_objects, M, jp.num_counts)
@@ -202,7 +203,7 @@ def test_prior_factories_match_jax(name):
 def test_geometric_counts_sample_matches_pmf():
     from smcdet_tpu_torch.models.priors import GeometricCounts
 
-    gc = GeometricCounts()
+    gc = GeometricCounts(device="cpu")
     draws = gc.sample((200_000,), torch.Generator().manual_seed(0))
     assert draws.dtype == torch.int32 and int(draws.min()) == 0
     ks = torch.arange(5)
@@ -251,3 +252,33 @@ def test_generate_images_prunes_like_jax():
                  (sim.unpruned_counts, jsim.unpruned_counts)):
         assert abs(float(a.float().mean()) - float(np.mean(b))) < 0.2 * (
             float(np.mean(b)) + 1.0)
+
+
+def test_public_constructors_default_to_the_card():
+    """Every public constructor and build function of the port defaults to
+    ``device="cuda"``: nothing falls back to the CPU unless asked."""
+    import inspect
+
+    from smcdet_tpu_torch import config, convert, distributions
+    from smcdet_tpu_torch.inference import kernels
+    from smcdet_tpu_torch.models import imaging, priors, psf
+
+    factories = [
+        distributions.TruncatedPareto, priors.PoissonCounts,
+        priors.GeometricCounts, priors.NormalFlux, priors.ParetoFlux,
+        priors.PointProcessPrior, priors.PoissonProcessPrior,
+        priors.GeometricProcessPrior, priors.StarPrior,
+        priors.ParetoStarPrior, priors.M71Prior, imaging.ImageModel,
+        imaging.M71ImageModel, psf.GaussianPSF, psf.SDSSPSF,
+        psf.SDSSPSF.create, kernels.SingleComponentMH, config.build_prior,
+        config.build_image_model, config.build_kernel,
+        convert.prior_from_params, convert.image_model_from_params,
+        convert.mh_kernel_from_params,
+    ]
+    for b in factories:
+        default = inspect.signature(b).parameters["device"].default
+        assert default == "cuda", (b, default)
+    if not torch.cuda.is_available():
+        # without a card, building on the default device raises
+        with pytest.raises((AssertionError, RuntimeError)):
+            psf.GaussianPSF(1.0)

@@ -62,8 +62,9 @@ def _problem(name, T=2, N=64, temperature=0.3):
     counts = np.broadcast_to(np.asarray(strata)[None, :, None], (T, C, N))
     jctx = JaxCtx(prior=jprior, model=jmodel, image=images[:, None, None],
                   temperature=jax.numpy.full((T, 1, 1), temperature))
-    pctx = TargetContext(tcfg.build_prior(tcfg.PriorConfig(**pc)),
-                         tcfg.build_image_model(tcfg.ImageModelConfig(**ic)),
+    pctx = TargetContext(tcfg.build_prior(tcfg.PriorConfig(**pc), "cpu"),
+                         tcfg.build_image_model(tcfg.ImageModelConfig(**ic),
+                                                "cpu"),
                          t(images)[:, None, None],
                          torch.full((T, 1, 1), temperature))
     return jctx, pctx, counts, locs, fluxes
@@ -152,7 +153,7 @@ def test_csmc_step_runs_relocation_and_blends_acceptance():
     images = pctx.image[:, 0, 0]
     kernel = tcfg.build_kernel(tcfg.KernelConfig(
         num_iters=2, locs_stdev=0.1, fluxes_stdev=100.0, fluxes_min=345.84,
-        fluxes_max=1e6))
+        fluxes_max=1e6), "cpu")
     cfg = SMCConfig(num_catalogs=32, resample_method="systematic",
                     relocate_sweeps=3)
     state = csmc_init(torch.Generator().manual_seed(0), images, pctx.prior,

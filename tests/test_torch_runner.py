@@ -1,7 +1,8 @@
 """The port's experiment entry point (smcdet_tpu_torch/runner.py and
 run_experiment.py) against smcdet_tpu/runner.py at a tiny size: the same
 tiles in, the same files, keys, shapes and dtypes out, each package's
-``load_results`` reading the other's output."""
+``load_results`` reading the other's output; for the chunked CS-SMC path
+and for the per-image aggregation pipeline."""
 
 import dataclasses
 import json
@@ -119,8 +120,13 @@ def test_runner_resumes_and_shards_reproducibly(tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+def _enable_pair_sweeps(cfg):
+    cfg.aggregation.enabled = True
+    cfg.aggregation.pair_sweeps = 8
+
+
 @pytest.mark.parametrize("change,match", [
-    (lambda c: setattr(c.aggregation, "enabled", True), "item 9"),
+    (_enable_pair_sweeps, "item 7"),
     (lambda c: setattr(c.sampler, "streaming", True), "item 11"),
 ])
 def test_runner_rejects_unported_paths(tmp_path, change, match):
@@ -176,3 +182,121 @@ def test_cli_refuses_a_missing_card(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="CUDA"):
         cli_main([str(tmp_path / "c.yaml")])
     assert not (Path(cfg.output_dir) / cfg.name).exists()
+
+
+# ----------------------------------------------------------------------
+# The per-image aggregation pipeline
+# ----------------------------------------------------------------------
+def _tiny_dnc(tmp_path, out="out_torch"):
+    """The divideandconquer suite at a tiny size: one batch of one 16x16
+    image (a 2x2 grid of 8x8 tiles), N = 16, 2 sweeps, 2 relocations, at
+    most 3 tile and 3 bridge iterations. (The JAX runner compiles its
+    pipeline on its first image: about 25 s on the CPU.)"""
+    cfg = tcfg.load_config(REPO / "experiments" / "divideandconquer"
+                           / "config.yaml")
+    cfg.num_images = 1
+    cfg.batch_size = 1
+    cfg.output_dir = str(tmp_path / out)
+    cfg.sampler.num_catalogs = 16
+    cfg.sampler.max_smc_iters = 3
+    cfg.kernel.num_iters = 2
+    cfg.aggregation.max_smc_iters = 3
+    cfg.aggregation.relocate_sweeps = 2
+    tiles = tmp_path / "tiles.npz"
+    if not tiles.exists():
+        np.savez_compressed(tiles, **trunner.simulate_tiles(cfg))
+    cfg.data_path = str(tiles)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def agg_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("agg_runner")
+    cfg = _tiny_dnc(tmp)
+    with pytest.warns(UserWarning, match="max_smc_iters"):
+        tdir = trunner.run_experiment(cfg, device="cpu", verbose=False)
+    path = tmp / "cfg.yaml"
+    tcfg.save_config(dataclasses.replace(cfg, output_dir=str(
+        tmp / "out_jax")), path)
+    with pytest.warns(UserWarning, match="max_smc_iters"):
+        jdir = jrunner.run_experiment(jcfg.load_config(path), verbose=False)
+    return tdir, jdir
+
+
+_AGG_KEYS = ["counts", "fluxes", "image_index", "locs",
+             "log_normalizing_constant", "pruned_counts", "pruned_fluxes",
+             "pruned_locs", "runtime", "runtime_per_image", "weights"]
+
+
+def test_aggregation_runner_writes_the_jax_runners_files(agg_runs):
+    tdir, jdir = agg_runs
+    names = sorted(p.name for p in Path(tdir).iterdir())
+    assert names == sorted(p.name for p in Path(jdir).iterdir())
+    assert names == ["smc_batch0000.npz", "smc_manifest_job0.json"]
+    for name in names[:1]:
+        t, j = np.load(Path(tdir) / name), np.load(Path(jdir) / name)
+        assert sorted(t.files) == sorted(j.files) == _AGG_KEYS
+        for k in j.files:
+            assert t[k].shape == j[k].shape, (name, k)
+            assert t[k].dtype == j[k].dtype, (name, k, t[k].dtype)
+    res = trunner.load_results(tdir)
+    assert res["image_index"].tolist() == [0]
+    # C = 9 x N = 16 flat particles per tile and merged tile, 8 -> 16 ->
+    # 32 slots
+    assert res["locs"].shape == (1, 9 * 16, 32, 2)
+    np.testing.assert_allclose(res["weights"].sum(-1), 1.0, rtol=1e-5)
+    assert np.isfinite(res["log_normalizing_constant"].max(-1)).all()
+    assert (res["runtime_per_image"] > 0).all()
+
+
+@pytest.mark.parametrize("reader", ["torch", "jax"])
+def test_each_load_results_reads_the_others_aggregation_output(agg_runs,
+                                                                reader):
+    load = trunner.load_results if reader == "torch" else \
+        jrunner.load_results
+    tdir, jdir = agg_runs
+    a, b = load(tdir), load(jdir)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, k
+
+
+def test_aggregation_runner_replicates_pool(tmp_path):
+    cfg = _tiny_dnc(tmp_path)
+    cfg.sampler.replicates = 2
+    with pytest.warns(UserWarning):
+        out = trunner.run_experiment(cfg, device="cpu", verbose=False)
+    res = trunner.load_results(out)
+    assert res["counts"].shape == (1, 2 * 9 * 16)
+    np.testing.assert_allclose(res["weights"].sum(-1), 1.0, rtol=1e-5)
+
+
+def test_m71_fixture_with_tile_backgrounds_runs(tmp_path, capsys):
+    """The real-data suite through the CLI: the fitted-params overlay, the
+    data path read from the suite directory, per-tile background maps, no
+    aggregation level (8x8 images of one tile)."""
+    cfg = tcfg.load_config(REPO / "experiments" / "m71" / "config.yaml")
+    assert cfg.use_tile_backgrounds and cfg.aggregation.enabled
+    cfg.num_images = 2
+    cfg.batch_size = 2
+    cfg.output_dir = str(tmp_path / "out")
+    cfg.sampler.num_catalogs = 16
+    cfg.sampler.max_smc_iters = 3
+    cfg.kernel.num_iters = 2
+    # a suite directory beside the real one's data: the relative data and
+    # params paths resolve from the suite directory
+    data = REPO / "experiments" / "m71" / "data"
+    suite = tmp_path / "suite"
+    suite.mkdir()
+    (suite / "data").symlink_to(data, target_is_directory=True)
+    tcfg.save_config(cfg, suite / "config.yaml")
+    assert cfg.data_path == "data/m71/tiles.npz"
+    cli_main([str(suite), "--device", "cpu"])
+    assert "results in" in capsys.readouterr().out
+    res = trunner.load_results(Path(cfg.output_dir) / "m71")
+    assert res["image_index"].tolist() == [0, 1]
+    assert res["counts"].shape == (2, 11 * 16)
+    assert np.isfinite(res["log_normalizing_constant"]).all()
+    # the tiles' own background maps, not the config's scalar
+    tiles = np.load(data / "m71" / "tiles.npz")
+    assert not np.allclose(tiles["background"][0], cfg.image_model.background)

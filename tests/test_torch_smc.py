@@ -189,3 +189,37 @@ def test_unported_options_raise():
         tsmc.SMCConfig(num_catalogs=8, pair_sweeps=4)
     with pytest.raises(NotImplementedError):
         SingleComponentMH(num_iters=10, sqjumpdist_tol=1e-2)
+
+
+def test_smc_sampler_takes_the_jax_signature(capsys):
+    """``SMCSampler`` takes every argument of the JAX one: relocation
+    sweeps run, ``print_every`` prints, ``dispatch_iters`` is accepted and
+    ignored, pair sweeps still raise; a per-tile background map
+    ``[T, 1, 1, h, w]`` and a bare ``[h, w]`` map both give the scalar
+    background's posterior when they hold the same value."""
+    import inspect
+
+    jparams = set(inspect.signature(jsmc.SMCSampler).parameters)
+    assert jparams <= set(inspect.signature(tsmc.SMCSampler).parameters)
+    prior, model, kernel, images = _slice_problem()
+    frame = np.concatenate([np.asarray(images[0]), np.asarray(images[1])], 1)
+    pmodel = port_model(model)
+    pkernel = port_kernel(kernel.replace(num_iters=4))
+
+    def run(mdl, **kw):
+        s = tsmc.SMCSampler(frame, 8, port_prior(prior), mdl, pkernel,
+                            num_catalogs=32, resample_method="systematic",
+                            max_smc_iters=6, **kw)
+        return s.run(torch.Generator().manual_seed(0))
+
+    base = run(pmodel)
+    bg = float(pmodel.background)
+    for bmap in (torch.full((2, 1, 1, 8, 8), bg), torch.full((8, 8), bg)):
+        r = run(pmodel.with_background(bmap))
+        assert torch.equal(r.log_normalizing_constant,
+                           base.log_normalizing_constant)
+    r = run(pmodel, relocate_sweeps=2, print_every=1, dispatch_iters=3)
+    assert "iteration 1: temperature in" in capsys.readouterr().out
+    assert not torch.equal(r.locs, base.locs)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        run(pmodel, pair_sweeps=2)

@@ -126,13 +126,14 @@ def m71_problem(max_objects=6, tile=8):
     return prior, model, kernel
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
-    """Run each torch test on one intra-op thread.
+    """Run each torch test module on one intra-op thread.
 
     The parity tests launch thousands of small ops; with several test
     processes on one host, each op's thread pool fights the others' and a
-    test slows down by an order of magnitude.
+    test slows down by an order of magnitude. Module scope, so that the
+    module-scoped fixtures that run a whole pipeline are covered too.
     """
     n = torch.get_num_threads()
     torch.set_num_threads(1)
