@@ -8,7 +8,13 @@ Phases (a failing phase raises; there is no CPU fallback):
    versions; exits non-zero without a CUDA card;
 2. build: compiles the kernels from ``smcdet_tpu_torch/csrc`` (one nvcc
    per source, in parallel) into ``build/``;
-3. K1 against plain: the fused MH sweep loop of the M71 main path against
+3. K5: the dependent FP32 / SFU chains against their plain version at
+   lengths where one step more or less shows, then the card's FP32 rate
+   and its ex2, rsqrt and lg2 rates with the linearity of the (n, 2n) pair
+   and the SM clock (``roofline.measure``), each at most 1.05 times its
+   data-sheet peak; the measured peaks give a second bound for every sweep
+   kernel below;
+4. K1 against plain: the fused MH sweep loop of the M71 main path against
    its plain PyTorch version at the main path's shapes (16 8x8 tiles,
    M = 6, C = 7, N = 2048): zero-count passthrough, particle-by-particle
    agreement over 20 sweeps on the shared Philox stream, every
@@ -17,36 +23,48 @@ Phases (a failing phase raises; there is no CPU fallback):
    the inverse CDF, the time of 100 sweeps of both against the bound, and
    equilibrium statistics and rate-cache drift over 800 sweeps on two
    tiles;
-4. K2 against plain, the same checks at the shapes of the ``basic`` suite
+5. K2 against plain, the same checks at the shapes of the ``basic`` suite
    (20 8x8 tiles, M = 8, C = 9, N = 512) and the ``cells`` suite (10
    16x16 tiles, M = 12, C = 13, N = 4096), both built from the suites'
    configs; then passthrough, agreement and flips on the K2 branches
    neither suite runs (Normal flux, the general-beta SDSS wing, Gaussian
    noise on 16x16);
-5. K3 against plain on the aggregation bridge, at both bridge shapes of
+6. K3 against plain on the aggregation bridge, at both bridge shapes of
    the ``divideandconquer`` suite, from real merged states (the tile SMC of
    2 images, then the merge): the same checks with both caches, the time
    of 50 sweeps at one image's launch and at 64 groups, equilibrium on 512
    particles per group; then the location-side mode and Poisson noise
    with a Gaussian PSF;
-6. main path: the M71 quick cell (16 tiles from ``generate_images`` with
+7. K4 against plain, the fused MALA sweep loop: the same checks (the
+   single-sweep steps also classify the particles whose truncation masses
+   lie in Phi's f32 tail) at basic's batch shapes, divideandconquer's tile
+   target, K2's three branch problems and both bridge levels in tag and
+   location mode, each timed beside its bound;
+8. main path: the M71 quick cell (16 tiles from ``generate_images`` with
    seed 7, N = 2048, 100 sweeps per SMC iteration, systematic resampling,
    ESS 0.5) through ``run_csmc_chunked(sort_tiles=True)``, with every
    mutate call counted against K1's launch counter;
-7. entry point: ``run_experiment`` on ``experiments/basic/config.yaml``
+9. entry point: ``run_experiment`` on ``experiments/basic/config.yaml``
    (one batch of 20 images) and ``experiments/cells/config.yaml`` (one
    batch of 10 images) at the shipped configurations, into a temporary
    directory, with every mutate call counted against K2's launch counter
    and the basic batch's detection share held to the JAX reference's;
-8. aggregation entry point: ``run_experiment`` on one batch of 4 images of
-   ``experiments/divideandconquer/config.yaml`` (K1 tile stage, K3
-   bridges) and on the first 8 tiles of the m71 real-data fixture
-   (``experiments/m71/config.yaml``: fitted params, per-tile backgrounds,
-   K2), tile and bridge mutate calls counted against the launches, each
-   level's bridge iterations and temperatures printed, the convergence and
-   detection shares held to the JAX runner's;
-9. profile: ``torch.profiler`` over one divideandconquer image, device time
-   by ``agg.*`` / ``smc.*`` range and the device's idle share.
+10. MALA entry point: the same basic batch with ``kernel.kind: mala`` (a
+    copy of the config in a temporary directory, compare_kernels.py's
+    steps): every mutate call a K4 launch, the detection share held to the
+    JAX runner's under MALA, the count-pmf TVD against the MH batch;
+11. aggregation entry point: ``run_experiment`` on one batch of 4 images
+    of ``experiments/divideandconquer/config.yaml`` (K1 tile stage, K3
+    bridges) and on the first 8 tiles of the m71 real-data fixture
+    (``experiments/m71/config.yaml``: fitted params, per-tile backgrounds,
+    K2), tile and bridge mutate calls counted against the launches, each
+    level's bridge iterations and temperatures printed, the convergence
+    and detection shares held to the JAX runner's;
+12. MALA aggregation: the same 4 divideandconquer images with
+    ``kernel.kind: mala``, K4 on the tile stage and on both bridge levels,
+    held to the JAX runner's shares under MALA;
+13. profile: ``torch.profiler`` over one divideandconquer image, device
+    time by ``agg.*`` / ``smc.*`` range and the device's idle share.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +73,7 @@ The last two lines of standard output are the kernels' JSON record and
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -99,11 +118,39 @@ DNC_REFERENCE_COUNT_SHARE = 1.0
 # CPU at the shipped configuration: 5/8 with config seeds 3 and 4 (PERF.md).
 M71_REFERENCE_COUNT_SHARE = 5 / 8
 
+# MALA (kernel.kind: mala, K4). The basic batch takes the steps of
+# experiments/basic/compare_kernels.py:35-36 (locs_step 0.05, fluxes_step
+# 20); the share of its 20 tiles within +-1 of BASIC_TRUE_COUNTS for the JAX
+# runner on the CPU on the same tiles with those steps: 19/20 with config
+# seed 0 and 19/20 with seed 1 (tests/torch_reference_bars.py; PERF.md).
+MALA_BASIC_STEPS = (0.05, 20.0)
+BASIC_MALA_REFERENCE_COUNT_SHARE = 0.95
+# divideandconquer takes its shipped kernel's locs_stdev / fluxes_stdev as
+# MALA's steps: with them the JAX runner on the CPU brings every level of
+# the batch's 4 images to temperature 1 below the 150-iteration cap (4/4 with
+# config seeds 5 and 6) and puts the posterior mean pruned count within +-1
+# of DNC_TRUE_COUNTS on 3/4 (seed 5) and 4/4 (seed 6) images
+# (tests/torch_reference_bars.py; PERF.md). The bars are the lower shares.
+MALA_DNC_STEPS = (0.25, 5.0)
+DNC_MALA_REFERENCE_CONVERGED_SHARE = 1.0
+DNC_MALA_REFERENCE_COUNT_SHARE = 0.75
+# K4's branch targets (branch_problems) take the steps of the CPU parity
+# tests' matching targets (tests/test_torch_mala.py: _STEPS)
+BRANCH_MALA_STEPS = {"normal_flux": (0.05, 20.0),
+                     "general_wing": (0.05, 0.2),
+                     "gaussian_16x16": (0.02, 20.0)}
+
 TILE = 8
-REPLACES = "smcdet_tpu/ops/pallas_sweep.py:178"
+REPLACES = {"K1": "smcdet_tpu/ops/pallas_sweep.py:178",
+            "K2": "smcdet_tpu/ops/pallas_sweep.py:178",
+            "K3": "smcdet_tpu/ops/pallas_sweep.py:178",
+            "K4": "smcdet_tpu/ops/pallas_sweep.py:485",
+            "K5": "experiments/roofline.py:96"}
 SOURCES = {"K1": "smcdet_tpu_torch/csrc/mh_sweep.cu",
            "K2": "smcdet_tpu_torch/csrc/mh_sweep_k2.cu",
-           "K3": "smcdet_tpu_torch/csrc/mh_sweep_k3.cu"}
+           "K3": "smcdet_tpu_torch/csrc/mh_sweep_k3.cu",
+           "K4": "smcdet_tpu_torch/csrc/mala_sweep_k4.cu",
+           "K5": "smcdet_tpu_torch/csrc/chain_k5.cu"}
 
 # The least time of a sweep loop (``bound_ms``): the larger of its bytes
 # over the memory rate and its operations over the peak rate of their unit.
@@ -163,6 +210,41 @@ CACHE_OPS = (5, 0)
 CHILD_OPS = (2, 0)
 UPDATE_OPS = (150, 21)
 PARETO_OPS = (4, 2)
+# MALA (K4) needs, on top of the render, the likelihood and the caches above
+# (the cache update is two FMAs, rate - a f psi + a f' psi', about MH's):
+# MALA_DERIV_OPS, per pixel and star (the current and the proposed one), the
+#   derivative of the PSF in r^2 from the render's exponentials: Gaussian
+#   psi c (1 mul); SDSS, t1 c1 + t2 c2 + t3 c3 / q (the wing's
+#   d/dr^2 (1 + r^2 / (beta sp))^(-beta/2) = -t3 / (2 sp q)): 2 mul, 2 FMA
+#   and a rcp of q (1 FP32 more for the general wing's q, 6 FP32);
+# MALA_DLL_OPS, per pixel, likelihood term and point, dll/drate: Gaussian
+#   noise, r / var + r^2 m / (2 var^2) - m / (2 var) with rcp(var): 7 FP32
+#   and the rcp, which at the proposal is the likelihood's own (charged in
+#   MALA_DLL_PROP_SFU below as 0); Poisson noise, img rcp(rate) - 1: 1 FMA
+#   and a rcp at both points (the Normal tail's extra terms, 4 FP32, on the
+#   share of pixels above the threshold);
+# MALA_GRAD_OPS, per pixel and point, g = tau dll (1), g dpsi (1) and the
+#   three sums g dpsi dy, g dpsi dx, g psi (3 FMA): 8 FP32; on the bridge
+#   the child's (1 - tau) dll w and its add (2 FP32) on top, with the
+#   child's dll/drate at both points, only inside the moved star's child
+#   window w (MALA_CHILD_WINDOW of the pixels: half the joined tile at both
+#   bridge levels);
+# MALA_UPDATE_OPS, per update: the slot (as MH); for each coordinate the
+#   forward sample (Phi at both box ends around mu: 2 ex2, and the inverse
+#   CDF: lg2 and rsqrt), the reverse box mass around mu' (2 ex2), the two
+#   squared standardised distances; the logs of the two products of three
+#   masses (2 lg2), the drifts (3 FMA each way), the accept test (1 ex2):
+#   21 SFU and about 190 FP32; MALA_PARETO_OPS for the Pareto prior: the log
+#   ratio of the two fluxes (rcp and lg2) and its gradient -(alpha + 1) / f
+#   at both (2 rcp): 4 SFU, 6 FP32.
+MALA_DERIV_OPS = {"gaussian": (1, 0), "sdss_beta3": (5, 1), "sdss": (6, 1)}
+MALA_DLL_OPS = {"gaussian": (7, 1), "poisson": (2, 1)}
+MALA_DLL_PROP_SFU = {"gaussian": 0, "poisson": 1}
+MALA_GRAD_OPS = (8, 0)
+MALA_CHILD_GRAD_OPS = (2, 0)
+MALA_CHILD_WINDOW = 0.5
+MALA_UPDATE_OPS = (190, 21)
+MALA_PARETO_OPS = (6, 4)
 
 
 def build_problem(device, num_tiles=16, num_catalogs=2048, mh_steps=100,
@@ -275,6 +357,22 @@ def phase_device():
     return smi
 
 
+def _kernel_label(mangled):
+    """``name<args>`` of a mangled kernel template instantiation, e.g.
+    ``mala_sweep_k4_kernel<16,8,16,1>`` (H, W, lanes, bridge)."""
+    m = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
+    if m is None:
+        return mangled[:60]
+    end = m.start() + len("_kernel")
+    for start in range(end - 1, 0, -1):  # the closest length prefix
+        digits = re.search(r"\d+$", mangled[:start])
+        if digits and any(int(digits.group()[k:]) == end - start
+                          for k in range(len(digits.group()))):
+            values = re.findall(r"L[ib](\d+)E", m.group(1))
+            return f"{mangled[start:end]}<{','.join(values)}>"
+    return mangled[:60]
+
+
 def phase_build():
     from smcdet_tpu_torch import _build
 
@@ -282,7 +380,7 @@ def phase_build():
     print(f"[build] {info['path']} in {info['seconds']:.1f} s")
     for line in info["log"].splitlines():
         if "Compiling entry" in line:
-            print(f"[build] {line.split(chr(39))[1][:60]}")
+            print(f"[build] {_kernel_label(line.split(chr(39))[1])}")
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
     _build.load_library()
@@ -575,9 +673,11 @@ def _print_steps(label, counts, steps):
           f"(largest {worst_tail:.3f} of its bound)")
 
 
-def kernel_vs_plain(dev, label, name, prior, model, kernel, num_tiles, N):
+def kernel_vs_plain(dev, label, name, prior, model, kernel, num_tiles, N,
+                    peaks):
     """Kernel ``name`` (K1 or K2) against its plain version on a target at
-    ``num_tiles`` tiles x C strata x N particles. Returns its record."""
+    ``num_tiles`` tiles x C strata x N particles, its bound also at K5's
+    measured ``peaks``. Returns its record."""
     from smcdet_tpu_torch.ops import mh_sweep
 
     M = prior.max_objects
@@ -605,10 +705,13 @@ def kernel_vs_plain(dev, label, name, prior, model, kernel, num_tiles, N):
     updates = G * N * 100
     bound_ms, bound_by = sweep_bound(prior, model, args[6], args[9],
                                      M, 100)
+    measured_ms, _ = sweep_bound(prior, model, args[6], args[9], M, 100,
+                                 peaks=peaks)
     print(f"[{label}] 100 sweeps, {G} groups x {N} particles: kernel "
           f"{ms:.3f} ms ({updates / (ms * 1e-3):.4e} updates/s), plain "
           f"{plain_ms:.3f} ms ({updates / (plain_ms * 1e-3):.4e} "
-          f"updates/s), bound {bound_ms:.4f} ms ({bound_by})")
+          f"updates/s), bound {bound_ms:.4f} ms ({bound_by}; at K5's "
+          f"measured rates {measured_ms:.4f} ms)")
     del ctx, counts, state, args
     # equilibrium on two tiles (the size of tests/test_pallas.py:107-154)
     ctx, counts, state = _kernel_inputs(dev, prior, model, 2, N, 0)
@@ -633,11 +736,14 @@ def branch_check(dev, label, prior, model, kernel, num_tiles=2, N=1000):
     return abs_err
 
 
-def sweep_bound(prior, model, counts, rate, M, sweeps, child=False):
+def sweep_bound(prior, model, counts, rate, M, sweeps, child=False,
+                mala=False, peaks=(PEAK_FP32, PEAK_SFU)):
     """``(bound_ms, bound_by)`` of ``sweeps`` sweeps over particles with
     ``counts [G, N]`` and rate cache ``rate [G, N, H*W]`` (only particles
     with a star move, so only theirs are counted) on the tile target or,
-    with ``child``, the bridge's."""
+    with ``child``, the bridge's; MH sweeps, or with ``mala`` MALA's.
+    ``peaks`` are the FP32 (flop/s) and SFU (results/s) rates: the data
+    sheet's, or K5's measured ones."""
     from smcdet_tpu_torch.distributions import TruncatedPareto
     from smcdet_tpu_torch.models.priors import ParetoFlux
     from smcdet_tpu_torch.models.psf import GaussianPSF
@@ -652,13 +758,29 @@ def sweep_bound(prior, model, counts, rate, M, sweeps, child=False):
     if model.noise == "poisson":
         tail = float((rate > model.normal_tail_threshold).float().mean())
     pareto = isinstance(prior.flux, (TruncatedPareto, ParetoFlux))
+    noise = model.noise
     ops = [HW * (2 * RENDER_OPS[psf][i]
-                 + terms * (LOGLIK_OPS[model.noise][i]
+                 + terms * (LOGLIK_OPS[noise][i]
                             + tail * POISSON_TAIL_OPS[i])
                  + CACHE_OPS[i] + (CHILD_OPS[i] if child else 0))
            + UPDATE_OPS[i] + (PARETO_OPS[i] if pareto else 0)
            for i in (0, 1)]
-    ops_s = max(updates * ops[0] / PEAK_FP32, updates * ops[1] / PEAK_SFU)
+    if mala:
+        dll_fp32 = MALA_DLL_OPS[noise][0] + tail * POISSON_TAIL_OPS[0]
+        dll = (2 * dll_fp32, MALA_DLL_OPS[noise][1]
+               + MALA_DLL_PROP_SFU[noise])  # the current point and proposal
+        # the child's dll and gradient terms, inside its window only
+        child_ops = [CHILD_OPS[i] + MALA_CHILD_WINDOW * (
+            dll[i] + 2 * MALA_CHILD_GRAD_OPS[i]) if child else 0
+            for i in (0, 1)]
+        ops = [HW * (2 * (RENDER_OPS[psf][i] + MALA_DERIV_OPS[psf][i])
+                     + terms * (LOGLIK_OPS[noise][i]
+                                + tail * POISSON_TAIL_OPS[i])
+                     + dll[i] + CACHE_OPS[i] + 2 * MALA_GRAD_OPS[i]
+                     + child_ops[i])
+               + MALA_UPDATE_OPS[i] + (MALA_PARETO_OPS[i] if pareto else 0)
+               for i in (0, 1)]
+    ops_s = max(updates * ops[0] / peaks[0], updates * ops[1] / peaks[1])
     # each input read once and each output written once: image and
     # temperature per group; counts, catalog, caches, pll, lp (and child
     # ll, tags) per particle in; catalog, caches, pll, lp, acc out
@@ -791,7 +913,8 @@ def _groups(args, child, groups):
     return out, child
 
 
-def bridge_vs_plain(dev, label, kernel, ctx, counts, state, sweeps=50):
+def bridge_vs_plain(dev, label, kernel, ctx, counts, state, peaks,
+                    sweeps=50):
     """K3 against its plain version on a bridge state: zero-count
     passthrough, same-stream agreement over 20 sweeps, 20 single-sweep
     steps, the time of ``sweeps`` sweeps at one image's launch and at 64
@@ -829,11 +952,13 @@ def bridge_vs_plain(dev, label, kernel, ctx, counts, state, sweeps=50):
             *a, child=c), reps=1)
         bound_ms, bound_by = sweep_bound(ctx.prior, model, a[6], a[9], M,
                                          sweeps, child=True)
+        measured_ms, _ = sweep_bound(ctx.prior, model, a[6], a[9], M,
+                                     sweeps, child=True, peaks=peaks)
         updates = a[6].numel() * sweeps
         print(f"[{label}] {sweeps} sweeps, {groups} groups x {N} particles: "
               f"kernel {ms:.3f} ms ({updates / (ms * 1e-3):.4e} updates/s), "
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+              f"({bound_by}; at K5's measured rates {measured_ms:.4f} ms)")
         if groups == Tw:
             record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by,
@@ -893,13 +1018,13 @@ def poisson_bridge(dev, N=2048):
     return kernel, ctx, counts, init_kernel_state(ctx, counts, locs, fluxes)
 
 
-def phase_bridge_kernel(dev):
-    """K3 against its plain version at both bridge shapes, then its
-    branches: the location-side mode and Poisson noise."""
+def phase_bridge_kernel(dev, kernel, levels, peaks):
+    """K3 against its plain version at both bridge shapes (``levels``, from
+    ``bridge_states``), then its branches: the location-side mode and
+    Poisson noise."""
     from smcdet_tpu_torch.inference.kernels import init_kernel_state
 
-    kernel, levels = bridge_states(dev)
-    records = [bridge_vs_plain(dev, f"K3 level {i}", kernel, *lv)
+    records = [bridge_vs_plain(dev, f"K3 level {i}", kernel, *lv, peaks)
                for i, lv in enumerate(levels)]
     ctx, counts, state = levels[0]
     loc_ctx = ctx._replace(child_slot_side=None)
@@ -914,6 +1039,217 @@ def phase_bridge_kernel(dev):
           f"{records[1]['bound_ms']:.4f} ms; the K3 record below is level "
           f"0's ({rec['shape']})")
     return rec
+
+
+def mala_kernel_for(kernel, steps, device):
+    """A MALA kernel with ``kernel``'s sweeps and flux bounds and the MALA
+    steps ``(locs_step, fluxes_step)``."""
+    from smcdet_tpu_torch.inference.kernels import SingleComponentMALA
+
+    return SingleComponentMALA(kernel.num_iters, steps[0], steps[1],
+                               kernel.fluxes_min, kernel.fluxes_max,
+                               device=device)
+
+
+def _mala_single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
+    """K4's counterpart of ``_single_sweep_steps``: step K4 and its plain
+    version one sweep at a time on a shared key, both from the plain
+    version's state, and classify every particle on which they disagree
+    (to rtol 1e-4) by the plain version's proposal
+    (``mala_sweep.mala_proposal``):
+
+    - a tail mass: one of the six truncation masses of its two proposal
+      densities is below 1e-3 (``mala_sweep.smallest_box_mass``), a
+      difference of two f32 values of Phi near 1, which the drifted means'
+      last bits (their gradient sums run in another order) can move by
+      whole ulps;
+    - an accept flip on the boundary, as for K1-K3: ``|log u - min(log
+      alpha, 0)| <= 2e-5 (|log target| + |log target'|) + 1e-4``;
+    - a tail proposal: both accept, every other slot is bit-identical, and
+      each coordinate of the moved slot differs by at most ``sigma 8 2^-24 /
+      phi(z) + 1e-5 |v'| + 1e-4 |mu - v|``: the inverse CDF's rounding, as
+      for K1-K3, plus the drifted mean's, whose gradient sums the kernel
+      takes in another order (1e-4 of the drift ``mu - v``).
+
+    Anything else fails. Returns ``(flips, tail proposals, tail masses,
+    worst flip margin over its bound, worst proposal difference over its
+    bound)``."""
+    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
+
+    args = _sweep_args(None, kernel, ctx, counts, state, 1)
+    child = _flat_child(ctx, counts, state)
+    prop, prior, model = args[1], args[2], args[3]
+    G, N = args[6].shape
+    particle = torch.arange(G * N, device=dev).reshape(G, N)
+    tau = args[5][:, None]
+    n_flip = n_tail = n_mass = 0
+    worst_flip = worst_tail = 0.0
+
+    def advance(want):
+        """The next step's inputs: the plain version's outputs."""
+        args[7:12] = [t.contiguous() for t in want[:5]]
+        return None if child is None else child._replace(
+            rate=want[6].contiguous(), ll=want[7].contiguous())
+
+    for s in range(sweeps):
+        args[0] = torch.tensor([2000 + s, 4242], dtype=torch.int64,
+                               device=dev)
+        got = mala_sweep.mala_sweeps(*args, child=child)
+        want = mala_sweep.mala_sweeps_reference(*args, child=child)
+        dis = ~_agreement(got[:5] + got[6:], want[:5] + want[6:], (G, N))
+        if not bool(dis.any()):
+            child = advance(want)
+            continue
+        u_j, u_y, u_x, u_f, u_acc = mh_sweep.philox_uniforms(
+            args[0].tolist(), particle, 0)
+        q = mala_sweep.mala_proposal(
+            u_j, torch.stack([u_y, u_x], -1), u_f, prior=prior, model=model,
+            proposal=prop, image_flat=args[4][:, None], temperature=tau,
+            counts=args[6], locs=args[7], fluxes=args[8], rate=args[9],
+            pll=args[10], lp=args[11], child=child)
+        mass = dis & (mala_sweep.smallest_box_mass(q, prop, prior) < 1e-3)
+        flip = dis & ~mass & (got[5] != want[5])  # accepted by one only
+        tail = dis & ~mass & ~flip
+        jj = q.onehot.long().argmax(-1, keepdim=True)
+
+        def slot(a):
+            return torch.gather(a, 2, jj).squeeze(-1)
+
+        if bool(tail.any()):
+            assert bool((got[5][tail] == 1.0).all()), "a rejected difference"
+            other = ~q.onehot[tail]
+            assert torch.equal(got[1][tail][other], want[1][tail][other])
+            assert torch.equal(got[0][tail][other], want[0][tail][other])
+            ratios = []
+            for d, sigma in ((0, prop.locs_stdev), (1, prop.locs_stdev),
+                             (2, prop.fluxes_stdev)):
+                if d < 2:
+                    v_got, v_want = slot(got[0][..., d]), slot(want[0][..., d])
+                    mu, v = q.mu_loc[..., d], q.loc[..., d]
+                else:
+                    v_got, v_want, mu, v = slot(got[1]), slot(want[1]), \
+                        q.mu_f, q.f
+                z = (v_want - mu) / sigma
+                phi = torch.exp(-0.5 * z * z) * 0.3989422804014327
+                bound = (sigma * 8 * 2.0**-24 / phi + 1e-5 * v_want.abs()
+                         + 1e-4 * (mu - v).abs())
+                ratios.append(((v_got - v_want).abs() / bound)[tail])
+            worst_tail = max(worst_tail, float(torch.stack(ratios).max()))
+            assert worst_tail <= 1.0, f"a proposal off rounding: {worst_tail}"
+            n_tail += int(tail.sum())
+        if bool(flip.any()):
+            margin = (torch.log(u_acc) - q.log_alpha.clamp(max=0.0)).abs()
+            old = args[11] + tau * args[10]
+            new = q.lp + tau * q.pll
+            if child is not None:  # the bridge's child likelihood term
+                old = old + (1.0 - tau) * child.ll
+                new = new + (1.0 - tau) * q.cll
+            bound = 2e-5 * (old.abs() + new.abs()) + 1e-4
+            worst_flip = max(worst_flip, float((margin / bound)[flip].max()))
+            assert worst_flip <= 1.0, f"a flip off the boundary: {worst_flip}"
+            n_flip += int(flip.sum())
+        n_mass += int(mass.sum())
+        child = advance(want)
+    torch.cuda.synchronize()
+    return n_flip, n_tail, n_mass, worst_flip, worst_tail
+
+
+def mala_vs_plain(dev, label, kernel, ctx, counts, state, sweeps, eq_problem,
+                  peaks):
+    """K4 against its plain version on a tile or bridge target: zero-count
+    passthrough, same-stream agreement over 20 sweeps, 20 single-sweep
+    steps, the time of ``sweeps`` sweeps beside the bound (the data sheet's
+    and at K5's measured ``peaks``), and the equilibrium over 800 sweeps on
+    ``eq_problem`` (a cut of the same target). Returns its record."""
+    from smcdet_tpu_torch.ops import mala_sweep
+
+    M = state.fluxes.shape[-1]
+    child = _flat_child(ctx, counts, state)
+    model = ctx.model
+    assert mala_sweep.mala_kernel(ctx.prior, model, M,
+                                  child=child is not None) == "K4"
+    N = counts.shape[-1]
+    G = counts.numel() // N
+    mode = "" if child is None else (
+        ", origin tags" if child.slot_side is not None else ", location sides")
+    shape = f"{G} groups x {N}, {model.height}x{model.width}, M={M}{mode}"
+    _passthrough(dev, kernel, ctx, counts, state)
+    print(f"[{label}] K4 at {shape}: zero-count passthrough bit-exact, acc 0")
+    share, abs_err, rel_err = _same_stream(dev, kernel, ctx, counts, state)
+    terms = "pll/lp" if child is None else "pll/cll/lp"
+    print(f"[{label}] 20 sweeps, same stream: {share:.6f} of particles "
+          f"agree to rtol 1e-4; on those, {terms} max abs err "
+          f"{abs_err:.3e}, max rel err {rel_err:.3e}")
+    assert share >= 0.99, share
+    n_flip, n_tail, n_mass, worst_flip, worst_tail = _mala_single_sweep_steps(
+        dev, kernel, ctx, counts, state)
+    print(f"[{label}] 20 single-sweep steps, {20 * counts.numel()} "
+          f"particle-sweeps: {n_flip} accept flips on the boundary (largest "
+          f"margin {worst_flip:.3f} of its bound), {n_tail} accepted tail "
+          f"proposals within the inverse-CDF and drift rounding (largest "
+          f"{worst_tail:.3f} of its bound), {n_mass} with a truncation mass "
+          f"below 1e-3")
+
+    key = torch.tensor([12345, 67890], dtype=torch.int64, device=dev)
+    args = _sweep_args(key, kernel, ctx, counts, state, sweeps)
+    ms = _time_ms(lambda: mala_sweep.mala_sweeps(*args, child=child), reps=5)
+    plain_ms = _time_ms(lambda: mala_sweep.mala_sweeps_reference(
+        *args, child=child), reps=1)
+    bound = [sweep_bound(ctx.prior, model, args[6], args[9], M, sweeps,
+                         child=child is not None, mala=True, peaks=p)
+             for p in ((PEAK_FP32, PEAK_SFU), peaks)]
+    updates = args[6].numel() * sweeps
+    print(f"[{label}] {sweeps} sweeps, {G} groups x {N} particles: kernel "
+          f"{ms:.3f} ms ({updates / (ms * 1e-3):.4e} updates/s), plain "
+          f"{plain_ms:.3f} ms, bound {bound[0][0]:.4f} ms ({bound[0][1]}; "
+          f"at K5's measured rates {bound[1][0]:.4f} ms, {bound[1][1]})")
+    _equilibrium(dev, label, kernel, *eq_problem)
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0][0], "bound_by": bound[0][1],
+            "measured_bound_ms": bound[1][0], "shape": shape}
+
+
+def phase_mala_kernel(dev, bridge_levels, peaks):
+    """K4 against its plain version on every target it is built for: the
+    basic suite's batch shapes (K2's 8x8 Poisson target) with
+    compare_kernels.py's MALA steps, divideandconquer's tile target (K1's)
+    and both its bridge levels from real merged states in tag and location
+    mode with the MALA steps of ``[mala dnc]``, and K2's branch problems
+    (the general wing, the Normal flux, Gaussian noise on 16x16). Returns
+    the records by target."""
+    from smcdet_tpu_torch.inference.kernels import init_kernel_state
+
+    records = {}
+    prior, model, mh, _ = suite_problem(dev, "basic")
+    kernel = mala_kernel_for(mh, MALA_BASIC_STEPS, dev)
+    records["basic"] = mala_vs_plain(
+        dev, "K4 basic", kernel,
+        *_kernel_inputs(dev, prior, model, 20, 512, 0), 100,
+        _kernel_inputs(dev, prior, model, 2, 512, 0), peaks)
+    _, tprior, tmodel, mh, _ = _dnc_problem(dev)
+    dnc_kernel = mala_kernel_for(mh, MALA_DNC_STEPS, dev)
+    records["dnc tile"] = mala_vs_plain(
+        dev, "K4 dnc tile", dnc_kernel,
+        *_kernel_inputs(dev, tprior, tmodel, 16, 512, 0),
+        dnc_kernel.num_iters,
+        _kernel_inputs(dev, tprior, tmodel, 2, 512, 0), peaks)
+    for name, (prior, model, mh) in branch_problems(dev).items():
+        problem = _kernel_inputs(dev, prior, model, 2, 1000, 0)
+        records[name] = mala_vs_plain(
+            dev, f"K4 {name}", mala_kernel_for(mh, BRANCH_MALA_STEPS[name],
+                                               dev),
+            *problem, 20, problem, peaks)
+    for i, (ctx, counts, state) in enumerate(bridge_levels):
+        loc_ctx = ctx._replace(child_slot_side=None)
+        loc_state = init_kernel_state(loc_ctx, counts, state.locs,
+                                      state.fluxes)
+        for mode, c, st in (("tags", ctx, state),
+                            ("location sides", loc_ctx, loc_state)):
+            records[f"level {i} {mode}"] = mala_vs_plain(
+                dev, f"K4 level {i} {mode}", dnc_kernel, c, counts, st,
+                dnc_kernel.num_iters, _first_particles(c, counts, st, 512),
+                peaks)
+    return records
 
 
 def phase_main_path(dev):
@@ -984,138 +1320,210 @@ def phase_main_path(dev):
     return launches
 
 
-def _entry_batch(dev, suite, num_images, out_root):
-    """One full batch of ``experiments/<suite>`` through ``run_experiment``;
-    returns (mutate calls, K1 launches, K2 launches, results, config)."""
-    from smcdet_tpu_torch.config import load_config
-    from smcdet_tpu_torch.inference.kernels import SingleComponentMH
-    from smcdet_tpu_torch.ops import mh_sweep
+def _entry_batch(dev, cfg, label, out_root):
+    """One full batch of a chunked suite (``cfg``, as loaded) through
+    ``run_experiment``, its mutate calls counted; returns (calls, launches,
+    results)."""
     from smcdet_tpu_torch.runner import load_results, run_experiment
 
-    cfg = load_config(f"experiments/{suite}/config.yaml")
-    assert cfg.batch_size == num_images
-    cfg.num_images = num_images
+    T = cfg.num_images = cfg.batch_size
     cfg.output_dir = out_root
-    calls = 0
-    run_from_state = SingleComponentMH.run_from_state
-
-    def counted(self, *args, **kwargs):
-        nonlocal calls
-        calls += 1
-        return run_from_state(self, *args, **kwargs)
-
-    SingleComponentMH.run_from_state = counted
-    try:
+    with _Calls() as calls:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _reset_launches()
         start = time.perf_counter()
         out = run_experiment(cfg, device=dev, verbose=False)
         wall = time.perf_counter() - start
-        k1, k2 = mh_sweep.mh_sweeps.launches, mh_sweep.mh_sweeps.k2_launches
-    finally:
-        SingleComponentMH.run_from_state = run_from_state
+        launches = _launches()
     res = load_results(out)
     peak = torch.cuda.max_memory_allocated(dev)
-    T, C = num_images, cfg.prior.max_objects - cfg.prior.min_objects + 1
-    N, s = cfg.sampler.num_catalogs, cfg.sampler
+    C = cfg.prior.max_objects - cfg.prior.min_objects + 1
+    N, s, kind = cfg.sampler.num_catalogs, cfg.sampler, cfg.kernel.kind
     iters = int(res["num_iters"][0])
     runtime = float(res["runtime"][0])
     sweeps = cfg.kernel.num_iters + s.relocate_sweeps
     updates = T * C * N * sweeps * iters
-    print(f"[entry] {suite}: {T} tiles x {C} strata x N={N}, "
-          f"{cfg.kernel.num_iters} MH + {s.relocate_sweeps} relocation "
-          f"sweeps/iter: {iters} SMC iterations, batch {runtime:.3f} s "
-          f"({runtime / iters * 1e3:.1f} ms/iter; run_experiment "
-          f"{wall:.3f} s with the tile simulation)")
-    print(f"[entry] {suite}: {updates / runtime:.6e} updates/s "
-          f"(MH {T * C * N * cfg.kernel.num_iters * iters / runtime:.6e}), "
+    print(f"[{label}] {cfg.name}: {T} tiles x {C} strata x N={N}, "
+          f"{cfg.kernel.num_iters} {kind.upper()} + {s.relocate_sweeps} "
+          f"relocation sweeps/iter: {iters} SMC iterations, batch "
+          f"{runtime:.3f} s ({runtime / iters * 1e3:.1f} ms/iter; "
+          f"run_experiment {wall:.3f} s with the tile simulation)")
+    print(f"[{label}] {cfg.name}: {updates / runtime:.6e} updates/s "
+          f"({kind.upper()} "
+          f"{T * C * N * cfg.kernel.num_iters * iters / runtime:.6e}), "
           f"{T / runtime:.4f} tiles/s, peak memory {peak} B "
-          f"({peak / 2**30:.3f} GiB); mutate calls {calls}, K2 launches "
-          f"{k2}, K1 launches {k1}")
-    assert calls == iters and k2 == calls and k1 == 0, (calls, k2, k1, iters)
+          f"({peak / 2**30:.3f} GiB); mutate calls {calls.tile[kind]}, "
+          f"launches {launches}")
+    assert calls.tile[kind] == iters and sum(calls.bridge.values()) == 0
     assert res["image_index"].tolist() == list(range(T))
     assert np.all(res["temperature"] == 1.0), res["temperature"]
     assert np.isfinite(res["log_normalizing_constant"]).all()
     np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
-    return k2, res, cfg
+    return calls, launches, res
+
+
+def _suite_config(suite, tmp=None, mala_steps=None):
+    """``experiments/<suite>/config.yaml`` loaded; with ``mala_steps``, a
+    copy of it written under ``tmp`` with ``kernel.kind: mala`` and the
+    steps ``(locs_stdev, fluxes_stdev)``, loaded from there."""
+    import yaml
+
+    from smcdet_tpu_torch.config import load_config
+
+    path = f"experiments/{suite}/config.yaml"
+    if mala_steps is None:
+        return load_config(path)
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    raw["kernel"].update(kind="mala", locs_stdev=mala_steps[0],
+                         fluxes_stdev=mala_steps[1])
+    copy = f"{tmp}/{suite}_mala.yaml"
+    with open(copy, "w") as f:
+        yaml.safe_dump(raw, f)
+    return load_config(copy)
+
+
+def _basic_share(label, res, truth, bar):
+    mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+    within = np.abs(mean - truth) <= 1.0
+    print(f"[{label}] basic: posterior mean pruned count within +-1 of "
+          f"truth on {int(within.sum())}/{len(within)} tiles (JAX reference "
+          f"share {bar})")
+    print(f"[{label}] basic: truth {truth.tolist()}")
+    print(f"[{label}] basic: mean  {[round(float(x), 3) for x in mean]}")
+    assert within.mean() >= bar - 1e-9, within.mean()
 
 
 def phase_entry_point(dev):
+    """``run_experiment`` on one batch each of basic and cells (K2); returns
+    the K2 launches and basic's results."""
     from smcdet_tpu_torch.runner import simulate_tiles
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches, res, cfg = _entry_batch(dev, "basic", 20, tmp)
+        calls, launches, basic = _entry_batch(
+            dev, _suite_config("basic"), "entry", tmp)
+        k2 = launches["K2"]
+        assert k2 == calls.tile["mh"] and launches["K1"] == 0, launches
+        cfg = _suite_config("basic")
+        cfg.num_images = cfg.batch_size
         truth = simulate_tiles(cfg)["true_counts"]
         assert truth.tolist() == BASIC_TRUE_COUNTS, (
             "the simulated basic tiles differ from the reference's",
             truth.tolist())
-        mean = (res["weights"] * res["pruned_counts"]).sum(-1)
-        within = np.abs(mean - truth) <= 1.0
-        print(f"[entry] basic: posterior mean pruned count within +-1 of "
-              f"truth on {int(within.sum())}/{len(within)} tiles (JAX "
-              f"reference share {BASIC_REFERENCE_COUNT_SHARE})")
-        print(f"[entry] basic: truth {truth.tolist()}")
-        print(f"[entry] basic: mean  {[round(float(x), 3) for x in mean]}")
-        assert within.mean() >= BASIC_REFERENCE_COUNT_SHARE - 1e-9
-        k2, res, _ = _entry_batch(dev, "cells", 10, tmp)
+        _basic_share("entry", basic, truth, BASIC_REFERENCE_COUNT_SHARE)
+        calls, launches, res = _entry_batch(
+            dev, _suite_config("cells"), "entry", tmp)
+        assert launches["K2"] == calls.tile["mh"] and launches["K1"] == 0
+        k2 += launches["K2"]
         mean = (res["weights"] * res["pruned_counts"]).sum(-1)
         print(f"[entry] cells: posterior mean pruned count "
               f"{[round(float(x), 3) for x in mean]}")
-    return launches + k2
+    return k2, basic
+
+
+def _count_pmf(res, C):
+    """Per image, the posterior pmf of the pruned count over 0..C-1."""
+    onehot = res["pruned_counts"][..., None] == np.arange(C)
+    return (res["weights"][..., None] * onehot).sum(-2)
+
+
+def phase_mala_entry(dev, mh_basic):
+    """``run_experiment`` on one batch of basic with ``kernel.kind: mala``
+    (compare_kernels.py's steps): every mutate call a K4 launch, the
+    detection share held to the JAX runner's, and the count-pmf TVD against
+    the same batch under MH (``mh_basic``). Returns the K4 launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _suite_config("basic", tmp, MALA_BASIC_STEPS)
+        calls, launches, res = _entry_batch(dev, cfg, "mala entry", tmp)
+    k4 = launches["K4 tile"]
+    assert k4 == calls.tile["mala"] and launches["K4 bridge"] == 0
+    assert launches["K1"] == launches["K2"] == 0, launches
+    print(f"[mala entry] acceptance {float(res['acc_rate'].mean()):.4f} "
+          f"(MH batch {float(mh_basic['acc_rate'].mean()):.4f}); MALA mutate "
+          f"calls {calls.tile['mala']} = K4 launches {k4}")
+    _basic_share("mala entry", res, np.asarray(BASIC_TRUE_COUNTS),
+                 BASIC_MALA_REFERENCE_COUNT_SHARE)
+    C = cfg.prior.max_objects + 1
+    tvd = 0.5 * np.abs(_count_pmf(res, C) - _count_pmf(mh_basic, C)).sum(-1)
+    print(f"[mala entry] count-pmf TVD MALA vs MH over {len(tvd)} tiles: "
+          f"mean {tvd.mean():.4f}, median {np.median(tvd):.4f}, max "
+          f"{tvd.max():.4f}")
+    return k4
 
 
 class _Calls:
-    """Counts ``SingleComponentMH.run_from_state`` calls on the tile target
-    and on the bridge, and keeps every ``Aggregate.run``'s diagnostics,
-    while the ``with`` block runs."""
+    """Counts the mutate calls (``run_from_state`` of ``SingleComponentMH``
+    and ``SingleComponentMALA``, by kind) on the tile target and on the
+    bridge, and keeps every ``Aggregate.run``'s diagnostics (per level the
+    bridge iterations, the temperatures and the last iteration's mean
+    acceptance), while the ``with`` block runs."""
+
+    def _classes(self):
+        from smcdet_tpu_torch.inference.aggregate import Aggregate
+        from smcdet_tpu_torch.inference.kernels import (
+            SingleComponentMALA,
+            SingleComponentMH,
+        )
+
+        return Aggregate, {"mh": SingleComponentMH,
+                           "mala": SingleComponentMALA}
 
     def __enter__(self):
-        from smcdet_tpu_torch.inference.aggregate import Aggregate
-        from smcdet_tpu_torch.inference.kernels import SingleComponentMH
-
-        self.tile = self.bridge = 0
+        aggregate, kernels = self._classes()
+        self.tile = dict.fromkeys(kernels, 0)
+        self.bridge = dict.fromkeys(kernels, 0)
         self.levels = []
-        self._saved = (SingleComponentMH.run_from_state, Aggregate.run)
-        run_from_state, agg_run = self._saved
+        self._saved = (aggregate.run, {k: c.run_from_state
+                                       for k, c in kernels.items()})
+        agg_run = aggregate.run
 
-        def counted(kernel, gen, ctx, *args, **kwargs):
-            if ctx.child_model is None:
-                self.tile += 1
-            else:
-                self.bridge += 1
-            return run_from_state(kernel, gen, ctx, *args, **kwargs)
+        def counter(kind, run_from_state):
+            def counted(kernel, gen, ctx, *args, **kwargs):
+                target = self.tile if ctx.child_model is None else self.bridge
+                target[kind] += 1
+                return run_from_state(kernel, gen, ctx, *args, **kwargs)
+            return counted
 
         def recorded(agg, *args, **kwargs):
             out = agg_run(agg, *args, **kwargs)
-            self.levels.append([(d["iterations"], d["temperature"].tolist())
+            self.levels.append([(d["iterations"], d["temperature"].tolist(),
+                                 float(d["acc_rate"].mean()))
                                 for d in agg.diagnostics])
             return out
 
-        SingleComponentMH.run_from_state = counted
-        Aggregate.run = recorded
+        for kind, cls in kernels.items():
+            cls.run_from_state = counter(kind, cls.run_from_state)
+        aggregate.run = recorded
         return self
 
     def __exit__(self, *exc):
-        from smcdet_tpu_torch.inference.aggregate import Aggregate
-        from smcdet_tpu_torch.inference.kernels import SingleComponentMH
-
-        SingleComponentMH.run_from_state, Aggregate.run = self._saved
+        aggregate, kernels = self._classes()
+        aggregate.run = self._saved[0]
+        for kind, cls in kernels.items():
+            cls.run_from_state = self._saved[1][kind]
 
 
 def _reset_launches():
-    from smcdet_tpu_torch.ops import mh_sweep
+    from smcdet_tpu_torch import roofline
+    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
 
     mh_sweep.mh_sweeps.launches = 0
     mh_sweep.mh_sweeps.k2_launches = 0
     mh_sweep.mh_sweeps.k3_launches = 0
+    mala_sweep.mala_sweeps.launches = 0
+    mala_sweep.mala_sweeps.bridge_launches = 0
+    roofline.chain.launches = 0
 
 
 def _launches():
-    from smcdet_tpu_torch.ops import mh_sweep
+    from smcdet_tpu_torch import roofline
+    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
 
-    f = mh_sweep.mh_sweeps
-    return {"K1": f.launches, "K2": f.k2_launches, "K3": f.k3_launches}
+    f, g = mh_sweep.mh_sweeps, mala_sweep.mala_sweeps
+    return {"K1": f.launches, "K2": f.k2_launches, "K3": f.k3_launches,
+            "K4 tile": g.launches, "K4 bridge": g.bridge_launches,
+            "K5": roofline.chain.launches}
 
 
 def _aggregation_batch(dev, cfg, label):
@@ -1142,8 +1550,12 @@ def _aggregation_batch(dev, cfg, label):
           f"{float(per_image.mean()):.3f} s, peak memory {peak} B")
     print(f"[{label}] tile mutate calls {calls.tile}, bridge mutate calls "
           f"{calls.bridge}; launches {launches}")
-    assert launches["K1"] + launches["K2"] == calls.tile, (launches, calls)
-    assert launches["K3"] == calls.bridge, (launches, calls.bridge)
+    assert launches["K1"] + launches["K2"] == calls.tile["mh"], (launches,
+                                                                 calls.tile)
+    assert launches["K3"] == calls.bridge["mh"], (launches, calls.bridge)
+    assert launches["K4 tile"] == calls.tile["mala"], (launches, calls.tile)
+    assert launches["K4 bridge"] == calls.bridge["mala"], (launches,
+                                                           calls.bridge)
     assert res["image_index"].tolist() == list(range(cfg.num_images))
     assert np.isfinite(res["log_normalizing_constant"].max(-1)).all()
     np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
@@ -1160,41 +1572,49 @@ def _count_share(label, res, truth):
     return float(within.mean())
 
 
+def _dnc_batch(dev, cfg, label, converged_bar, count_bar):
+    """One batch of 4 divideandconquer images through ``run_experiment``:
+    each level's bridge iterations and temperatures, held to the JAX
+    runner's convergence and detection shares. Returns the launches."""
+    from smcdet_tpu_torch.runner import simulate_tiles
+
+    cfg.num_images = cfg.batch_size = 4
+    launches, res, levels = _aggregation_batch(dev, cfg, label)
+    cap = cfg.aggregation.max_smc_iters
+    converged = 0
+    for i, lv in enumerate(levels):
+        ok = all(it < cap and np.all(np.asarray(t) == 1.0)
+                 for it, t, _ in lv)
+        converged += ok
+        print(f"[{label}] image {i}: " + "; ".join(
+            f"level {k} {it} bridge iterations, temperatures {t}, last "
+            f"acceptance {acc:.4f}" for k, (it, t, acc) in enumerate(lv)))
+    truth = simulate_tiles(cfg)["true_counts"]
+    assert truth.tolist() == DNC_TRUE_COUNTS, truth.tolist()
+    share = _count_share(label, res, truth)
+    print(f"[{label}] levels all at temperature 1 below the {cap}-iteration "
+          f"cap on {converged}/{len(levels)} images (JAX reference share "
+          f"{converged_bar}); count share {share} (JAX reference "
+          f"{count_bar})")
+    assert converged / len(levels) >= converged_bar - 1e-9
+    assert share >= count_bar - 1e-9
+    return launches
+
+
 def phase_aggregation(dev):
     """The aggregation entry point: ``run_experiment`` on one batch of
     divideandconquer (4 16x16 images, shipped N, M, sweeps, ESS and bridge
     settings: tile stage K1, bridges K3) and on the first 8 tiles of the
     m71 real-data fixture (fitted params, per-tile backgrounds, the general
     SDSS wing: K2), each held to the JAX runner's shares."""
-    from smcdet_tpu_torch.config import load_config
-    from smcdet_tpu_torch.runner import simulate_tiles
-
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = load_config("experiments/divideandconquer/config.yaml")
-        cfg.num_images = cfg.batch_size = 4
+        cfg = _suite_config("divideandconquer")
         cfg.output_dir = tmp
-        dnc, res, levels = _aggregation_batch(dev, cfg, "dnc")
+        dnc = _dnc_batch(dev, cfg, "dnc", DNC_REFERENCE_CONVERGED_SHARE,
+                         DNC_REFERENCE_COUNT_SHARE)
         assert dnc["K1"] > 0 and dnc["K3"] > 0 and dnc["K2"] == 0, dnc
-        cap = cfg.aggregation.max_smc_iters
-        converged = 0
-        for i, lv in enumerate(levels):
-            ok = all(it < cap and np.all(np.asarray(t) == 1.0)
-                     for it, t in lv)
-            converged += ok
-            print(f"[dnc] image {i}: " + "; ".join(
-                f"level {k} {it} bridge iterations, temperatures {t}"
-                for k, (it, t) in enumerate(lv)))
-        truth = simulate_tiles(cfg)["true_counts"]
-        assert truth.tolist() == DNC_TRUE_COUNTS, truth.tolist()
-        share = _count_share("dnc", res, truth)
-        print(f"[dnc] levels all at temperature 1 below the {cap}-iteration "
-              f"cap on {converged}/{len(levels)} images (JAX reference "
-              f"share {DNC_REFERENCE_CONVERGED_SHARE}); count share {share} "
-              f"(JAX reference {DNC_REFERENCE_COUNT_SHARE})")
-        assert converged / len(levels) >= DNC_REFERENCE_CONVERGED_SHARE - 1e-9
-        assert share >= DNC_REFERENCE_COUNT_SHARE - 1e-9
 
-        cfg = load_config("experiments/m71/config.yaml")
+        cfg = _suite_config("m71")
         cfg.data_path = "experiments/m71/data/m71/tiles.npz"
         cfg.num_images = cfg.batch_size = 8
         cfg.output_dir = tmp
@@ -1207,6 +1627,22 @@ def phase_aggregation(dev):
               f"{M71_REFERENCE_COUNT_SHARE})")
         assert share >= M71_REFERENCE_COUNT_SHARE - 1e-9
     return dnc, m71
+
+
+def phase_mala_dnc(dev):
+    """``run_experiment`` on one batch of 4 divideandconquer images with
+    ``kernel.kind: mala``: K4 on the tile stage and on both bridge levels,
+    every mutate call a K4 launch, held to the JAX runner's shares under
+    the same MALA steps. Returns the launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _suite_config("divideandconquer", tmp, MALA_DNC_STEPS)
+        cfg.output_dir = tmp
+        launches = _dnc_batch(dev, cfg, "mala dnc",
+                              DNC_MALA_REFERENCE_CONVERGED_SHARE,
+                              DNC_MALA_REFERENCE_COUNT_SHARE)
+    assert launches["K4 tile"] > 0 and launches["K4 bridge"] > 0, launches
+    assert all(launches[k] == 0 for k in ("K1", "K2", "K3")), launches
+    return launches
 
 
 def phase_profile(dev):
@@ -1267,12 +1703,84 @@ def phase_profile(dev):
     print(f"[profile] outside the ranges: device {rest:.3f} ms")
 
 
+def phase_chain(dev):
+    """K5: first against its plain version with every SM filled, 4 chains
+    per element, at the lengths and tolerances of ``roofline.CHECK_N_CHAIN``
+    / ``CHECK_RTOL``, where the plain chain one step shorter or longer lies
+    beyond the tolerance (checked here), so a kernel that runs another
+    number of steps fails; then, with the launch count set to 0, the four
+    rates by ``roofline.measure``, each held to at most 1.05 times the
+    data-sheet peak that ``sweep_bound`` uses. Returns its record and the
+    measured (FP32 flop/s, SFU results/s) peaks."""
+    from smcdet_tpu_torch import roofline
+
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    n = sms * getattr(props, "max_threads_per_multi_processor", 2048)
+    x0 = torch.linspace(0.0, 10.0, n, device=dev)
+    streams = roofline.STREAMS
+    err = 0.0
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    for kind in roofline.KINDS:
+        n_chain, tol = roofline.CHECK_N_CHAIN[kind], roofline.CHECK_RTOL[kind]
+        steps = n_chain * roofline.UNROLL
+        got = roofline.chain(kind, x0, n_chain)
+        want = roofline.chain_reference(kind, x0, n_chain)
+        off = min(rel(got, roofline.chain_reference(kind, x0, 0, steps + d))
+                  for d in (-1, 1))
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        print(f"[K5] {kind} chains vs plain ({n} elements x {streams} x "
+              f"{steps} steps): max rel err {rel(got, want):.3e} (tolerance "
+              f"{tol:.2e}); against the plain chain one step shorter or "
+              f"longer at least {off:.3e}")
+        assert rel(got, want) <= tol < off, (kind, rel(got, want), off)
+    n_chain = roofline.CHECK_N_CHAIN["fma"]
+    ms = _time_ms(lambda: roofline.chain("fma", x0, n_chain), 5)
+    plain_ms = _time_ms(lambda: roofline.chain_reference(
+        "fma", x0, n_chain), 1)
+    steps = n * streams * n_chain * roofline.UNROLL
+    bound_ms = max(2 * steps / PEAK_FP32, 8 * n / PEAK_BYTES) * 1e3
+    print(f"[K5] fma chains at those shapes: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (operations)")
+
+    _reset_launches()
+    rates = {}
+    for kind in roofline.KINDS:
+        m = roofline.measure(kind, device=dev)
+        flops, sfu = roofline.STEP_OPS[kind]
+        clock = m["sm_clock_mhz"] * 1e6
+        rates[kind] = m["steps_per_s"] * (flops if kind == "fma" else sfu)
+        unit = (f"{rates[kind] / 1e12:.4f} TFLOP/s FP32 (data sheet "
+                f"{PEAK_FP32 / 1e12:.0f})" if kind == "fma" else
+                f"{rates[kind] / (sms * clock):.4f} results per SM per "
+                f"clock (data sheet 16), {rates[kind] / 1e12:.4f} T/s")
+        print(f"[K5] {kind}: {unit}; t(2n)/t(n) {m['linearity']:.4f} "
+              f"(n = {m['n_chain']} x {roofline.UNROLL} steps, "
+              f"{m['t_n_s']:.4f} s / {m['t_2n_s']:.4f} s), SM clock "
+              f"{m['sm_clock_mhz']:.0f} MHz")
+        assert 1.8 <= m["linearity"] <= 2.2, (kind, m)
+        # a rate above the card's peak means steps counted but not run
+        peak = PEAK_FP32 if kind == "fma" else 16 * sms * clock
+        assert rates[kind] <= 1.05 * peak, (kind, rates[kind], peak)
+    launches = roofline.chain.launches
+    peaks = (rates["fma"], max(rates[k] for k in ("exp", "rsqrt", "log")))
+    print(f"[K5] measured peaks for the bounds: FP32 {peaks[0]:.6e} flop/s, "
+          f"SFU {peaks[1]:.6e} results/s ({launches} K5 launches)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations"}, launches, peaks
+
+
 def _record(name, kernel_id, launches, rec):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": SOURCES[kernel_id],
-            "replaces": REPLACES, "launches": launches,
+            "replaces": REPLACES[kernel_id], "launches": launches,
             **{k: rec[k] for k in keys},
-            # no single PyTorch call computes a fused MH sweep loop
+            # no single PyTorch call computes a fused sweep loop or a
+            # dependent chain of elementwise steps
             "library_ms": None}
 
 
@@ -1283,24 +1791,33 @@ def main():
 
     start = time.perf_counter()
     phase_build()
+    # each path is driven with the launch counts set to 0 just before it
+    records, launches = {}, {}
+    records["K5"], launches["K5"], peaks = phase_chain(dev)
     _, prior, model, kernel, _ = build_problem(dev)
-    records = {"K1": kernel_vs_plain(dev, "K1", "K1", prior, model, kernel,
-                                     16, 2048)}
+    records["K1"] = kernel_vs_plain(dev, "K1", "K1", prior, model, kernel,
+                                    16, 2048, peaks)
     for suite, tiles, N in (("basic", 20, 512), ("cells", 10, 4096)):
         prior, model, kernel, _ = suite_problem(dev, suite)
         records[f"K2 {suite}"] = kernel_vs_plain(
-            dev, f"K2 {suite}", "K2", prior, model, kernel, tiles, N)
+            dev, f"K2 {suite}", "K2", prior, model, kernel, tiles, N, peaks)
     branch_err = max(branch_check(dev, f"K2 {name}", *problem)
                      for name, problem in branch_problems(dev).items())
-    records["K3"] = phase_bridge_kernel(dev)
-    # each path is driven with the launch counts set to 0 just before it
-    launches = {"K1": phase_main_path(dev), "K2": phase_entry_point(dev)}
+    mh_dnc, levels = bridge_states(dev)
+    records["K3"] = phase_bridge_kernel(dev, mh_dnc, levels, peaks)
+    k4 = phase_mala_kernel(dev, levels, peaks)
+    del levels
+    launches["K1"] = phase_main_path(dev)
+    launches["K2"], mh_basic = phase_entry_point(dev)
+    launches["K4"] = phase_mala_entry(dev, mh_basic)
     dnc, m71 = phase_aggregation(dev)
-    for k in launches:
+    for k in ("K1", "K2"):
         launches[k] += dnc[k] + m71[k]
     launches["K3"] = dnc["K3"] + m71["K3"]
+    mala_dnc = phase_mala_dnc(dev)
+    launches["K4"] += mala_dnc["K4 tile"] + mala_dnc["K4 bridge"]
     phase_profile(dev)
-    print(f"[done] phases 2-9 in {time.perf_counter() - start:.1f} s on "
+    print(f"[done] phases 2-13 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     print(f"[done] K2 at the basic shapes: {records['K2 basic']['ms']:.3f} "
           f"ms vs plain {records['K2 basic']['plain_ms']:.3f} ms per 100 "
@@ -1309,10 +1826,20 @@ def main():
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
                             records["K2 basic"]["max_abs_err"], branch_err)
+    for target, rec in k4.items():
+        print(f"[done] K4 {target} ({rec['shape']}): {rec['ms']:.3f} ms vs "
+              f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} "
+              f"ms (at K5's rates {rec['measured_bound_ms']:.4f} ms)")
+    records["K4"] = dict(k4["basic"])
+    records["K4"]["max_abs_err"] = max(r["max_abs_err"] for r in k4.values())
+    print("[done] the K4 record below is at the basic shapes; its "
+          "launches are [mala entry]'s and [mala dnc]'s")
     print(json.dumps({"kernels": [
         _record("mh_sweep", "K1", launches["K1"], records["K1"]),
         _record("mh_sweep_k2", "K2", launches["K2"], k2),
         _record("mh_sweep_k3", "K3", launches["K3"], records["K3"]),
+        _record("mala_sweep_k4", "K4", launches["K4"], records["K4"]),
+        _record("chain_k5", "K5", launches["K5"], records["K5"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

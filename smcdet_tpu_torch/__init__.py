@@ -7,8 +7,10 @@ The package mirrors the JAX package's layout (``distributions``,
 counterpart on the same inputs. Randomness comes from explicit
 ``torch.Generator`` objects that live on the run's device.
 
-The one hand-written kernel of the main path is the fused MH sweep loop
-(``ops/mh_sweep.py`` + ``csrc/mh_sweep.cu``), built with ``nvcc`` at first
-use (``_build.py``). On CPU tensors every op runs its plain PyTorch
-version.
+The hand-written kernels are the fused MH sweep loops K1-K3
+(``ops/mh_sweep.py`` + ``csrc/mh_sweep*.cu``), the fused MALA sweep loop K4
+(``ops/mala_sweep.py`` + ``csrc/mala_sweep_k4.cu``) and the FP32/SFU chain
+microbenchmark K5 (``roofline.py`` + ``csrc/chain_k5.cu``), built with
+``nvcc`` at first use (``_build.py``). On CPU tensors every op runs its
+plain PyTorch version.
 """

@@ -19,7 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load_library", "nvcc_path"]
+__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "build", "load_library",
+           "nvcc_path"]
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "smcdet_tpu_torch"
@@ -28,6 +29,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# flags of one source only. K4 rounds every multiply and add on its own, as
+# its plain version's separate tensor ops do (no contraction into FMAs), so
+# that MALA's drift, which amplifies last-bit differences over the sweeps,
+# starts from the plain version's bits (csrc/mala_sweep_k4.cu). What that
+# costs K4 is measured by tests/torch_k4_contraction.py (PERF.md).
+SOURCE_FLAGS = {"mala_sweep_k4.cu": ["-fmad=false"]}
 
 
 def nvcc_path() -> str:
@@ -47,22 +54,27 @@ def _sources():
     return sorted(_SRC_DIR.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(source_flags: dict) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(source_flags.items())).encode())
     for src in sorted(_SRC_DIR.glob("*.cu*")):  # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> dict:
+def build(source_flags: dict | None = None) -> dict:
     """Compile the kernels unless an up-to-date library exists.
 
-    Returns ``{"path", "seconds", "log"}``: the library, the wall time of
-    the parallel compile and the link (0.0 when reused) and ``nvcc``'s
-    ``-Xptxas -v`` report (registers, shared memory and spills per kernel).
+    ``source_flags`` replaces ``SOURCE_FLAGS`` for a variant library, which
+    lands beside the default one under its own hash. Returns ``{"path",
+    "seconds", "log"}``: the library, the wall time of the parallel compile
+    and the link (0.0 when reused) and ``nvcc``'s ``-Xptxas -v`` report
+    (registers, shared memory and spills per kernel).
     """
-    lib = BUILD_DIR / f"libsmcdet_kernels_{_digest()}.so"
+    if source_flags is None:
+        source_flags = SOURCE_FLAGS
+    lib = BUILD_DIR / f"libsmcdet_kernels_{_digest(source_flags)}.so"
     log_file = lib.with_suffix(".log")
     if lib.is_file():
         log = log_file.read_text() if log_file.is_file() else ""
@@ -76,7 +88,8 @@ def build() -> dict:
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *NVCC_FLAGS, *source_flags.get(src.name, []), "-c", "-o",
+             str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = [p.communicate()[0] for p in procs]
     log = "".join(logs)

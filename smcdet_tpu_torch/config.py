@@ -73,7 +73,7 @@ class KernelConfig:
     fluxes_min: float = 0.252
     fluxes_max: float = 1804.679
     # stop a mutation's sweeps early below this mean squared location jump
-    # (None = fixed num_iters); not ported: SingleComponentMH raises
+    # (None = fixed num_iters); not ported: both kernels raise
     sqjumpdist_tol: float | None = None
 
 
@@ -214,12 +214,23 @@ def build_image_model(cfg: ImageModelConfig, device="cuda"):
 
 
 def build_kernel(cfg: KernelConfig, device="cuda"):
-    from smcdet_tpu_torch.inference.kernels import SingleComponentMH
+    """``kind: mh`` or ``kind: mala``; MALA takes its step sizes from
+    ``locs_stdev`` / ``fluxes_stdev``, as the JAX package does."""
+    from smcdet_tpu_torch.inference.kernels import (
+        SingleComponentMALA,
+        SingleComponentMH,
+    )
 
     if cfg.kind == "mala":
-        raise NotImplementedError(
-            "kernel.kind 'mala' is not ported yet: it needs the eager "
-            "SingleComponentMALA (ROADMAP item 7) and kernel K4")
+        return SingleComponentMALA(
+            num_iters=cfg.num_iters,
+            locs_step=cfg.locs_stdev,
+            fluxes_step=cfg.fluxes_stdev,
+            fluxes_min=cfg.fluxes_min,
+            fluxes_max=cfg.fluxes_max,
+            sqjumpdist_tol=cfg.sqjumpdist_tol,
+            device=device,
+        )
     if cfg.kind != "mh":
         raise ValueError(f"unknown kernel kind {cfg.kind!r}")
     return SingleComponentMH(

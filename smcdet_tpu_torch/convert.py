@@ -1,7 +1,7 @@
 """Build the port's objects from plain hyperparameters.
 
 Each function takes a dict of floats, ints and numpy arrays (the
-hyperparameters of a ``smcdet_tpu`` prior, image model or MH kernel) and
+hyperparameters of a ``smcdet_tpu`` prior, image model, MH or MALA kernel) and
 returns the matching ``smcdet_tpu_torch`` object on ``device``, so that the
 two packages can be run on exactly the same model.
 
@@ -18,12 +18,16 @@ Dict layouts::
             psf = {"kind": "sdss", "params" (6), "normalizing_constant",
                    "wing_beta3"} | {"kind": "gaussian", "stdev"}
     kernel: num_iters, locs_stdev, fluxes_stdev, fluxes_min, fluxes_max
+            (MALA: locs_step, fluxes_step in place of the stdevs)
 """
 
 from __future__ import annotations
 
 from smcdet_tpu_torch.distributions import TruncatedPareto
-from smcdet_tpu_torch.inference.kernels import SingleComponentMH
+from smcdet_tpu_torch.inference.kernels import (
+    SingleComponentMALA,
+    SingleComponentMH,
+)
 from smcdet_tpu_torch.models.imaging import ImageModel
 from smcdet_tpu_torch.models.priors import (
     GeometricCounts,
@@ -36,7 +40,7 @@ from smcdet_tpu_torch.models.priors import (
 from smcdet_tpu_torch.models.psf import SDSSPSF, GaussianPSF
 
 __all__ = ["prior_from_params", "image_model_from_params",
-           "mh_kernel_from_params"]
+           "mh_kernel_from_params", "mala_kernel_from_params"]
 
 
 def _counts(d, device):
@@ -107,6 +111,19 @@ def mh_kernel_from_params(d: dict, device="cuda",
         num_iters=d["num_iters"],
         locs_stdev=d["locs_stdev"],
         fluxes_stdev=d["fluxes_stdev"],
+        fluxes_min=d["fluxes_min"],
+        fluxes_max=d["fluxes_max"],
+        backend=backend,
+        device=device,
+    )
+
+
+def mala_kernel_from_params(d: dict, device="cuda",
+                            backend="auto") -> SingleComponentMALA:
+    return SingleComponentMALA(
+        num_iters=d["num_iters"],
+        locs_step=d["locs_step"],
+        fluxes_step=d["fluxes_step"],
         fluxes_min=d["fluxes_min"],
         fluxes_max=d["fluxes_max"],
         backend=backend,

@@ -11,8 +11,9 @@ count; per-stratum weights, ESS and log normalising constants are masked
 reductions over a dense ``[Th, Tw, C, N]`` membership mask.
 
 The bridge loop runs on the host, one ``(temperature < 1).any()`` read per
-iteration, like ``run_csmc``; its mutation is ``SingleComponentMH``, which
-on a CUDA tensor launches kernel K3, then plain-PyTorch relocation sweeps,
+iteration, like ``run_csmc``; its mutation is the tile stage's kernel,
+``SingleComponentMH`` (on a CUDA tensor kernel K3) or ``SingleComponentMALA``
+(kernel K4), then plain-PyTorch relocation sweeps,
 as the JAX package runs them outside its Pallas kernel. Each stage runs in
 a profiler range: ``agg.merge``, ``agg.resample``, ``agg.rerender``,
 ``agg.mutate``, ``agg.relocate``, ``agg.temper``.

@@ -97,7 +97,9 @@ class ImageModel:
         return rate + self.background
 
     # ------------------------------------------------------------------
-    def _pixel_loglik(self, image, rate):
+    def pixel_loglik(self, image, rate):
+        """Per-pixel log-likelihood of ``image`` under ``rate`` (the terms
+        the likelihoods below sum)."""
         if self.noise == "poisson":
             logpmf = image * torch.log(rate) - rate - torch.lgamma(image + 1.0)
             z2 = (image - rate) ** 2 / rate
@@ -111,10 +113,10 @@ class ImageModel:
 
     def loglikelihood_from_rate_flat(self, image_flat, rate_flat):
         """Pixel log-likelihood summed over the trailing flat-pixel axis."""
-        return self._pixel_loglik(image_flat, rate_flat).sum(-1)
+        return self.pixel_loglik(image_flat, rate_flat).sum(-1)
 
     def loglikelihood_from_rate(self, image, rate):
-        return self._pixel_loglik(image, rate).sum((-2, -1))
+        return self.pixel_loglik(image, rate).sum((-2, -1))
 
     def loglikelihood(self, image, locs, fluxes):
         return self.loglikelihood_from_rate(image, self.render(locs, fluxes))

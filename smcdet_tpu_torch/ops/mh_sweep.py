@@ -50,6 +50,7 @@ __all__ = [
     "MHProposal",
     "even_pixels",
     "flux_prior_delta",
+    "launch",
     "location_window",
     "mh_sweeps",
     "mh_sweeps_reference",
@@ -59,6 +60,7 @@ __all__ = [
     "side_window",
     "sweep_kernel",
     "sweep_with_uniforms",
+    "sweeps_on_stream",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -275,6 +277,18 @@ def mh_sweeps_reference(key, proposal, prior, model, image, temperature,
     model supports: ``num_iters`` sweeps over the kernels' random stream.
     Returns ``(locs, fluxes, rate, pll, lp, acc)`` with ``acc`` the applied
     fraction per particle, and with ``child`` also ``(child_rate, cll)``."""
+    return sweeps_on_stream(sweep_with_uniforms, key, proposal, prior, model,
+                            image, temperature, counts, locs, fluxes, rate,
+                            pll, lp, num_iters, child)
+
+
+def sweeps_on_stream(step, key, proposal, prior, model, image, temperature,
+                     counts, locs, fluxes, rate, pll, lp, num_iters: int,
+                     child: ChildTerm | None = None):
+    """``num_iters`` sweeps of ``step`` (``sweep_with_uniforms`` or a
+    function of the same signature) over the kernels' Philox stream, on
+    the kernels' flattened layouts; returns what ``mh_sweeps_reference``
+    returns."""
     G, N = counts.shape
     key = [int(k) for k in key.tolist()]  # one host read, not one a sweep
     particle = torch.arange(G * N, device=counts.device).reshape(G, N)
@@ -283,7 +297,7 @@ def mh_sweeps_reference(key, proposal, prior, model, image, temperature,
     acc = torch.zeros((G, N), dtype=torch.float32, device=counts.device)
     for it in range(num_iters):
         u_j, u_y, u_x, u_f, u_acc = philox_uniforms(key, particle, it)
-        out = sweep_with_uniforms(
+        out = step(
             u_j, torch.stack([u_y, u_x], -1), u_f, u_acc, prior=prior,
             model=model, proposal=proposal, image_flat=image_flat,
             temperature=tau, counts=counts, locs=locs, fluxes=fluxes,
@@ -437,6 +451,10 @@ def _k2_params(proposal, prior, model) -> _K2Params:
 
 
 def _k3_params(proposal, prior, model, child) -> _K3Params:
+    """The bridge's parameters; without ``child`` (K4's tile target)
+    ``child_axis`` is -1."""
+    if child is None:
+        return _K3Params(_k2_params(proposal, prior, model), 0.0, -1, 0)
     return _K3Params(_k2_params(proposal, prior, model),
                      float(child.boundary), int(child.axis),
                      int(child.slot_side is not None))
@@ -444,9 +462,10 @@ def _k3_params(proposal, prior, model, child) -> _K3Params:
 
 _ENTRY_POINTS = {"K1": "smcdet_mh_sweeps_launch",
                  "K2": "smcdet_mh_sweeps_k2_launch",
-                 "K3": "smcdet_mh_sweeps_k3_launch"}
+                 "K3": "smcdet_mh_sweeps_k3_launch",
+                 "K4": "smcdet_mala_sweeps_k4_launch"}
 _PARAMS = {"K1": (_MHParams, 15), "K2": (_K2Params, 15),
-           "K3": (_K3Params, 20)}
+           "K3": (_K3Params, 20), "K4": (_K3Params, 20)}
 
 
 def _entry(name: str):
@@ -497,8 +516,32 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
         return mh_sweeps_reference(key, proposal, prior, model, image,
                                    temperature, counts, locs, fluxes, rate,
                                    pll, lp, num_iters, child)
+    name = sweep_kernel(prior, model, fluxes.shape[-1],
+                        child=child is not None)
+    outs = launch(name, key, proposal, prior, model, image, temperature,
+                  counts, locs, fluxes, rate, pll, lp, num_iters, child)
+    if name == "K1":
+        mh_sweeps.launches += 1
+    elif name == "K2":
+        mh_sweeps.k2_launches += 1
+    else:
+        mh_sweeps.k3_launches += 1
+    return outs
+
+
+mh_sweeps.launches = 0
+mh_sweeps.k2_launches = 0
+mh_sweeps.k3_launches = 0
+
+
+def launch(name, key, proposal, prior, model, image, temperature, counts,
+           locs, fluxes, rate, pll, lp, num_iters: int,
+           child: ChildTerm | None = None):
+    """Launch sweep kernel ``name`` ("K1" to "K4") on CUDA tensors on the
+    current stream, without synchronising, after checking every input;
+    returns the outputs of ``mh_sweeps``. ``proposal`` carries the
+    proposal scales (for K4, MALA's step sizes)."""
     G, N, M = fluxes.shape
-    name = sweep_kernel(prior, model, M, child=child is not None)
     if num_iters < 1:
         raise ValueError("num_iters must be positive")
     HW = model.height * model.width
@@ -515,7 +558,8 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
     _check("lp", lp, (G, N), f32, dev)
     ins = [key, image, temperature, counts, locs, fluxes, rate, pll, lp]
     outs = [torch.empty_like(t) for t in (locs, fluxes, rate, pll, lp, pll)]
-    if name == "K3":
+    child_outs = []
+    if child is not None:
         _check("child_rate", child.rate, (G, N, HW), f32, dev)
         _check("cll", child.ll, (G, N), f32, dev)
         tags = None
@@ -523,30 +567,26 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
             _check("slot_side", child.slot_side, (G, N, M), f32, dev)
             tags = tag_bits(child.slot_side)
         ins += [child.rate, child.ll, tags]
-        outs += [torch.empty_like(child.rate), torch.empty_like(child.ll)]
+        child_outs = [torch.empty_like(child.rate),
+                      torch.empty_like(child.ll)]
+        bufs = ins + outs + child_outs
+    elif name == "K4":  # the tile target: no child buffers
+        bufs = ins + [None] * 3 + outs + [None] * 2
+    else:
+        bufs = ins + outs
+    if name in ("K3", "K4"):
         params = _k3_params(proposal, prior, model, child)
     elif name == "K2":
         params = _k2_params(proposal, prior, model)
     else:
         params = _k1_params(proposal, prior, model)
     fn = _entry(name)
+    ptrs = [None if t is None else t.data_ptr() for t in bufs]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(None if t is None else t.data_ptr() for t in ins),
-                 *(t.data_ptr() for t in outs), G, N, M, model.height,
-                 model.width, num_iters, params, stream)
+        err = fn(*ptrs, G, N, M, model.height, model.width, num_iters,
+                 params, stream)
     if err != 0:
         raise RuntimeError(f"{name} sweep kernel launch failed with CUDA "
                            f"error {err}")
-    if name == "K1":
-        mh_sweeps.launches += 1
-    elif name == "K2":
-        mh_sweeps.k2_launches += 1
-    else:
-        mh_sweeps.k3_launches += 1
-    return tuple(outs)
-
-
-mh_sweeps.launches = 0
-mh_sweeps.k2_launches = 0
-mh_sweeps.k3_launches = 0
+    return tuple(outs + child_outs)

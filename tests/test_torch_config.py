@@ -147,8 +147,24 @@ def test_build_kernel_matches_jax():
 
 
 def test_build_kernel_mala_names_missing_kernel():
-    with pytest.raises(NotImplementedError, match="K4"):
-        tcfg.build_kernel(tcfg.KernelConfig(kind="mala"))
+    """``kind: mala`` builds the port's SingleComponentMALA with the JAX
+    package's field mapping (step sizes from ``locs_stdev`` /
+    ``fluxes_stdev``); an unknown kind still raises."""
+    from smcdet_tpu_torch.inference.kernels import SingleComponentMALA
+
+    kc = dict(kind="mala", num_iters=60, locs_stdev=0.05, fluxes_stdev=20.0,
+              fluxes_min=345.84, fluxes_max=1e6)
+    jk = jcfg.build_kernel(jcfg.KernelConfig(**kc))
+    tk = tcfg.build_kernel(tcfg.KernelConfig(**kc), device="cpu")
+    assert type(jk).__name__ == "SingleComponentMALA"
+    assert isinstance(tk, SingleComponentMALA)
+    assert tk.num_iters == jk.num_iters == 60
+    for name in ("locs_step", "fluxes_step", "fluxes_min", "fluxes_max"):
+        assert float(getattr(tk, name)) == float(getattr(jk, name)), name
+    assert tk.backend == "auto"
+    with pytest.raises(NotImplementedError, match="sqjumpdist"):
+        tcfg.build_kernel(tcfg.KernelConfig(sqjumpdist_tol=1e-3, **kc),
+                          device="cpu")
     with pytest.raises(ValueError, match="kernel kind"):
         tcfg.build_kernel(tcfg.KernelConfig(kind="nope"))
 

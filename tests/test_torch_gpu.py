@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 on the card (CUDA only; every test skips without a
+"""Kernels K1 to K5 on the card (CUDA only; every test skips without a
 card).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -12,7 +12,9 @@ that has only PyTorch with CUDA:
 import pytest
 import torch
 
+from smcdet_tpu_torch import roofline
 from smcdet_tpu_torch.inference.kernels import (
+    SingleComponentMALA,
     SingleComponentMH,
     TargetContext,
     init_kernel_state,
@@ -26,7 +28,7 @@ from smcdet_tpu_torch.models.priors import (
     UniformCounts,
 )
 from smcdet_tpu_torch.models.psf import GaussianPSF
-from smcdet_tpu_torch.ops import mh_sweep
+from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
 
 pytestmark = pytest.mark.gpu
 
@@ -317,3 +319,150 @@ def test_k3_raises_for_an_unbuilt_joined_tile(dev):
             z((G, N, M, 2), device=dev), z((G, N, M), device=dev),
             torch.ones((G, N, HW), device=dev), z((G, N), device=dev),
             z((G, N), device=dev), 5, child=child)
+
+
+# MALA's steps on each target: those of tests/test_torch_mala.py's matching
+# targets; the M71 bridge takes divideandconquer's (chip_smoke.py)
+_MALA_STEPS = {"m71": (0.05, 0.2), "poisson": (0.05, 20.0),
+               "basic": (0.05, 20.0), "cells": (0.05, 5.0),
+               "wing": (0.05, 0.2), "gauss16": (0.02, 20.0),
+               "m71 bridge": (0.25, 5.0), "poisson bridge": (0.02, 20.0)}
+
+
+def _mala(kernel, name):
+    ls, fs = _MALA_STEPS[name]
+    return SingleComponentMALA(kernel.num_iters, ls, fs, kernel.fluxes_min,
+                               kernel.fluxes_max,
+                               device=kernel.fluxes_min.device)
+
+
+def _k4_agreement(kernel, ctx, counts, state, dev):
+    """Same key, 20 sweeps of K4 and of its plain version: the share of
+    particles on which every output agrees to rtol 1e-4."""
+    outs = {}
+    for backend in ("auto", "torch"):
+        kernel.backend = backend
+        outs[backend], acc = kernel.run_from_state(
+            torch.Generator(device=dev).manual_seed(3), ctx, counts, state)
+    kernel.backend = "auto"
+    torch.cuda.synchronize()
+    assert 0.01 < float(acc.mean()) < 1.0
+    close = torch.ones(counts.shape, dtype=torch.bool, device=dev)
+    for a, b in zip(outs["auto"], outs["torch"]):
+        if a is None:
+            continue
+        ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
+        close &= ok.reshape(counts.shape + (-1,)).all(-1)
+    return float(close.float().mean())
+
+
+def _k4_passthrough(kernel, ctx, counts, locs, fluxes, dev, bridge):
+    """Zero counts: K4 launches once (tile or bridge counter) and passes
+    the state through bit-exactly."""
+    zc = torch.zeros_like(counts)
+    zstate = init_kernel_state(ctx, zc, locs, fluxes)
+    before = (mala_sweep.mala_sweeps.launches,
+              mala_sweep.mala_sweeps.bridge_launches,
+              mh_sweep.mh_sweeps.launches + mh_sweep.mh_sweeps.k2_launches
+              + mh_sweep.mh_sweeps.k3_launches)
+    out, acc = kernel.run_from_state(
+        torch.Generator(device=dev).manual_seed(1), ctx, zc, zstate)
+    torch.cuda.synchronize()
+    for a, b in zip(out, zstate):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert float(acc.max()) == 0.0
+    after = (mala_sweep.mala_sweeps.launches,
+             mala_sweep.mala_sweeps.bridge_launches,
+             mh_sweep.mh_sweeps.launches + mh_sweep.mh_sweeps.k2_launches
+             + mh_sweep.mh_sweeps.k3_launches)
+    assert after == (before[0] + (not bridge), before[1] + bridge,
+                     before[2])
+
+
+@pytest.mark.parametrize("name,N", [("m71", 1000), ("basic", 512),
+                                    ("poisson", 1000), ("cells", 1024),
+                                    ("wing", 1000), ("gauss16", 1000)])
+def test_k4_matches_plain_version(dev, name, N):
+    """K4 on the tile target, every noise, PSF and flux branch on 8x8 and
+    16x16: zero-count passthrough bit-exact with one K4 launch and no MH
+    launch; same key, 20 sweeps, >= 99% of particles agree with the plain
+    version to rtol 1e-4 (the rest are accept flips on the boundary, tail
+    proposals and truncation masses in Phi's f32 tail: chip_smoke.py
+    classifies them)."""
+    mh, ctx, counts, locs, fluxes = _target(dev, name=name, N=N)
+    kernel = _mala(mh, name)
+    assert mala_sweep.mala_kernel(ctx.prior, ctx.model,
+                                  fluxes.shape[-1]) == "K4"
+    _k4_passthrough(kernel, ctx, counts, locs, fluxes, dev, bridge=False)
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    assert _k4_agreement(kernel, ctx, counts, state, dev) >= 0.99
+
+
+@pytest.mark.parametrize("name,shape,mode", [
+    ("m71", (16, 8), "tag"), ("m71", (16, 16), "tag"),
+    ("m71", (16, 8), "location"), ("poisson", (16, 16), "tag")])
+def test_k4_bridge_matches_plain_version(dev, name, shape, mode):
+    """K4 on the bridge: passthrough bit-exact with one K4 bridge launch;
+    same key, 20 sweeps, >= 99% of particles agree with the plain version
+    in both caches to rtol 1e-4."""
+    mh, ctx, counts, locs, fluxes = _bridge_target(dev, name, shape, mode)
+    kernel = _mala(mh, f"{name} bridge")
+    assert mala_sweep.mala_kernel(ctx.prior, ctx.model, fluxes.shape[-1],
+                                  child=True) == "K4"
+    _k4_passthrough(kernel, ctx, counts, locs, fluxes, dev, bridge=True)
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    assert _k4_agreement(kernel, ctx, counts, state, dev) >= 0.99
+
+
+def test_mala_on_cuda_never_reaches_plain_version(dev, monkeypatch):
+    """``backend="auto"`` on CUDA tensors launches K4 or raises; it never
+    runs the plain version."""
+    mh, ctx, counts, locs, fluxes = _target(dev, name="basic", N=256)
+    kernel = _mala(mh, "basic")
+
+    def forbidden(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(mala_sweep, "mala_sweeps_reference", forbidden)
+    monkeypatch.setattr(mala_sweep, "mala_sweep_with_uniforms", forbidden)
+    before = mala_sweep.mala_sweeps.launches
+    st, acc = kernel.run(torch.Generator(device=dev).manual_seed(0), ctx,
+                         counts, locs, fluxes)
+    torch.cuda.synchronize()
+    assert mala_sweep.mala_sweeps.launches == before + 1
+    assert torch.isfinite(st.parent_ll).all() and float(acc.mean()) > 0.0
+    big = ImageModel(32, 32, 6, GaussianPSF(1.4, device=dev),
+                     noise="poisson", background=50.0, device=dev)
+    ctx = TargetContext(ctx.prior, big, torch.ones((2, 1, 1, 32, 32),
+                                                   device=dev),
+                        ctx.temperature)
+    with pytest.raises(NotImplementedError, match="32x32"):
+        kernel.run(torch.Generator(device=dev).manual_seed(0), ctx, counts,
+                   locs, fluxes)
+    assert mala_sweep.mala_sweeps.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", roofline.KINDS)
+def test_k5_matches_plain_version(dev, kind):
+    """K5's chains against the plain chains on the card, one launch each,
+    at the lengths and tolerances of ``roofline.CHECK_N_CHAIN`` /
+    ``CHECK_RTOL``: within the tolerance of the plain chain, and beyond it
+    from the plain chain one step shorter or longer."""
+    x0 = torch.linspace(0.0, 10.0, 5000, device=dev)
+    n_chain, rtol = roofline.CHECK_N_CHAIN[kind], roofline.CHECK_RTOL[kind]
+    before = roofline.chain.launches
+    got = roofline.chain(kind, x0, n_chain)
+    want = roofline.chain_reference(kind, x0, n_chain)
+    torch.cuda.synchronize()
+    assert roofline.chain.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
+    for d in (-1, 1):
+        off = roofline.chain_reference(kind, x0, 0,
+                                       n_chain * roofline.UNROLL + d)
+        assert float(((got - off).abs() / off.abs()).max()) > rtol, d
+
+
+def test_k5_rate_is_linear_in_the_chain_length(dev):
+    m = roofline.measure("fma", target_s=0.05, device=dev)
+    assert 1.8 <= m["linearity"] <= 2.2, m
+    assert m["steps_per_s"] > 0 and m["sm_clock_mhz"] > 0

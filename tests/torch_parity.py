@@ -74,10 +74,12 @@ def model_params(model) -> dict:
 
 
 def kernel_params(kernel) -> dict:
+    """An MH kernel's scales, or a MALA kernel's step sizes."""
+    scales = (("locs_step", "fluxes_step") if hasattr(kernel, "locs_step")
+              else ("locs_stdev", "fluxes_stdev"))
     return {
         "num_iters": kernel.num_iters,
-        "locs_stdev": _f(kernel.locs_stdev),
-        "fluxes_stdev": _f(kernel.fluxes_stdev),
+        **{name: _f(getattr(kernel, name)) for name in scales},
         "fluxes_min": _f(kernel.fluxes_min),
         "fluxes_max": _f(kernel.fluxes_max),
     }
@@ -92,8 +94,12 @@ def port_model(model, device="cpu"):
 
 
 def port_kernel(kernel, device="cpu", backend="auto"):
-    return convert.mh_kernel_from_params(kernel_params(kernel), device,
-                                         backend)
+    """The port's ``SingleComponentMH`` or ``SingleComponentMALA`` of a JAX
+    kernel of the same kind."""
+    d = kernel_params(kernel)
+    build = (convert.mala_kernel_from_params if "locs_step" in d
+             else convert.mh_kernel_from_params)
+    return build(d, device, backend)
 
 
 def t(x, dtype=torch.float32):
