@@ -40,34 +40,40 @@ Phases (a failing phase raises; there is no CPU fallback):
    lie in Phi's f32 tail) at basic's batch shapes, divideandconquer's tile
    target, K2's three branch problems and both bridge levels in tag and
    location mode, each timed beside its bound;
-8. main path: the M71 quick cell (16 tiles from ``generate_images`` with
+8. launch shapes: K1 at one divideandconquer image's tile launch, K4 at
+   the same launch and at that image's two bridge launches, K2 at one m71
+   fixture tile's launch and at the cells batch's (200 sweeps), each timed
+   beside its bound and its plain version;
+9. main path: the M71 quick cell (16 tiles from ``generate_images`` with
    seed 7, N = 2048, 100 sweeps per SMC iteration, systematic resampling,
    ESS 0.5) through ``run_csmc_chunked(sort_tiles=True)``, with every
    mutate call counted against K1's launch counter;
-9. entry point: ``run_experiment`` on ``experiments/basic/config.yaml``
-   (one batch of 20 images) and ``experiments/cells/config.yaml`` (one
-   batch of 10 images) at the shipped configurations, into a temporary
-   directory, with every mutate call counted against K2's launch counter
-   and the basic batch's detection share held to the JAX reference's;
-10. MALA entry point: the same basic batch with ``kernel.kind: mala`` (a
+10. entry point: ``run_experiment`` on ``experiments/basic/config.yaml``
+    (one batch of 20 images) and ``experiments/cells/config.yaml`` (one
+    batch of 10 images) at the shipped configurations, into a temporary
+    directory, with every mutate call counted against K2's launch counter
+    and the basic batch's detection share held to the JAX reference's;
+11. MALA entry point: the same basic batch with ``kernel.kind: mala`` (a
     copy of the config in a temporary directory, compare_kernels.py's
     steps): every mutate call a K4 launch, the detection share held to the
     JAX runner's under MALA, the count-pmf TVD against the MH batch;
-11. aggregation entry point: ``run_experiment`` on one batch of 4 images
+12. aggregation entry point: ``run_experiment`` on one batch of 4 images
     of ``experiments/divideandconquer/config.yaml`` (K1 tile stage, K3
     bridges) and on the first 8 tiles of the m71 real-data fixture
     (``experiments/m71/config.yaml``: fitted params, per-tile backgrounds,
     K2), tile and bridge mutate calls counted against the launches, each
     level's bridge iterations and temperatures printed, the convergence
     and detection shares held to the JAX runner's;
-12. MALA aggregation: the same 4 divideandconquer images with
+13. MALA aggregation: the same 4 divideandconquer images with
     ``kernel.kind: mala``, K4 on the tile stage and on both bridge levels,
     held to the JAX runner's shares under MALA;
-13. profile: ``torch.profiler`` over one divideandconquer image, device
+14. profile: ``torch.profiler`` over one divideandconquer image, device
     time by ``agg.*`` / ``smc.*`` range and the device's idle share.
 
-The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+Then, per path, each kernel's launches in the run, its launch shape, time
+and bound, and launches x (time - bound) ranked by kernel. The last two
+lines of standard output are the kernels' JSON record and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -717,7 +723,10 @@ def kernel_vs_plain(dev, label, name, prior, model, kernel, num_tiles, N,
     ctx, counts, state = _kernel_inputs(dev, prior, model, 2, N, 0)
     _equilibrium(dev, label, kernel, ctx, counts, state)
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "measured_bound_ms": measured_ms,
+            "shape": f"{G} groups x {N}, {model.height}x{model.width}, "
+                     f"M={M}, 100 sweeps"}
 
 
 def branch_check(dev, label, prior, model, kernel, num_tiles=2, N=1000):
@@ -734,6 +743,30 @@ def branch_check(dev, label, prior, model, kernel, num_tiles=2, N=1000):
                  _single_sweep_steps(dev, kernel, ctx, counts, state))
     assert share >= 0.99, share
     return abs_err
+
+
+def launch_agreement(run, plain, args, child=None, sweeps=20):
+    """A sweep kernel's wrapper ``run`` against its plain version ``plain``
+    (``mh_sweeps`` and ``mh_sweeps_reference``, or MALA's) on the flattened
+    arguments ``args`` of a launch, with every other particle of the first
+    group set to count 0 (empty and occupied particles mixed in one warp)
+    and ``sweeps`` sweeps on one key: the empty ones pass through
+    bit-exactly (acceptance 0), and at least 99% of particles agree to rtol
+    1e-4, the bars of ``branch_check``. Returns the share that agrees."""
+    short = list(args)
+    short[6] = args[6].clone()
+    short[6][0, ::2] = 0
+    short[12] = sweeps
+    outs = run(*short, child=child)
+    ref = plain(*short, child=child)
+    ins = list(args[7:12]) + ([] if child is None else [child.rate, child.ll])
+    for out, inp in zip(outs[:5] + outs[6:], ins):
+        assert torch.equal(out[0, ::2], inp[0, ::2]), (
+            "zero-count passthrough moved")
+    assert float(outs[5][0, ::2].abs().max()) == 0.0
+    share = float(_agreement(outs, ref, tuple(short[6].shape)).float().mean())
+    assert share >= 0.99, share
+    return share
 
 
 def sweep_bound(prior, model, counts, rate, M, sweeps, child=False,
@@ -961,8 +994,9 @@ def bridge_vs_plain(dev, label, kernel, ctx, counts, state, peaks,
               f"({bound_by}; at K5's measured rates {measured_ms:.4f} ms)")
         if groups == Tw:
             record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by,
-                          shape=f"{groups} groups x {N}, {shape}")
+                          bound_by=bound_by, measured_bound_ms=measured_ms,
+                          shape=f"{groups} groups x {N}, {shape}, "
+                                f"{sweeps} sweeps")
     _equilibrium(dev, label, kernel, *_first_particles(ctx, counts, state,
                                                          512))
     return record
@@ -1032,7 +1066,7 @@ def phase_bridge_kernel(dev, kernel, levels, peaks):
         dev, "K3 location sides", kernel, loc_ctx, counts,
         init_kernel_state(loc_ctx, counts, state.locs, state.fluxes)),
         bridge_branch_check(dev, "K3 poisson", *poisson_bridge(dev))]
-    rec = dict(records[0])
+    rec = dict(records[0], levels=records)
     rec["max_abs_err"] = max([r["max_abs_err"] for r in records] + errs)
     print(f"[K3] level 1 ({records[1]['shape']}): {records[1]['ms']:.3f} ms "
           f"vs plain {records[1]['plain_ms']:.3f} ms per 50 sweeps, bound "
@@ -1172,7 +1206,8 @@ def mala_vs_plain(dev, label, kernel, ctx, counts, state, sweeps, eq_problem,
     G = counts.numel() // N
     mode = "" if child is None else (
         ", origin tags" if child.slot_side is not None else ", location sides")
-    shape = f"{G} groups x {N}, {model.height}x{model.width}, M={M}{mode}"
+    shape = (f"{G} groups x {N}, {model.height}x{model.width}, M={M}{mode}, "
+             f"{sweeps} sweeps")
     _passthrough(dev, kernel, ctx, counts, state)
     print(f"[{label}] K4 at {shape}: zero-count passthrough bit-exact, acc 0")
     share, abs_err, rel_err = _same_stream(dev, kernel, ctx, counts, state)
@@ -1249,6 +1284,76 @@ def phase_mala_kernel(dev, bridge_levels, peaks):
                 dev, f"K4 level {i} {mode}", dnc_kernel, c, counts, st,
                 dnc_kernel.num_iters, _first_particles(c, counts, st, 512),
                 peaks)
+    return records
+
+
+def phase_launch_shapes(dev, levels, peaks):
+    """The sweep kernels timed at the launch shapes of the paths whose
+    launches ``main`` counts but whose shapes no phase above times: K1 at
+    one divideandconquer image's tile launch (4 tiles x 9 strata x 512, 50
+    sweeps), K4 at the same launch under ``[mala dnc]``'s steps and at one
+    image's two bridge launches (``levels`` cut to one image: level 0, 2
+    groups x 4608, 16x8, M = 16; level 1, 1 x 4608, 16x16, M = 32; origin
+    tags), K2 at one m71 fixture tile's launch (the fitted general-wing
+    PSF, 11 strata x 2048, M = 10, 100 sweeps) and at the cells batch's
+    (130 groups x 4096 at the suite's 200 sweeps; phase 5 times 100). Each
+    beside its bound (the data sheet's and at K5's ``peaks``) and its plain
+    version's time, and held against the plain version at that shape by
+    ``launch_agreement``.
+    Returns ``{"<path> <kernel>": record}``."""
+    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
+
+    key = torch.tensor([12345, 67890], dtype=torch.int64, device=dev)
+    records = {}
+
+    def timed(path, name, args, child=None):
+        prior, model, sweeps = args[2], args[3], args[12]
+        M = args[8].shape[-1]
+        mala = name == "K4"
+        if mala:
+            assert mala_sweep.mala_kernel(prior, model, M,
+                                          child=child is not None) == name
+            run, plain = mala_sweep.mala_sweeps, \
+                mala_sweep.mala_sweeps_reference
+        else:
+            assert mh_sweep.sweep_kernel(prior, model, M) == name
+            run, plain = mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference
+        ms = _time_ms(lambda: run(*args, child=child), reps=5)
+        plain_ms = _time_ms(lambda: plain(*args, child=child), reps=1)
+        share = launch_agreement(run, plain, args, child)
+        bound = [sweep_bound(prior, model, args[6], args[9], M, sweeps,
+                             child=child is not None, mala=mala, peaks=p)
+                 for p in ((PEAK_FP32, PEAK_SFU), peaks)]
+        G, N = args[6].shape
+        shape = (f"{G} groups x {N}, {model.height}x{model.width}, M={M}, "
+                 f"{sweeps} sweeps")
+        print(f"[shapes] {name} {path} ({shape}): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound[0][0]:.4f} ms "
+              f"({bound[0][1]}; at K5's measured rates {bound[1][0]:.4f} "
+              f"ms); zero-count particles pass through bit-exactly, "
+              f"{share:.6f} of particles agree after 20 same-stream sweeps")
+        records[f"{path} {name}"] = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound[0][0], "bound_by": bound[0][1],
+                         "measured_bound_ms": bound[1][0], "shape": shape}
+
+    _, tprior, tmodel, mh, _ = _dnc_problem(dev)
+    problem = _kernel_inputs(dev, tprior, tmodel, 4, 512, 0)
+    timed("dnc tile", "K1", _sweep_args(key, mh, *problem, mh.num_iters))
+    mala = mala_kernel_for(mh, MALA_DNC_STEPS, dev)
+    timed("dnc tile", "K4", _sweep_args(key, mala, *problem, mala.num_iters))
+    for i, (ctx, counts, state) in enumerate(levels):
+        args, child = _groups(
+            _sweep_args(key, mala, ctx, counts, state, mala.num_iters),
+            _flat_child(ctx, counts, state), counts.shape[1])
+        timed(f"dnc bridge level {i}", "K4", args, child)
+    prior, model, kernel, _ = suite_problem(dev, "m71")
+    timed("m71 tile", "K2", _sweep_args(
+        key, kernel, *_kernel_inputs(dev, prior, model, 1, 2048, 0),
+        kernel.num_iters))
+    prior, model, kernel, _ = suite_problem(dev, "cells")
+    timed("cells batch", "K2", _sweep_args(
+        key, kernel, *_kernel_inputs(dev, prior, model, 10, 4096, 0),
+        kernel.num_iters))
     return records
 
 
@@ -1397,14 +1502,15 @@ def _basic_share(label, res, truth, bar):
 
 def phase_entry_point(dev):
     """``run_experiment`` on one batch each of basic and cells (K2); returns
-    the K2 launches and basic's results."""
+    the K2 launches of each and basic's results."""
     from smcdet_tpu_torch.runner import simulate_tiles
 
     with tempfile.TemporaryDirectory() as tmp:
         calls, launches, basic = _entry_batch(
             dev, _suite_config("basic"), "entry", tmp)
-        k2 = launches["K2"]
-        assert k2 == calls.tile["mh"] and launches["K1"] == 0, launches
+        k2 = {"basic": launches["K2"]}
+        assert k2["basic"] == calls.tile["mh"] and launches["K1"] == 0, \
+            launches
         cfg = _suite_config("basic")
         cfg.num_images = cfg.batch_size
         truth = simulate_tiles(cfg)["true_counts"]
@@ -1415,7 +1521,7 @@ def phase_entry_point(dev):
         calls, launches, res = _entry_batch(
             dev, _suite_config("cells"), "entry", tmp)
         assert launches["K2"] == calls.tile["mh"] and launches["K1"] == 0
-        k2 += launches["K2"]
+        k2["cells"] = launches["K2"]
         mean = (res["weights"] * res["pruned_counts"]).sum(-1)
         print(f"[entry] cells: posterior mean pruned count "
               f"{[round(float(x), 3) for x in mean]}")
@@ -1575,7 +1681,9 @@ def _count_share(label, res, truth):
 def _dnc_batch(dev, cfg, label, converged_bar, count_bar):
     """One batch of 4 divideandconquer images through ``run_experiment``:
     each level's bridge iterations and temperatures, held to the JAX
-    runner's convergence and detection shares. Returns the launches."""
+    runner's convergence and detection shares. Returns the launches, with
+    the bridge launches of each level under ``"bridge levels"`` (one
+    launch per bridge iteration)."""
     from smcdet_tpu_torch.runner import simulate_tiles
 
     cfg.num_images = cfg.batch_size = 4
@@ -1598,7 +1706,11 @@ def _dnc_batch(dev, cfg, label, converged_bar, count_bar):
           f"{count_bar})")
     assert converged / len(levels) >= converged_bar - 1e-9
     assert share >= count_bar - 1e-9
-    return launches
+    per_level = [sum(lv[k][0] for lv in levels if len(lv) > k)
+                 for k in range(max(len(lv) for lv in levels))]
+    assert sum(per_level) == launches["K3"] + launches["K4 bridge"], (
+        per_level, launches)
+    return dict(launches, **{"bridge levels": per_level})
 
 
 def phase_aggregation(dev):
@@ -1774,6 +1886,24 @@ def phase_chain(dev):
             "bound_ms": bound_ms, "bound_by": "operations"}, launches, peaks
 
 
+def print_paths(paths):
+    """``paths``: ``(kernel, path, launches, record)``. Per path, the
+    kernel's launches in this run, its launch shape, its time and bound
+    there and launches x (time - bound); then the kernels ranked by the sum
+    of that over their paths."""
+    totals = {}
+    for kid, path, n, rec in paths:
+        gap = n * (rec["ms"] - rec["bound_ms"]) / 1e3
+        totals[kid] = totals.get(kid, 0.0) + gap
+        print(f"[paths] {kid} {path}: {n} launches at {rec['shape']}: "
+              f"{rec['ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms (at K5's "
+              f"rates {rec['measured_bound_ms']:.4f} ms); launches x (time "
+              f"- bound) {gap:.3f} s")
+    ranking = sorted(totals.items(), key=lambda kv: -kv[1])
+    print("[paths] kernels by launches x (time - bound): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in ranking))
+
+
 def _record(name, kernel_id, launches, rec):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": SOURCES[kernel_id],
@@ -1806,23 +1936,20 @@ def main():
     mh_dnc, levels = bridge_states(dev)
     records["K3"] = phase_bridge_kernel(dev, mh_dnc, levels, peaks)
     k4 = phase_mala_kernel(dev, levels, peaks)
+    shapes = phase_launch_shapes(dev, levels, peaks)
     del levels
-    launches["K1"] = phase_main_path(dev)
-    launches["K2"], mh_basic = phase_entry_point(dev)
-    launches["K4"] = phase_mala_entry(dev, mh_basic)
+    launches["K1"] = quick = phase_main_path(dev)
+    k2_entry, mh_basic = phase_entry_point(dev)
+    launches["K4"] = mala_basic = phase_mala_entry(dev, mh_basic)
     dnc, m71 = phase_aggregation(dev)
-    for k in ("K1", "K2"):
-        launches[k] += dnc[k] + m71[k]
+    launches["K1"] += dnc["K1"] + m71["K1"]
+    launches["K2"] = sum(k2_entry.values()) + dnc["K2"] + m71["K2"]
     launches["K3"] = dnc["K3"] + m71["K3"]
     mala_dnc = phase_mala_dnc(dev)
     launches["K4"] += mala_dnc["K4 tile"] + mala_dnc["K4 bridge"]
     phase_profile(dev)
-    print(f"[done] phases 2-13 in {time.perf_counter() - start:.1f} s on "
+    print(f"[done] phases 2-14 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
-    print(f"[done] K2 at the basic shapes: {records['K2 basic']['ms']:.3f} "
-          f"ms vs plain {records['K2 basic']['plain_ms']:.3f} ms per 100 "
-          f"sweeps (bound {records['K2 basic']['bound_ms']:.4f} ms); the K2 "
-          f"record below is at the cells shapes")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
                             records["K2 basic"]["max_abs_err"], branch_err)
@@ -1832,8 +1959,25 @@ def main():
               f"ms (at K5's rates {rec['measured_bound_ms']:.4f} ms)")
     records["K4"] = dict(k4["basic"])
     records["K4"]["max_abs_err"] = max(r["max_abs_err"] for r in k4.values())
-    print("[done] the K4 record below is at the basic shapes; its "
-          "launches are [mala entry]'s and [mala dnc]'s")
+    k3_levels = records["K3"]["levels"]
+    print_paths([
+        ("K1", "quick cell", quick, records["K1"]),
+        ("K1", "divideandconquer tiles", dnc["K1"], shapes["dnc tile K1"]),
+        ("K2", "basic", k2_entry["basic"], records["K2 basic"]),
+        ("K2", "cells", k2_entry["cells"], shapes["cells batch K2"]),
+        ("K2", "m71 fixture", m71["K2"], shapes["m71 tile K2"]),
+        *[("K3", f"divideandconquer bridge level {i}", n, k3_levels[i])
+          for i, n in enumerate(dnc["bridge levels"])],
+        ("K4", "basic under MALA", mala_basic, k4["basic"]),
+        ("K4", "divideandconquer tiles under MALA", mala_dnc["K4 tile"],
+         shapes["dnc tile K4"]),
+        *[("K4", f"divideandconquer bridge level {i} under MALA", n,
+           shapes[f"dnc bridge level {i} K4"])
+          for i, n in enumerate(mala_dnc["bridge levels"])],
+    ])
+    print("[done] the kernels line: K2's record at the cells shapes, K3's "
+          "at one divideandconquer image's level-0 launch, K4's at the basic "
+          "shapes")
     print(json.dumps({"kernels": [
         _record("mh_sweep", "K1", launches["K1"], records["K1"]),
         _record("mh_sweep_k2", "K2", launches["K2"], k2),

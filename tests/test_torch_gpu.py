@@ -219,6 +219,76 @@ def test_k2_matches_plain_version(dev, name, N):
     assert float(close.float().mean()) >= 0.99
 
 
+def _mixed_counts_target(dev, tile, M, N, num_iters):
+    """A K2 target (Poisson noise, Gaussian PSF, Normal flux, ``tile`` x
+    ``tile``, M slots) with counts that vary per particle: 2 tiles x 3
+    groups x N, every third particle empty (so every warp and every lane
+    group of K2 mixes empty and occupied particles next to each other) and
+    particles 64..127 of each group empty (whole warps that skip the
+    loop)."""
+    prior, _ = _normal_flux(dev, M, tile)
+    kernel = SingleComponentMH(num_iters, 0.25, 60.0, 500.0, 5000.0,
+                               device=dev)
+    model = ImageModel(tile, tile, 4, GaussianPSF(1.0, device=dev),
+                       noise="poisson", background=100.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    counts = torch.randint(1, M + 1, (2, 3, N), generator=g, device=dev,
+                           dtype=torch.int32)
+    counts[..., ::3] = 0
+    counts[..., 64:128] = 0
+    locs, fluxes = prior.sample_marks(g, counts, (2, 3, N))
+    images = model.sample(g, locs[:, 0, 1], fluxes[:, 0, 1]).abs()
+    ctx = TargetContext(prior, model, images[:, None, None],
+                        torch.full((2, 1, 1), 0.8, device=dev))
+    return kernel, ctx, counts, init_kernel_state(ctx, counts, locs, fluxes)
+
+
+@pytest.mark.parametrize("tile,M,N,num_iters", [
+    (8, 8, 1001, 20),    # N not a multiple of the particles per block
+    (8, 16, 999, 20),    # M = 16 on 8x8
+    (16, 16, 999, 20),   # M = 16 on 16x16
+    (8, 8, 512, 37),     # sweeps that end inside a Philox draw-ahead batch
+    (16, 12, 1000, 37),
+])
+def test_k2_lane_groups_match_plain_version(dev, tile, M, N, num_iters):
+    """K2's lane groups on what their layout risks: empty and occupied
+    particles mixed in every warp, whole warps of empty particles, N not a
+    multiple of the particles per block, M = 16, and a sweep count that is
+    not a multiple of the sweeps one Philox draw-ahead covers. One K2
+    launch; the empty particles pass through bit-exactly with acceptance 0;
+    on the same key >= 99% of the occupied ones agree with the plain version
+    to rtol 1e-4 (the rest are accept flips on the boundary)."""
+    kernel, ctx, counts, state = _mixed_counts_target(dev, tile, M, N,
+                                                      num_iters)
+    assert mh_sweep.sweep_kernel(ctx.prior, ctx.model, M) == "K2"
+    G, HW = 6, tile * tile
+    args = [torch.tensor([777, 4242], dtype=torch.int64, device=dev),
+            kernel.proposal(ctx.prior), ctx.prior, ctx.model,
+            ctx.image.expand(2, 3, 1, tile, tile).reshape(G, HW)
+            .contiguous(), torch.full((G,), 0.8, device=dev),
+            counts.reshape(G, N).contiguous(),
+            state.locs.reshape(G, N, M, 2).contiguous(),
+            state.fluxes.reshape(G, N, M).contiguous(),
+            state.rate.reshape(G, N, HW).contiguous(),
+            state.parent_ll.reshape(G, N).contiguous(),
+            state.logprior.reshape(G, N).contiguous(), num_iters]
+    before = mh_sweep.mh_sweeps.k2_launches
+    got = mh_sweep.mh_sweeps(*args)
+    want = mh_sweep.mh_sweeps_reference(*args)
+    torch.cuda.synchronize()
+    assert mh_sweep.mh_sweeps.k2_launches == before + 1
+    empty = args[6] == 0
+    for a, b in zip(got[:5], args[7:12]):
+        assert torch.equal(a[empty], b[empty])
+    assert float(got[5][empty].abs().max()) == 0.0
+    assert float(got[5][~empty].mean()) > 0.01
+    close = torch.ones((G, N), dtype=torch.bool, device=dev)
+    for a, b in zip(got[:5], want[:5]):
+        ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
+        close &= ok.reshape(G, N, -1).all(-1)
+    assert float(close[~empty].float().mean()) >= 0.99
+
+
 def _bridge_target(dev, name="m71", shape=(16, 8), mode="tag", N=512,
                    M=None):
     """An aggregation-bridge target on a joined tile: random catalogs with

@@ -1,0 +1,209 @@
+"""The host-side tools around the port's kernels, on the CPU: the build of a
+variant library (``_build.build(source_flags=...)``, against a stand-in for
+``nvcc``), the SASS reader (``tests/torch_sass.py``) on text in
+``cuobjdump -sass``'s format, ``chip_smoke.launch_agreement``'s bars and
+``chip_smoke.print_paths``' ranking."""
+
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+import torch_sass as sass
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
+
+import chip_smoke
+from smcdet_tpu_torch import _build
+
+SASS = """
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,7]
+host = linux
+compile_size = 64bit
+
+\tcode for sm_90a
+\t\tFunction : _Z3fooPfi
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+    /*0000*/       LDC R1, c[0x0][0x28] ;              /* 0x00000a00ff017b82 */
+                                                       /* 0x000fe40000000800 */
+    /*0010*/       IMAD.MOV.U32 R2, RZ, RZ, 0x3f800000 ;
+.L_x_{a}:
+    /*0020*/       FADD R2, R2, 1 ;                    /* 0x3f80000002027421 */
+.L_x_{b}:
+    /*0030*/       FMUL R3, R3, R2 ;
+    /*0040*/   @P0 BRA `(.L_x_{b}) ;
+    /*0050*/       BSSY B0, `(.L_x_{c}) ;
+    /*0060*/  @!P1 BRA `(.L_x_{a}) ;
+.L_x_{c}:
+    /*0070*/       EXIT ;
+.L_x_{d}:
+    /*0080*/       BRA `(.L_x_{d});
+"""
+
+ADDRESSED = """
+\t\tFunction : _Z3barv
+        /*0000*/                   MOV R2, RZ ;
+        /*0010*/                   FADD R2, R2, 1 ;
+        /*0020*/              @P0 BRA 0x10 ;
+        /*0030*/                   EXIT ;
+"""
+
+
+def test_sass_functions_strip_addresses_and_renumber_labels():
+    body = sass.functions(SASS.format(a=1, b=0, c=2, d=3))["_Z3fooPfi"]
+    assert body == [
+        "LDC R1, c[0x0][0x28]", "IMAD.MOV.U32 R2, RZ, RZ, 0x3f800000",
+        "L0:", "FADD R2, R2, 1", "L1:", "FMUL R3, R3, R2", "@P0 BRA `(L1)",
+        "BSSY B0, `(L2)", "@!P1 BRA `(L0)", "L2:", "EXIT", "L3:",
+        "BRA `(L3)"]
+    assert sass.instructions(body) == 9
+
+
+def test_sass_same_code_with_other_label_numbers_compares_equal():
+    one = sass.functions(SASS.format(a=1, b=0, c=2, d=3))
+    other = sass.functions(SASS.format(a=17, b=40, c=41, d=9))
+    assert one == other
+    changed = sass.functions(
+        SASS.format(a=1, b=0, c=2, d=3).replace("FMUL", "FADD"))
+    assert changed != one
+
+
+def test_sass_names_drop_the_anonymous_namespace_hash():
+    name = ("_ZN44_GLOBAL__N__{}_11_chain_k5_cu_{}"
+            "15chain_k5_kernelILi0EEEvPKfPfii")
+    one = name.format("4ae64a37", "2fef6297")
+    other = name.format("0badc0de", "12345678")
+    assert sass.stable_name(one) == sass.stable_name(other) == (
+        "_ZN_GLOBAL__N_15chain_k5_kernelILi0EEEvPKfPfii")
+    assert chip_smoke._kernel_label(sass.stable_name(one)) == (
+        "chain_k5_kernel<0>")
+    text = SASS.replace("_Z3fooPfi", one).format(a=1, b=0, c=2, d=3)
+    assert list(sass.functions(text)) == [sass.stable_name(other)]
+    assert sass.stable_name("_Z3fooPfi") == "_Z3fooPfi"
+
+
+def test_sass_loops_and_loop_sizes():
+    body = sass.functions(SASS.format(a=1, b=0, c=2, d=3))["_Z3fooPfi"]
+    # the outer loop FADD .. @!P1 BRA (5 instructions), the inner FMUL ..
+    # @P0 BRA (2), the self-loop (1); the forward BSSY is no branch
+    assert [n for _, _, n in sass.loops(body)] == [5, 2, 1]
+    assert sass.loop_sizes(body) == (5, 2)
+
+
+def test_sass_branch_to_an_address_becomes_a_label():
+    body = sass.functions(ADDRESSED)["_Z3barv"]
+    assert body == ["MOV R2, RZ", "L0:", "FADD R2, R2, 1", "@P0 BRA L0",
+                    "EXIT"]
+    assert sass.loop_sizes(body) == (2, 0)
+    assert sass.loop_sizes(["MOV R2, RZ", "EXIT"]) == (0, 0)
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    """A stand-in for nvcc that records its arguments and writes its -o
+    file; the build directory in ``tmp_path``."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    calls = tmp_path / "calls.txt"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return calls
+
+
+def _compiles(calls):
+    return [line.split() for line in calls.read_text().splitlines()
+            if " -c " in f" {line} "]
+
+
+def test_build_of_a_variant_compiles_every_source_with_its_flags(fake_nvcc):
+    flags = {"mh_sweep_k2.cu": ["-DVARIANT=1"]}
+    info = _build.build(source_flags=flags)
+    variant = _compiles(fake_nvcc)
+    names = sorted(Path(c[-1]).name for c in variant)
+    assert names == sorted(src.name for src in _build._sources())
+    assert [Path(c[-1]).name for c in variant if "-DVARIANT=1" in c] == [
+        "mh_sweep_k2.cu"]
+    assert not any("-fmad=false" in c for c in variant)
+    assert info["path"].is_file() and info["seconds"] > 0.0
+    assert info["path"].parent == _build.BUILD_DIR
+
+    full = _build.build()
+    default = _compiles(fake_nvcc)[len(variant):]
+    assert full["path"] != info["path"]
+    assert [Path(c[-1]).name for c in default if "-fmad=false" in c] == [
+        "mala_sweep_k4.cu"]
+
+    again = _build.build(source_flags=flags)
+    assert again["path"] == info["path"] and again["seconds"] == 0.0
+    assert len(_compiles(fake_nvcc)) == 2 * len(names)
+
+
+def test_build_names_a_library_by_its_flags():
+    k2 = {"mh_sweep_k2.cu": ["-DX=1"]}
+    assert _build._digest(k2) == _build._digest(dict(k2))
+    assert _build._digest(k2) != _build._digest({})
+    assert _build._digest(k2) != _build._digest({"mh_sweep_k2.cu": ["-DX=2"]})
+    assert _build._digest({}) != _build._digest(_build.SOURCE_FLAGS)
+
+
+@pytest.fixture(scope="module")
+def basic_launch():
+    """The flattened arguments of a small launch of the basic suite's
+    target on the CPU: 1 tile x 9 strata x 8 particles, 3 sweeps."""
+    prior, model, kernel, _ = chip_smoke.suite_problem("cpu", "basic")
+    problem = chip_smoke._kernel_inputs("cpu", prior, model, 1, 8, 0)
+    key = torch.tensor([12345, 67890], dtype=torch.int64)
+    return chip_smoke._sweep_args(key, kernel, *problem, 3)
+
+
+def test_launch_agreement_of_a_version_with_itself(basic_launch):
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    share = chip_smoke.launch_agreement(
+        mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference, basic_launch,
+        sweeps=3)
+    assert share == 1.0
+
+
+@pytest.mark.parametrize("fault, message", [
+    ("moves an empty particle", "passthrough"),
+    ("disagrees on every occupied particle", r"^0\.\d+$")])
+def test_launch_agreement_catches_a_faulty_kernel(basic_launch, fault,
+                                                  message):
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    def faulty(*args, child=None):
+        outs = list(mh_sweep.mh_sweeps(*args, child=child))
+        if fault == "moves an empty particle":
+            outs[3] = outs[3].clone()
+            outs[3][0, 0] += 1.0
+        else:
+            outs[3] = torch.where(args[6] > 0, outs[3] + 1.0, outs[3])
+        return tuple(outs)
+
+    with pytest.raises(AssertionError, match=message):
+        chip_smoke.launch_agreement(faulty, mh_sweep.mh_sweeps_reference,
+                                    basic_launch, sweeps=3)
+
+
+def test_print_paths_ranks_kernels_by_launches_times_gap(capsys):
+    def rec(ms, bound):
+        return {"ms": ms, "bound_ms": bound, "measured_bound_ms": bound,
+                "shape": "s"}
+
+    chip_smoke.print_paths([("K1", "a", 10, rec(3.0, 1.0)),
+                            ("K2", "b", 5, rec(10.0, 2.0)),
+                            ("K1", "c", 100, rec(0.5, 0.25))])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 4
+    assert "launches x (time - bound) 0.040 s" in out[1]
+    assert out[-1] == ("[paths] kernels by launches x (time - bound): "
+                       "K1 0.045 s, K2 0.040 s")
