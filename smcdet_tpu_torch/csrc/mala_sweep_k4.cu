@@ -17,26 +17,51 @@
 // (mh_pixel.cuh); the tile target on 8x8 and 16x16 tiles with up to 16 slots,
 // the bridge on the joined 16x8 (up to 16 slots) and 16x16 (up to 32) tiles.
 //
-// What bounds it on this card: FP32 and SFU work. An update evaluates the PSF
-// and its derivative at the current and the proposed location over every
-// pixel, dll/drate at both (one division each, two on the bridge), and the
-// likelihood at the proposal (one logf per pixel and term), so it needs
-// about twice K2's (or K3's) work per pixel.
+// What bounds it on this card: instruction issue, as in K2. An update
+// evaluates the PSF and its derivative at the current and the proposed
+// location over every pixel, dll/drate at both, and the likelihood at the
+// proposal (one logf per pixel and term), about twice K2's (or K3's) work per
+// pixel, and a scalar part larger than K2's: three truncated-normal samples
+// around the drifted means, three reverse box masses, six proposal
+// log-densities, the flux prior and its gradient at both fluxes.
 //
-// Design: K2's and K3's layout. L lanes per particle (8 on 8x8, 16 on the
-// 16x8 bridge, a whole warp on 16x16), each lane holding HW / L = 8 pixels of
-// the rate cache (and on the bridge the child rate) in registers, pixel
-// p = lane + L * k. The first pixel pass removes the star from the caches
-// (kept in the proposal arrays) and sums the lane's three forward gradient
-// terms; one __shfl_xor_sync butterfly sums all three. The second pass adds
-// the proposed star, sums the likelihood(s) at the proposal and the three
-// reverse gradient terms; one more butterfly sums those four (five on the
-// bridge). A butterfly leaves the bit-identical totals in every lane, so
-// every lane draws the same proposal and takes the same accept decision. The
-// catalog sits in shared memory (room for 32 slots), lgamma(image + 1) is
+// Design: K2's layout and its four means of keeping a warp's issue slots on
+// the pixels (mh_sweep_k2.cu). L lanes per particle (kLanes* below, chosen
+// by time on the H100), each lane holding HW / L pixels of the rate cache
+// (and on the bridge the child rate) in registers, pixel p = lane + L * k.
+//
+// - The first pixel pass removes the star from the caches (kept in the
+//   proposal arrays) and sums the lane's three forward gradient terms; one
+//   __shfl_xor_sync butterfly sums them. The second pass adds the proposed
+//   star, sums the likelihood(s) at the proposal and the three reverse
+//   gradient terms; one more butterfly sums those four (five on the bridge).
+//   A butterfly leaves the bit-identical totals in every lane.
+// - The scalar part is split across the particle's lanes: lane c < 3 takes
+//   coordinate c (y, x, flux; lanes above 2 repeat the flux), draws its one
+//   truncated-normal sample around its drifted mean, and after the second
+//   butterfly works out its reverse drifted mean, that mean's box mass and
+//   both of its proposal log-densities; even lanes take the flux prior at the
+//   proposed flux and odd lanes at the current one. __shfl_sync inside the
+//   lane group hands the proposals and the terms to every lane, which add
+//   them in the plain version's order, so every lane takes the same accept
+//   decision.
+// - The Philox words are drawn ahead: lane 2 s + d draws word set d of sweep
+//   base + s for the next L / 2 sweeps, and each sweep fetches its five
+//   uniforms by shuffle.
+// - No IEEE division by a launch constant on the pixel path: the PSF's
+//   widths and normalisers are reciprocals worked out once per thread
+//   (mh_pixel.cuh: PsfRecip), the wing's derivative multiplies by 1 / q from
+//   the rsqrt that gives the wing (beta = 3), and the likelihood and its
+//   derivative at a pixel share one reciprocal of the variance or rate.
+// - One instantiation per noise and PSF kind (launch_kinds), so the unrolled
+//   pixel passes carry no branch on them.
+//
+// The catalog sits in shared memory (room for 32 slots), lgamma(image + 1) is
 // staged once per block, the tags ride as one 32-bit mask per particle, and
-// noise, PSF and flux prior are grid-uniform branches. Padded particles
-// (n >= N) start from rate = child rate = 1 and never move.
+// the flux prior is a grid-uniform branch. Padded particles (n >= N) start
+// from rate = child rate = 1 and never move; a particle with no occupied
+// slot never moves; every lane of a warp runs the same sweeps, so every
+// shuffle sees all its lanes.
 //
 // Random numbers are K1-K3's (mh_common.cuh): Philox4x32-10 keyed by the
 // per-call key with the counter (particle, sweep, draw, particle >> 32); draw
@@ -46,7 +71,8 @@
 // kept bit-close where they can be: this file is compiled with -fmad=false
 // (_build.py: SOURCE_FLAGS), so every multiply and add rounds on its own as
 // the plain version's separate tensor ops do; the plain version sums the
-// pixels in this kernel's lane order (ops/mala_sweep.py: lane_sum); and the
+// pixels in this kernel's lane order (ops/mala_sweep.py: lane_sum, with the
+// lane counts of K4_LANES) and works out the same reciprocals; and the
 // truncated normal's Phi is the plain version's formula (phi_cdf). What
 // differs is the inverse CDF (normcdfinvf against torch's ndtri) and the
 // rounding inside the library functions.
@@ -70,6 +96,16 @@ using namespace smcdet;
 
 constexpr int kBlock = 256;
 constexpr int kMaxSlots = 32;
+// Lanes per particle on each target, as timed on the H100 at the launch
+// shapes of the paths (PERF.md); ops/mala_sweep.py: K4_LANES mirrors them.
+constexpr int kLanes8x8 = 4;
+constexpr int kLanes16x16 = 16;
+constexpr int kLanesBridge16x8 = 16;
+constexpr int kLanesBridge16x16 = 32;
+// Blocks per SM that __launch_bounds__ asks ptxas to leave room for: two
+// blocks of 256 threads hold every instantiation at 128 registers or fewer.
+constexpr int kMinBlocks = 2;
+constexpr unsigned kFull = 0xffffffffu;
 
 // Phi as the plain version computes it: torch.special.ndtr is
 // (1 + erf(z / sqrt(2))) / 2. A drift far outside the box leaves a
@@ -106,8 +142,9 @@ __device__ __forceinline__ float tn_log_q(float x, float mu, float sigma,
   return ((-0.5f * z) * z - log_sigma - kHalfLog2Pi) - log_mass(mass);
 }
 
-template <int H, int W, int L, bool CHILD>
-__global__ void __launch_bounds__(kBlock)
+// NOISE and PSF fix K2Params' noise_kind and psf_kind at compile time.
+template <int H, int W, int L, bool CHILD, int NOISE, int PSF>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 mala_sweep_k4_kernel(const int64_t* __restrict__ key,
                      const float* __restrict__ image,
                      const float* __restrict__ temperature,
@@ -127,13 +164,22 @@ mala_sweep_k4_kernel(const int64_t* __restrict__ key,
                      float* __restrict__ acc_out,
                      float* __restrict__ crate_out,
                      float* __restrict__ cll_out, int N, int M,
-                     int num_iters, K4Params Q) {
+                     int num_iters, const K4Params Q) {
   constexpr int HW = H * W;
-  constexpr int PPL = HW / L;      // pixels per lane
-  constexpr int PPB = kBlock / L;  // particles per block
-  static_assert(HW % L == 0 && 32 % L == 0, "L must divide HW and 32");
+  constexpr int PPL = HW / L;        // pixels per lane
+  constexpr int PPB = kBlock / L;    // particles per block
+  constexpr int AHEAD = L / 2;       // sweeps per Philox draw-ahead
+  static_assert(HW % L == 0 && 32 % L == 0 && L >= 4 &&
+                    (W % L == 0 || L % W == 0),
+                "L must divide HW and 32, hold the three proposals, and "
+                "divide the row or be a multiple of it");
   static_assert(PPL <= 32, "one bit per pixel of a lane");
-  const K2Params& P = Q.base;
+  K2Params P = Q.base;
+  P.noise_kind = NOISE;
+  P.psf_kind = PSF;
+  const PsfRecip R = psf_recip(P);
+  // the wing's derivative factor -1 / (2 sp) (SDSS PSF only)
+  const float wd = PSF == 0 ? 0.f : -1.f / (2.f * P.sp);
   extern __shared__ float smem[];
   float* s_img = smem;           // [HW]
   float* s_lg = smem + HW;       // [HW] lgamma(image + 1), Poisson
@@ -143,7 +189,7 @@ mala_sweep_k4_kernel(const int64_t* __restrict__ key,
   for (int p = threadIdx.x; p < HW; p += blockDim.x) {
     const float v = image[(int64_t)g * HW + p];
     s_img[p] = v;
-    s_lg[p] = P.noise_kind == 1 ? lgammaf(v + 1.f) : 0.f;
+    s_lg[p] = NOISE == 1 ? lgammaf(v + 1.f) : 0.f;
   }
 
   const int local = threadIdx.x / L;  // particle within the block
@@ -172,8 +218,10 @@ mala_sweep_k4_kernel(const int64_t* __restrict__ key,
     rate[k] = valid ? rate_in[pid * HW + p] : 1.f;
     if constexpr (CHILD) {
       crate[k] = valid ? crate_in[pid * HW + p] : 1.f;
-      const int coord = Q.child_axis == 0 ? p / W : p % W;
-      even_bits |= ((float)coord < Q.boundary ? 1u : 0u) << k;
+      float h, w;
+      pixel_rc<W, L>(lane, k, &h, &w);
+      const float coord = Q.child_axis == 0 ? h : w;
+      even_bits |= (coord < Q.boundary ? 1u : 0u) << k;
     }
   }
   float pll = valid ? pll_in[pid] : 0.f;
@@ -189,172 +237,201 @@ mala_sweep_k4_kernel(const int64_t* __restrict__ key,
   const float count_f = (float)count;
   const float aeff = active ? P.adu : 0.f;
   const float ls = P.locs_stdev, fs = P.fluxes_stdev;
-  const float half_ls2 = (0.5f * ls) * ls;
-  const float half_fs2 = (0.5f * fs) * fs;
-  const float log_ls = logf(ls), log_fs = logf(fs);
+  // this lane's coordinate: 0 y, 1 x, 2 flux (lanes above 2 repeat the
+  // flux), with its step, half its squared step, the log of its step and its
+  // box
+  const int c = min(lane, 2);
+  const float sigma_c = c < 2 ? ls : fs;
+  const float half_c = (0.5f * sigma_c) * sigma_c;
+  const float log_sigma_c = logf(sigma_c);
+  const float lb_c = c == 0 ? P.loc_low_y : c == 1 ? P.loc_low_x : P.flux_lo;
+  const float ub_c =
+      c == 0 ? P.loc_high_y : c == 1 ? P.loc_high_x : P.flux_hi;
   int accepted = 0;
-  // As in K2 and K3: a particle with no occupied slot never moves and passes
-  // through bit-exactly; a warp of such particles skips the loop, and every
-  // lane of a warp runs the same number of sweeps, so the shuffles and
-  // __syncwarp below see the whole warp.
-  const int iters = __all_sync(0xffffffffu, !active) ? 0 : num_iters;
-  for (int it = 0; it < iters; ++it) {
-    uint32_t r0[4] = {(uint32_t)pid, (uint32_t)it, 0u, (uint32_t)(pid >> 32)};
-    uint32_t r1[4] = {(uint32_t)pid, (uint32_t)it, 1u, (uint32_t)(pid >> 32)};
-    philox4x32_10(r0, k0, k1);
-    philox4x32_10(r1, k0, k1);
-    const float u_j = unit_uniform(r0[0]);
-    const float u_acc = unit_uniform(r1[0]);
+  // A particle with no occupied slot never moves and passes through
+  // bit-exactly; a warp of such particles skips the loop, and every lane of
+  // a warp runs the same number of sweeps, so the shuffles and __syncwarp
+  // below see the whole warp.
+  const int iters = __all_sync(kFull, !active) ? 0 : num_iters;
+  for (int base = 0; base < iters; base += AHEAD) {
+    // lane 2 s + d holds draw d of sweep base + s as four uniforms
+    uint32_t r[4] = {(uint32_t)pid, (uint32_t)(base + (lane >> 1)),
+                     (uint32_t)(lane & 1), (uint32_t)(pid >> 32)};
+    philox4x32_10(r, k0, k1);
+    const float w0 = unit_uniform(r[0]), w1 = unit_uniform(r[1]);
+    const float w2 = unit_uniform(r[2]), w3 = unit_uniform(r[3]);
+    const int batch = min(AHEAD, iters - base);
+    for (int s = 0; s < batch; ++s) {
+      const float u_j = __shfl_sync(kFull, w0, 2 * s, L);
+      const float u_y = __shfl_sync(kFull, w1, 2 * s, L);
+      const float u_x = __shfl_sync(kFull, w2, 2 * s, L);
+      const float u_f = __shfl_sync(kFull, w3, 2 * s, L);
+      const float u_acc = __shfl_sync(kFull, w0, 2 * s + 1, L);
 
-    // uniform slot over the occupied prefix 0..count-1
-    const int j = max(min((int)floorf(u_j * count_f), count - 1), 0);
-    const float ly_j = active ? cat[j * 3] : 0.f;
-    const float lx_j = active ? cat[j * 3 + 1] : 0.f;
-    const float f_j = active ? cat[j * 3 + 2] : 0.f;
-    // an inactive particle proposes from the flux floor (never applied)
-    const float f_safe = active ? f_j : P.flux_lo;
-    const float af_old = aeff * f_safe;
+      // uniform slot over the occupied prefix 0..count-1
+      const int j = max(min((int)floorf(u_j * count_f), count - 1), 0);
+      const float ly_j = active ? cat[j * 3] : 0.f;
+      const float lx_j = active ? cat[j * 3 + 1] : 0.f;
+      const float f_j = active ? cat[j * 3 + 2] : 0.f;
+      // an inactive particle proposes from the flux floor (never applied)
+      const float f_safe = active ? f_j : P.flux_lo;
+      const float af_old = aeff * f_safe;
+      const float v_c = c == 0 ? ly_j : c == 1 ? lx_j : f_safe;
 
-    bool side_old = false;
-    if constexpr (CHILD) {
-      side_old = Q.side_from_tag
-                     ? (bool)((side_bits >> j) & 1u)
-                     : (Q.child_axis == 0 ? ly_j : lx_j) <= Q.boundary;
-    }
-
-    // pass 1: remove the star from the caches, and the forward gradient
-    // sums at the current point (the cached full rates)
-    const float fy_old = floorf(ly_j), fx_old = floorf(lx_j);
-    float sy = 0.f, sx = 0.f, sf = 0.f;
-#pragma unroll
-    for (int k = 0; k < PPL; ++k) {
-      const int p = lane + L * k;
-      float psi, dpsi, dy, dx;
-      star_pixel_deriv<W>(p, ly_j, lx_j, fy_old, fx_old, P, &psi, &dpsi, &dy,
-                          &dx);
-      float gk = tau * pixel_dll_drate(s_img[p], rate[k], P);
-      rate_prop[k] = rate[k] - af_old * psi;
+      bool side_old = false;
       if constexpr (CHILD) {
-        const bool w = (bool)((even_bits >> k) & 1u) == side_old;
-        if (w) {
-          gk += one_minus_tau * pixel_dll_drate(s_img[p], crate[k], P);
-        }
-        crate_prop[k] = crate[k] - (w ? af_old * psi : 0.f);
+        side_old = Q.side_from_tag
+                       ? (bool)((side_bits >> j) & 1u)
+                       : (Q.child_axis == 0 ? ly_j : lx_j) <= Q.boundary;
       }
-      const float gd = gk * dpsi;
-      sy += gd * (-2.f * dy);
-      sx += gd * (-2.f * dx);
-      sf += gk * psi;
-    }
-#pragma unroll
-    for (int off = L / 2; off > 0; off >>= 1) {
-      sy += __shfl_xor_sync(0xffffffffu, sy, off);
-      sx += __shfl_xor_sync(0xffffffffu, sx, off);
-      sf += __shfl_xor_sync(0xffffffffu, sf, off);
-    }
-    const float gf =
-        sf * aeff + (active ? flux_log_prob_grad(f_safe, P) : 0.f);
-    const float mu_y = ly_j + half_ls2 * (sy * af_old);
-    const float mu_x = lx_j + half_ls2 * (sx * af_old);
-    const float mu_f = f_safe + half_fs2 * gf;
 
-    float mass_y, mass_x, mass_f;
-    const float y_prop = box_sample(unit_uniform(r0[1]), mu_y, ls,
-                                    P.loc_low_y, P.loc_high_y, &mass_y);
-    const float x_prop = box_sample(unit_uniform(r0[2]), mu_x, ls,
-                                    P.loc_low_x, P.loc_high_x, &mass_x);
-    const float f_prop = box_sample(unit_uniform(r0[3]), mu_f, fs, P.flux_lo,
-                                    P.flux_hi, &mass_f);
-    const float af_new = aeff * f_prop;
-    bool side_new = side_old;
-    if (CHILD && !Q.side_from_tag) {  // location mode: the proposal's side
-      side_new = (Q.child_axis == 0 ? y_prop : x_prop) <= Q.boundary;
-    }
-
-    // pass 2: add the proposed star, the likelihood(s) at the proposal and
-    // the reverse gradient sums there
-    const float fy_new = floorf(y_prop), fx_new = floorf(x_prop);
-    float pll_prop = 0.f, cll_prop = 0.f;
-    float ry = 0.f, rx = 0.f, rf = 0.f;
-#pragma unroll
-    for (int k = 0; k < PPL; ++k) {
-      const int p = lane + L * k;
-      float psi, dpsi, dy, dx;
-      star_pixel_deriv<W>(p, y_prop, x_prop, fy_new, fx_new, P, &psi, &dpsi,
-                          &dy, &dx);
-      const float rp = rate_prop[k] + af_new * psi;
-      rate_prop[k] = rp;
-      pll_prop += pixel_loglik(s_img[p], s_lg[p], rp, P);
-      float gk = tau * pixel_dll_drate(s_img[p], rp, P);
-      if constexpr (CHILD) {
-        const bool w = (bool)((even_bits >> k) & 1u) == side_new;
-        const float crp = crate_prop[k] + (w ? af_new * psi : 0.f);
-        crate_prop[k] = crp;
-        cll_prop += pixel_loglik(s_img[p], s_lg[p], crp, P);
-        if (w) gk += one_minus_tau * pixel_dll_drate(s_img[p], crp, P);
-      }
-      const float gd = gk * dpsi;
-      ry += gd * (-2.f * dy);
-      rx += gd * (-2.f * dx);
-      rf += gk * psi;
-    }
-#pragma unroll
-    for (int off = L / 2; off > 0; off >>= 1) {
-      pll_prop += __shfl_xor_sync(0xffffffffu, pll_prop, off);
-      ry += __shfl_xor_sync(0xffffffffu, ry, off);
-      rx += __shfl_xor_sync(0xffffffffu, rx, off);
-      rf += __shfl_xor_sync(0xffffffffu, rf, off);
-      if constexpr (CHILD) {
-        cll_prop += __shfl_xor_sync(0xffffffffu, cll_prop, off);
-      }
-    }
-    const float lp_prop =
-        lp + (active ? flux_log_prob(f_prop, P) - flux_log_prob(f_safe, P)
-                     : 0.f);
-    const float gf_r =
-        rf * aeff + (active ? flux_log_prob_grad(f_prop, P) : 0.f);
-    const float mu_y_r = y_prop + half_ls2 * (ry * af_new);
-    const float mu_x_r = x_prop + half_ls2 * (rx * af_new);
-    const float mu_f_r = f_prop + half_fs2 * gf_r;
-
-    // the two proposal densities; the forward masses come from the sampling
-    const float log_q_fwd =
-        (tn_log_q(y_prop, mu_y, ls, log_ls, mass_y) +
-         tn_log_q(x_prop, mu_x, ls, log_ls, mass_x)) +
-        tn_log_q(f_prop, mu_f, fs, log_fs, mass_f);
-    const float log_q_rev =
-        (tn_log_q(ly_j, mu_y_r, ls, log_ls,
-                  box_mass(mu_y_r, ls, P.loc_low_y, P.loc_high_y)) +
-         tn_log_q(lx_j, mu_x_r, ls, log_ls,
-                  box_mass(mu_x_r, ls, P.loc_low_x, P.loc_high_x))) +
-        tn_log_q(f_safe, mu_f_r, fs, log_fs,
-                 box_mass(mu_f_r, fs, P.flux_lo, P.flux_hi));
-    float target_old = lp + tau * pll;
-    float target_new = lp_prop + tau * pll_prop;
-    if constexpr (CHILD) {
-      target_old += one_minus_tau * cll;
-      target_new += one_minus_tau * cll_prop;
-    }
-    const float log_alpha = ((target_new - target_old) + log_q_rev) - log_q_fwd;
-    // NaN-propagating min(log_alpha, 0): a NaN target never accepts
-    const float capped = log_alpha > 0.f ? 0.f : log_alpha;
-    if (active && u_acc <= expf(capped)) {
-      if (lane == 0) {
-        cat[j * 3] = y_prop;
-        cat[j * 3 + 1] = x_prop;
-        cat[j * 3 + 2] = f_prop;
-      }
+      // pass 1: remove the star from the caches, and the forward gradient
+      // sums at the current point (the cached full rates)
+      const float fy_old = floorf(ly_j), fx_old = floorf(lx_j);
+      float sy = 0.f, sx = 0.f, sf = 0.f;
 #pragma unroll
       for (int k = 0; k < PPL; ++k) {
-        rate[k] = rate_prop[k];
-        if constexpr (CHILD) crate[k] = crate_prop[k];
+        const int p = lane + L * k;
+        float h, w, psi, dpsi, dy, dx;
+        pixel_rc<W, L>(lane, k, &h, &w);
+        star_pixel_deriv_recip(h, w, ly_j, lx_j, fy_old, fx_old,
+                               P.psf_radius, R, wd, &psi, &dpsi, &dy, &dx);
+        const float img = s_img[p];
+        float gk =
+            tau * pixel_dll_recip(img, rate[k], noise_recip(rate[k], P), P);
+        rate_prop[k] = rate[k] - af_old * psi;
+        if constexpr (CHILD) {
+          const bool win = (bool)((even_bits >> k) & 1u) == side_old;
+          if (win) {
+            gk += one_minus_tau *
+                  pixel_dll_recip(img, crate[k], noise_recip(crate[k], P), P);
+          }
+          crate_prop[k] = crate[k] - (win ? af_old * psi : 0.f);
+        }
+        const float gd = gk * dpsi;
+        sy += gd * (-2.f * dy);
+        sx += gd * (-2.f * dx);
+        sf += gk * psi;
       }
-      pll = pll_prop;
-      cll = cll_prop;
-      lp = lp_prop;
-      ++accepted;
+#pragma unroll
+      for (int off = L / 2; off > 0; off >>= 1) {
+        sy += __shfl_xor_sync(kFull, sy, off);
+        sx += __shfl_xor_sync(kFull, sx, off);
+        sf += __shfl_xor_sync(kFull, sf, off);
+      }
+
+      // lane c's drifted mean and its proposal; every lane gets the three
+      const float grad_c =
+          c == 0 ? sy * af_old
+          : c == 1
+              ? sx * af_old
+              : sf * aeff + (active ? flux_log_prob_grad(f_safe, P) : 0.f);
+      const float mu_c = v_c + half_c * grad_c;
+      float mass_c;
+      const float prop_c = box_sample(c == 0 ? u_y : c == 1 ? u_x : u_f,
+                                      mu_c, sigma_c, lb_c, ub_c, &mass_c);
+      const float y_prop = __shfl_sync(kFull, prop_c, 0, L);
+      const float x_prop = __shfl_sync(kFull, prop_c, 1, L);
+      const float f_prop = __shfl_sync(kFull, prop_c, 2, L);
+      const float af_new = aeff * f_prop;
+      bool side_new = side_old;
+      if (CHILD && !Q.side_from_tag) {  // location mode: the proposal's side
+        side_new = (Q.child_axis == 0 ? y_prop : x_prop) <= Q.boundary;
+      }
+
+      // pass 2: add the proposed star, the likelihood(s) at the proposal and
+      // the reverse gradient sums there
+      const float fy_new = floorf(y_prop), fx_new = floorf(x_prop);
+      float pll_prop = 0.f, cll_prop = 0.f;
+      float ry = 0.f, rx = 0.f, rf = 0.f;
+#pragma unroll
+      for (int k = 0; k < PPL; ++k) {
+        const int p = lane + L * k;
+        float h, w, psi, dpsi, dy, dx;
+        pixel_rc<W, L>(lane, k, &h, &w);
+        star_pixel_deriv_recip(h, w, y_prop, x_prop, fy_new, fx_new,
+                               P.psf_radius, R, wd, &psi, &dpsi, &dy, &dx);
+        const float img = s_img[p];
+        const float rp = rate_prop[k] + af_new * psi;
+        rate_prop[k] = rp;
+        const float inv = noise_recip(rp, P);
+        pll_prop += pixel_loglik_recip(img, s_lg[p], rp, inv, P);
+        float gk = tau * pixel_dll_recip(img, rp, inv, P);
+        if constexpr (CHILD) {
+          const bool win = (bool)((even_bits >> k) & 1u) == side_new;
+          const float crp = crate_prop[k] + (win ? af_new * psi : 0.f);
+          crate_prop[k] = crp;
+          const float cinv = noise_recip(crp, P);
+          cll_prop += pixel_loglik_recip(img, s_lg[p], crp, cinv, P);
+          if (win) gk += one_minus_tau * pixel_dll_recip(img, crp, cinv, P);
+        }
+        const float gd = gk * dpsi;
+        ry += gd * (-2.f * dy);
+        rx += gd * (-2.f * dx);
+        rf += gk * psi;
+      }
+#pragma unroll
+      for (int off = L / 2; off > 0; off >>= 1) {
+        pll_prop += __shfl_xor_sync(kFull, pll_prop, off);
+        ry += __shfl_xor_sync(kFull, ry, off);
+        rx += __shfl_xor_sync(kFull, rx, off);
+        rf += __shfl_xor_sync(kFull, rf, off);
+        if constexpr (CHILD) {
+          cll_prop += __shfl_xor_sync(kFull, cll_prop, off);
+        }
+      }
+
+      // the flux prior at the proposed flux (even lanes) and the current one
+      // (odd lanes)
+      const float flp = flux_log_prob((lane & 1) ? f_safe : f_prop, P);
+      const float flp_new = __shfl_sync(kFull, flp, 0, L);
+      const float flp_old = __shfl_sync(kFull, flp, 1, L);
+      const float lp_prop = lp + (active ? flp_new - flp_old : 0.f);
+      // lane c's reverse drifted mean at the proposal, and its forward and
+      // reverse proposal log-densities (the forward mass from the sampling)
+      const float grad_r_c =
+          c == 0 ? ry * af_new
+          : c == 1
+              ? rx * af_new
+              : rf * aeff + (active ? flux_log_prob_grad(f_prop, P) : 0.f);
+      const float mu_r_c = prop_c + half_c * grad_r_c;
+      const float fwd_c = tn_log_q(prop_c, mu_c, sigma_c, log_sigma_c, mass_c);
+      const float rev_c = tn_log_q(v_c, mu_r_c, sigma_c, log_sigma_c,
+                                   box_mass(mu_r_c, sigma_c, lb_c, ub_c));
+      const float log_q_fwd = (__shfl_sync(kFull, fwd_c, 0, L) +
+                               __shfl_sync(kFull, fwd_c, 1, L)) +
+                              __shfl_sync(kFull, fwd_c, 2, L);
+      const float log_q_rev = (__shfl_sync(kFull, rev_c, 0, L) +
+                               __shfl_sync(kFull, rev_c, 1, L)) +
+                              __shfl_sync(kFull, rev_c, 2, L);
+      float target_old = lp + tau * pll;
+      float target_new = lp_prop + tau * pll_prop;
+      if constexpr (CHILD) {
+        target_old += one_minus_tau * cll;
+        target_new += one_minus_tau * cll_prop;
+      }
+      const float log_alpha =
+          ((target_new - target_old) + log_q_rev) - log_q_fwd;
+      // NaN-propagating min(log_alpha, 0): a NaN target never accepts
+      const float capped = log_alpha > 0.f ? 0.f : log_alpha;
+      if (active && u_acc <= expf(capped)) {
+        if (lane == 0) {
+          cat[j * 3] = y_prop;
+          cat[j * 3 + 1] = x_prop;
+          cat[j * 3 + 2] = f_prop;
+        }
+#pragma unroll
+        for (int k = 0; k < PPL; ++k) {
+          rate[k] = rate_prop[k];
+          if constexpr (CHILD) crate[k] = crate_prop[k];
+        }
+        pll = pll_prop;
+        cll = cll_prop;
+        lp = lp_prop;
+        ++accepted;
+      }
+      __syncwarp();  // the slot write is seen by every lane's next read
     }
-    __syncwarp();  // the slot write is seen by every lane's next read
   }
 
   if (!valid) return;
@@ -387,19 +464,36 @@ struct Buffers {
       *crate_out, *cll_out;
 };
 
-template <int H, int W, int L, bool CHILD>
+template <int H, int W, int L, bool CHILD, int NOISE, int PSF>
 cudaError_t launch(const Buffers& b, int G, int N, int M, int num_iters,
                    const K4Params& Q, cudaStream_t stream) {
   constexpr int PPB = kBlock / L;
   const dim3 grid(G, (N + PPB - 1) / PPB);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (2 * H * W + PPB * M * 3);
-  mala_sweep_k4_kernel<H, W, L, CHILD><<<grid, kBlock, smem, stream>>>(
-      b.key, b.image, b.temperature, b.counts, b.locs_in, b.fluxes_in,
-      b.rate_in, b.pll_in, b.lp_in, b.crate_in, b.cll_in, b.tags,
-      b.locs_out, b.fluxes_out, b.rate_out, b.pll_out, b.lp_out, b.acc_out,
-      b.crate_out, b.cll_out, N, M, num_iters, Q);
+  mala_sweep_k4_kernel<H, W, L, CHILD, NOISE, PSF>
+      <<<grid, kBlock, smem, stream>>>(
+          b.key, b.image, b.temperature, b.counts, b.locs_in, b.fluxes_in,
+          b.rate_in, b.pll_in, b.lp_in, b.crate_in, b.cll_in, b.tags,
+          b.locs_out, b.fluxes_out, b.rate_out, b.pll_out, b.lp_out,
+          b.acc_out, b.crate_out, b.cll_out, N, M, num_iters, Q);
   return cudaGetLastError();
+}
+
+// One instantiation per noise and PSF kind, so that the unrolled pixel
+// passes branch on neither (as K2's launch_kinds).
+template <int H, int W, int L, bool CHILD>
+cudaError_t launch_kinds(const Buffers& b, int G, int N, int M,
+                         int num_iters, const K4Params& Q, cudaStream_t s) {
+  switch (Q.base.noise_kind * 3 + Q.base.psf_kind) {
+    case 0: return launch<H, W, L, CHILD, 0, 0>(b, G, N, M, num_iters, Q, s);
+    case 1: return launch<H, W, L, CHILD, 0, 1>(b, G, N, M, num_iters, Q, s);
+    case 2: return launch<H, W, L, CHILD, 0, 2>(b, G, N, M, num_iters, Q, s);
+    case 3: return launch<H, W, L, CHILD, 1, 0>(b, G, N, M, num_iters, Q, s);
+    case 4: return launch<H, W, L, CHILD, 1, 1>(b, G, N, M, num_iters, Q, s);
+    case 5: return launch<H, W, L, CHILD, 1, 2>(b, G, N, M, num_iters, Q, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -424,7 +518,9 @@ extern "C" int smcdet_mala_sweeps_k4_launch(
     void* stream) {
   const bool child = params.child_axis >= 0;
   if (G <= 0 || N <= 0 || num_iters <= 0 || M < 1 || M > kMaxSlots ||
-      params.child_axis > 1 ||
+      params.child_axis > 1 || params.base.noise_kind < 0 ||
+      params.base.noise_kind > 1 || params.base.psf_kind < 0 ||
+      params.base.psf_kind > 2 ||
       (child && (crate_in == nullptr || cll_in == nullptr ||
                  crate_out == nullptr || cll_out == nullptr ||
                  (params.side_from_tag && tags == nullptr)))) {
@@ -456,18 +552,22 @@ extern "C" int smcdet_mala_sweeps_k4_launch(
   if (!child) {
     if (M > 16) return (int)cudaErrorInvalidValue;
     if (H == 8 && W == 8) {
-      return (int)launch<8, 8, 8, false>(b, G, N, M, num_iters, params, s);
+      return (int)launch_kinds<8, 8, kLanes8x8, false>(b, G, N, M, num_iters,
+                                                       params, s);
     }
     if (H == 16 && W == 16) {
-      return (int)launch<16, 16, 32, false>(b, G, N, M, num_iters, params, s);
+      return (int)launch_kinds<16, 16, kLanes16x16, false>(
+          b, G, N, M, num_iters, params, s);
     }
     return (int)cudaErrorInvalidValue;
   }
   if (H == 16 && W == 8 && M <= 16) {
-    return (int)launch<16, 8, 16, true>(b, G, N, M, num_iters, params, s);
+    return (int)launch_kinds<16, 8, kLanesBridge16x8, true>(
+        b, G, N, M, num_iters, params, s);
   }
   if (H == 16 && W == 16) {
-    return (int)launch<16, 16, 32, true>(b, G, N, M, num_iters, params, s);
+    return (int)launch_kinds<16, 16, kLanesBridge16x16, true>(
+        b, G, N, M, num_iters, params, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,14 @@
 // Fused single-component Metropolis-Hastings sweep loop for Hopper (sm_90a),
-// every tile target outside K1 (kernel K2).
+// every tile target (kernels K1 and K2).
 //
 // Replaces the TPU kernel smcdet_tpu/ops/pallas_sweep.py:_make_kernel in its
-// remaining tile-target specializations: Gaussian noise, or Poisson noise
-// with a Normal tail above normal_tail; Gaussian PSF, SDSS PSF with the
-// beta = 3 wing, or SDSS PSF with the general wing (1 + r2/(beta sp))^(-beta/2);
+// tile-target specializations: Gaussian noise, or Poisson noise with a
+// Normal tail above normal_tail; Gaussian PSF, SDSS PSF with the beta = 3
+// wing, or SDSS PSF with the general wing (1 + r2/(beta sp))^(-beta/2);
 // Pareto / truncated Pareto, Normal or no flux prior; 8x8 and 16x16 tiles
-// with up to 16 slots. No aggregation child term (that is kernel K3).
+// with up to 16 slots. No aggregation child term (that is kernel K3). K1 is
+// the M71 main path's instantiation, the 8x8 tile with Gaussian noise and the
+// beta = 3 wing; ops/mh_sweep.py names it and counts its launches apart.
 //
 // What bounds it on this card: instruction issue. Each update renders the
 // old and the proposed star over every pixel and evaluates the likelihood of
@@ -58,13 +60,13 @@
 // uniform across the grid. Every lane of a warp runs the same number of
 // sweeps, so every shuffle sees all its lanes.
 //
-// Random numbers are K1's (mh_common.cuh): Philox4x32-10 keyed by the
-// per-call key with the counter (particle, sweep, draw, particle >> 32), so
-// the stream is that of the plain PyTorch version (ops/mh_sweep.py), and the
-// two agree particle by particle up to the library's expf/logf/lgammaf
-// rounding, the reciprocals and exp2/log2 of the render, and the order of
-// the pixel sum. The pixel likelihood and the flux prior are mh_pixel.cuh's,
-// shared with K3 and K4.
+// Random numbers (mh_common.cuh): Philox4x32-10 keyed by the per-call key
+// with the counter (particle, sweep, draw, particle >> 32), so the stream is
+// that of the plain PyTorch version (ops/mh_sweep.py), and the two agree
+// particle by particle up to the library's expf/logf/lgammaf rounding, the
+// reciprocals and exp2/log2 of the render, and the order of the pixel sum.
+// The pixel likelihood and the flux prior are mh_pixel.cuh's, shared with K3
+// and K4.
 
 #include "mh_common.cuh"
 #include "mh_pixel.cuh"
@@ -86,74 +88,6 @@ constexpr int kLanes16x16 = 16;
 // spilled; room for 3 took 4% off but at 80 registers with spills.
 constexpr int kMinBlocks = 1;
 constexpr unsigned kFull = 0xffffffffu;
-
-// The PSF of K2Params with each division by a launch constant turned into a
-// product with its reciprocal.
-struct PsfRecip {
-  int kind;      // K2Params::psf_kind
-  float e1, e2;  // Gaussian: -1 / (2 stdev^2); SDSS: -1 / (2 s1), -1 / (2 s2)
-  float wq;      // SDSS: 1 / (beta sp)
-  float wing;    // SDSS general wing: -beta / 2
-  float b, p0;   // SDSS
-  float scale;   // Gaussian: 1 / (stdev sqrt(2 pi)); SDSS: 1 / ((1+b+p0) norm)
-};
-
-__device__ __forceinline__ PsfRecip psf_recip(const K2Params& P) {
-  PsfRecip R;
-  R.kind = P.psf_kind;
-  R.b = P.b;
-  R.p0 = P.p0;
-  if (P.psf_kind == 0) {
-    R.e1 = -0.5f / (P.gauss_stdev * P.gauss_stdev);
-    R.e2 = R.wq = R.wing = 0.f;
-    R.scale = 1.f / P.gauss_norm;
-  } else {
-    R.e1 = -1.f / (2.f * P.s1);
-    R.e2 = -1.f / (2.f * P.s2);
-    R.wq = 1.f / (P.beta * P.sp);
-    R.wing = -0.5f * P.beta;
-    R.scale = 1.f / ((1.f + P.b + P.p0) * P.norm);
-  }
-  return R;
-}
-
-__device__ __forceinline__ float psf_eval_recip(float r2, const PsfRecip& R) {
-  if (R.kind == 0) return expf(r2 * R.e1) * R.scale;
-  const float t1 = expf(r2 * R.e1);
-  const float t2 = R.b * expf(r2 * R.e2);
-  const float q = 1.f + r2 * R.wq;
-  const float t3 = R.kind == 1 ? R.p0 * rsqrtf(q * q * q)
-                               : R.p0 * exp2f(R.wing * log2f(q));
-  return (t1 + t2 + t3) * R.scale;
-}
-
-// One star's unit-flux render at the pixel in row h, column w (as floats)
-// under the patch mask, as mh_pixel.cuh:star_pixel.
-__device__ __forceinline__ float star_pixel_recip(float h, float w, float ly,
-                                                  float lx, float fy,
-                                                  float fx, float radius,
-                                                  const PsfRecip& R) {
-  const float dy = (h + 0.5f) - ly;
-  const float dx = (w + 0.5f) - lx;
-  const bool in_patch =
-      (fabsf(h - fy) <= radius) && (fabsf(w - fx) <= radius);
-  const float psi = psf_eval_recip(dy * dy + dx * dx, R);
-  return in_patch ? psi : 0.f;
-}
-
-// Row and column of pixel p = lane + L * k of a W-wide tile: L <= W puts
-// W / L of a lane's pixels in each row, L > W puts them L / W rows apart.
-template <int W, int L>
-__device__ __forceinline__ void pixel_rc(int lane, int k, float* h,
-                                         float* w) {
-  if constexpr (L <= W) {
-    *h = (float)(k / (W / L));
-    *w = (float)(lane + L * (k % (W / L)));
-  } else {
-    *h = (float)(k * (L / W) + lane / W);
-    *w = (float)(lane % W);
-  }
-}
 
 // NOISE and PSF fix K2Params' noise_kind and psf_kind at compile time.
 template <int H, int W, int L, int NOISE, int PSF>

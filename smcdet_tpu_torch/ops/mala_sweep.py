@@ -26,14 +26,19 @@ zero gradient, as for ``torch.autograd``.
 Both versions draw the stream of K1-K3 (``mh_sweep.philox_uniforms``): draw
 0 gives the slot, y, x and flux uniforms, draw 1 the accept uniform. Layouts
 are those of ``mh_sweep``. MALA's drift amplifies a last-bit difference
-over the sweeps, so the plain version sums the pixels in K4's lane order
-(``lane_sum``) and K4 rounds each multiply and add on its own as the plain
-version's tensor ops do; the two then differ only where the library
-functions round differently.
+over the sweeps, so the plain version follows K4 operation by operation:
+it sums the pixels in K4's lane order (``lane_sum`` with ``K4_LANES``),
+works out K4's reciprocals (the PSF's widths and normalisers, and one
+reciprocal of the variance or rate per pixel and point that the likelihood
+and its derivative share: ``psf_and_deriv``, ``noise_recip``,
+``pixel_loglik``, ``dll_drate``), and K4 rounds each multiply and add on
+its own as the plain version's tensor ops do; the two then differ only
+where the library functions round differently.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -58,28 +63,50 @@ from smcdet_tpu_torch.ops.mh_sweep import (
 )
 
 __all__ = [
+    "K4_LANES",
     "MALAProposal",
     "accept",
     "dll_drate",
     "flux_log_prob_grad",
+    "k4_lanes",
     "lane_sum",
     "mala_kernel",
     "mala_proposal",
     "mala_sweep_with_uniforms",
     "mala_sweeps",
     "mala_sweeps_reference",
+    "noise_recip",
+    "pixel_loglik",
     "psf_and_deriv",
     "slot_gradient",
     "smallest_box_mass",
 ]
 
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+# K4's lanes per particle by ((height, width), bridge target), as
+# csrc/mala_sweep_k4.cu's kLanes* constants
+K4_LANES = {((8, 8), False): 4, ((16, 16), False): 16,
+            ((16, 8), True): 16, ((16, 16), True): 32}
+
+
+def k4_lanes(model, bridge: bool):
+    """K4's lanes per particle on ``model``'s tile (the tile target, or with
+    ``bridge`` the aggregation bridge's), None where K4 is not built for
+    it."""
+    return K4_LANES.get(((model.height, model.width), bridge))
+
 
 def psf_and_deriv(model, loc):
     """``(psi, dpsi/dr2, dy, dx)``, each ``[..., H*W]``, of one star at
-    ``loc [..., 2]``: its unit-flux render (``model.star_image_flat``, the
-    same operations) and the derivative of the PSF in the squared radius,
-    both under the patch mask; ``dy, dx`` are the pixel centre minus the
-    location."""
+    ``loc [..., 2]``: its unit-flux render and the derivative of the PSF in
+    the squared radius, both under the patch mask; ``dy, dx`` are the pixel
+    centre minus the location. As K4 computes them
+    (``csrc/mh_pixel.cuh:psf_and_deriv_recip``): each division by a
+    parameter of the PSF is a product with its reciprocal, the wing's
+    derivative is ``-1 / (2 sp)`` times the wing over ``q``, and on the
+    beta = 3 wing one ``rsqrt(q)`` gives both ``q^(-3/2)`` and ``1 / q``;
+    ``psi`` then differs from ``model.star_image_flat`` in the last bits."""
     H, W = model.height, model.width
     ly, lx = loc[..., 0:1], loc[..., 1:2]
     p = torch.arange(H * W, device=loc.device)
@@ -93,36 +120,75 @@ def psf_and_deriv(model, loc):
     psf = model.psf
     if isinstance(psf, SDSSPSF):
         s1, s2, sp, beta, b, p0 = psf.params
+        e1 = -1.0 / (2.0 * s1)
+        e2 = -1.0 / (2.0 * s2)
+        wq = 1.0 / (beta * sp)
+        wd = -1.0 / (2.0 * sp)
+        scale = 1.0 / ((1.0 + b + p0) * psf.normalizing_constant)
         # the exponentials of psi serve its derivative too
-        t1 = torch.exp(-r2 / (2.0 * s1))
-        t2 = b * torch.exp(-r2 / (2.0 * s2))
-        q = 1.0 + r2 / (beta * sp)
-        t3 = p0 * (torch.rsqrt(q * q * q) if psf.wing_beta3
-                   else q ** (-beta / 2.0))
-        k = 1.0 + b + p0
-        psi = ((t1 + t2 + t3) / k) / psf.normalizing_constant
-        dpsi = ((t1 * (-1.0 / (2.0 * s1)) + t2 * (-1.0 / (2.0 * s2))
-                 + t3 * (-0.5) / (sp + r2 / beta)) / k
-                ) / psf.normalizing_constant
+        t1 = torch.exp(r2 * e1)
+        t2 = b * torch.exp(r2 * e2)
+        q = 1.0 + r2 * wq
+        if psf.wing_beta3:
+            rq = torch.rsqrt(q)
+            inv_q = rq * rq
+            t3 = p0 * (inv_q * rq)
+            t3q = t3 * inv_q
+        else:
+            wing = -0.5 * beta
+            lq = torch.log2(q)
+            t3 = p0 * torch.exp2(wing * lq)
+            t3q = p0 * torch.exp2((wing - 1.0) * lq)
+        psi = (t1 + t2 + t3) * scale
+        dpsi = (t1 * e1 + t2 * e2 + t3q * wd) * scale
     else:
         s = psf.stdev
-        psi = psf.normalized(r2)
-        dpsi = psi * (-0.5 / (s * s))
+        e1 = -0.5 / (s * s)
+        # the normaliser rounded as mh_sweep._k2_params hands it to K4
+        scale = 1.0 / (s * math.sqrt(2.0 * math.pi))
+        psi = torch.exp(r2 * e1) * scale
+        dpsi = psi * e1
     return psi * patch, dpsi * patch, dy, dx
+
+
+def noise_recip(model, rate):
+    """The one reciprocal that a pixel's log-likelihood and its derivative
+    in the rate share in K4: ``1 / var`` under Gaussian noise, ``1 / rate``
+    under Poisson noise."""
+    if model.noise == "gaussian":
+        return 1.0 / (model.noise_additive
+                      + model.noise_multiplicative * rate)
+    return 1.0 / rate
+
+
+def pixel_loglik(model, image_flat, rate):
+    """``model.pixel_loglik`` as K4 computes it, with ``noise_recip`` in
+    place of its divisions."""
+    inv = noise_recip(model, rate)
+    diff = image_flat - rate
+    if model.noise == "gaussian":
+        var = model.noise_additive + model.noise_multiplicative * rate
+        return (-0.5 * (diff * diff)) * inv - 0.5 * torch.log(var) \
+            - _HALF_LOG_2PI
+    lr = torch.log(rate)
+    lognorm = -0.5 * ((diff * diff) * inv) - 0.5 * lr - _HALF_LOG_2PI
+    logpmf = image_flat * lr - rate - torch.lgamma(image_flat + 1.0)
+    return torch.where(rate > model.normal_tail_threshold, lognorm, logpmf)
 
 
 def dll_drate(model, image_flat, rate):
     """Per-pixel derivative of the pixel log-likelihood in the rate, by the
     likelihood's own branch rule (the Normal tail above
-    ``normal_tail_threshold`` for Poisson noise)."""
+    ``normal_tail_threshold`` for Poisson noise), with ``noise_recip`` in
+    place of the divisions."""
     r = image_flat - rate
+    inv = noise_recip(model, rate)
     if model.noise == "gaussian":
         m = model.noise_multiplicative
-        var = model.noise_additive + m * rate
-        return r / var + 0.5 * r * r * m / (var * var) - 0.5 * m / var
-    d_norm = r / rate + 0.5 * r * r / (rate * rate) - 0.5 / rate
+        return (r * inv + 0.5 * r * r * m * (inv * inv)) - 0.5 * m * inv
+    d_norm = (r * inv + 0.5 * r * r * (inv * inv)) - 0.5 * inv
     return torch.where(rate > model.normal_tail_threshold, d_norm,
-                       image_flat / rate - 1.0)
+                       image_flat * inv - 1.0)
 
 
 def flux_log_prob_grad(prior, f):
@@ -139,20 +205,19 @@ def flux_log_prob_grad(prior, f):
                               f"{type(flux).__name__}")
 
 
-def lane_sum(x):
-    """Sum over the trailing pixel axis in K4's order: on a tile of HW
-    pixels K4 gives each particle L = HW / 8 lanes, lane ``l`` adds pixels
-    ``l, l + L, ..., l + 7 L`` in turn, then the lanes add up pairwise as
-    its ``__shfl_xor_sync`` butterfly does (lane ``l`` with ``l + L / 2``,
-    then ``l + L / 4``, ...). The same order gives the kernel's bits where
-    the terms agree. A tile K4 has no lane layout for (HW not 8 times a
-    power of two) sums with ``.sum(-1)``."""
-    L = x.shape[-1] // 8
-    if x.shape[-1] != 8 * L or L & (L - 1):
+def lane_sum(x, lanes=None):
+    """Sum over the trailing pixel axis in K4's order with ``lanes`` lanes
+    per particle (``k4_lanes``): lane ``l`` adds pixels ``l, l + L, ...``
+    in turn, then the lanes add up pairwise as K4's ``__shfl_xor_sync``
+    butterfly does (lane ``l`` with ``l + L / 2``, then ``l + L / 4``, ...).
+    The same order gives the kernel's bits where the terms agree. Without
+    ``lanes`` (a tile K4 is not built for) it sums with ``.sum(-1)``."""
+    HW = x.shape[-1]
+    if lanes is None or HW % lanes:
         return x.sum(-1)
-    parts = x.unflatten(-1, (8, L))
+    parts = x.unflatten(-1, (HW // lanes, lanes))
     acc = parts[..., 0, :]
-    for k in range(1, 8):
+    for k in range(1, HW // lanes):
         acc = acc + parts[..., k, :]
     while acc.shape[-1] > 1:
         half = acc.shape[-1] // 2
@@ -169,14 +234,16 @@ def slot_gradient(prior, model, image_flat, temperature, active, f, render,
     for an inactive particle but for its flux-prior term."""
     psi, dpsi, dy, dx = render
     tau = temperature[..., None]
+    lanes = k4_lanes(model, child_rate is not None)
     g = tau * dll_drate(model, image_flat, rate)
     if child_rate is not None:
         g = g + (1.0 - tau) * dll_drate(model, image_flat, child_rate) * window
     aeff = torch.where(active, model.adu_per_nmgy, 0.0)
     gd = g * dpsi
-    gl = torch.stack([lane_sum(gd * (-2.0 * dy)), lane_sum(gd * (-2.0 * dx))],
+    gl = torch.stack([lane_sum(gd * (-2.0 * dy), lanes),
+                      lane_sum(gd * (-2.0 * dx), lanes)],
                      -1) * (aeff * f)[..., None]
-    gf = lane_sum(g * psi) * aeff + torch.where(
+    gf = lane_sum(g * psi, lanes) * aeff + torch.where(
         active, flux_log_prob_grad(prior, f), 0.0)
     return gl, gf
 
@@ -224,6 +291,7 @@ def mala_proposal(u_j, u_loc, u_f, *, prior, model, proposal, image_flat,
     aeff = torch.where(active, model.adu_per_nmgy, 0.0)[..., None]
     tau = temperature
     args = (prior, model, image_flat, tau, active)
+    lanes = k4_lanes(model, child is not None)
 
     w_old = w_new = None
     if child is not None:
@@ -249,7 +317,7 @@ def mala_proposal(u_j, u_loc, u_f, *, prior, model, proposal, image_flat,
     # the proposal's render, target and reverse drift
     new = psf_and_deriv(model, loc_prop)
     rate_prop = rate_wo + (aeff * f_prop[..., None]) * new[0]
-    pll_prop = lane_sum(model.pixel_loglik(image_flat, rate_prop))
+    pll_prop = lane_sum(pixel_loglik(model, image_flat, rate_prop), lanes)
     lp_prop = lp + flux_prior_delta(prior, active, f_safe, f_prop)
     log_target_old = lp + tau * pll
     log_target_new = lp_prop + tau * pll_prop
@@ -259,7 +327,8 @@ def mala_proposal(u_j, u_loc, u_f, *, prior, model, proposal, image_flat,
             child.axis, child.boundary, model, loc_prop)
         crate_wo = child.rate - (aeff * f_safe[..., None]) * old[0] * w_old
         crate_prop = crate_wo + (aeff * f_prop[..., None]) * new[0] * w_new
-        cll_prop = lane_sum(model.pixel_loglik(image_flat, crate_prop))
+        cll_prop = lane_sum(pixel_loglik(model, image_flat, crate_prop),
+                            lanes)
         log_target_old = log_target_old + (1.0 - tau) * child.ll
         log_target_new = log_target_new + (1.0 - tau) * cll_prop
     gl_r, gf_r = slot_gradient(*args, f_prop, new, rate_prop, crate_prop,

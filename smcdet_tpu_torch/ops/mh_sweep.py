@@ -3,11 +3,13 @@ its plain version.
 
 ``mh_sweeps`` runs ``num_iters`` MH sweeps over a batch of particles. On a
 CUDA tensor it launches one of three hand-written kernels, which together
-replace ``smcdet_tpu/ops/pallas_sweep.py:_make_kernel``: K1
-(``csrc/mh_sweep.cu``, the M71 main path: Gaussian noise, SDSS beta = 3,
-Pareto flux, 8x8), K2 (``csrc/mh_sweep_k2.cu``, every other tile target on
-8x8 and 16x16 tiles) or K3 (``csrc/mh_sweep_k3.cu``, the aggregation
-bridge target with its child term, on the joined 16x8 and 16x16 tiles);
+replace ``smcdet_tpu/ops/pallas_sweep.py:_make_kernel``: K1 (the M71
+main path: Gaussian noise, SDSS beta = 3, 8x8) or K2 (every other tile
+target on 8x8 and 16x16 tiles), both ``csrc/mh_sweep_k2.cu``'s lane-group
+kernel through its one entry point, K1 its instantiation for that one kind
+with launches counted apart; or K3 (``csrc/mh_sweep_k3.cu``, the
+aggregation bridge target with its child term, on the joined 16x8 and 16x16
+tiles);
 ``sweep_kernel`` picks one or raises. On a CPU tensor it runs the plain
 PyTorch version, ``mh_sweeps_reference``. There is no fallback from one to
 the other.
@@ -315,13 +317,6 @@ def sweeps_on_stream(step, key, proposal, prior, model, image, temperature,
 # ----------------------------------------------------------------------
 # The CUDA kernels
 # ----------------------------------------------------------------------
-_K1_PARAMS = (
-    "locs_stdev", "fluxes_stdev", "flux_lo", "flux_hi",
-    "loc_low_y", "loc_low_x", "loc_high_y", "loc_high_x",
-    "adu", "noise_add", "noise_mult", "psf_radius",
-    "s1", "s2", "sp", "beta", "b", "p0", "norm",
-    "pareto_alpha", "pareto_lognorm",
-)
 _K2_FLOATS = (
     "locs_stdev", "fluxes_stdev", "flux_lo", "flux_hi",
     "loc_low_y", "loc_low_x", "loc_high_y", "loc_high_x",
@@ -330,16 +325,12 @@ _K2_FLOATS = (
     "gauss_stdev", "gauss_norm", "flux_a", "flux_b", "flux_c",
 )
 _K2_INTS = ("noise_kind", "psf_kind", "flux_kind")
-# K2's tile sizes and slot range (csrc/mh_sweep_k2.cu)
+# K1's and K2's tile sizes and slot range (csrc/mh_sweep_k2.cu)
 K2_TILES = ((8, 8), (16, 16))
 K2_MAX_SLOTS = 16
 # K3's joined tiles and the most slots each is built for
 # (csrc/mh_sweep_k3.cu): the two levels of a 2x2 tile grid of 8x8 tiles
 K3_TILES = {(16, 8): 16, (16, 16): 32}
-
-
-class _MHParams(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_float) for name in _K1_PARAMS]
 
 
 class _K2Params(ctypes.Structure):
@@ -365,8 +356,9 @@ def _check_target(prior, model, pareto):
 
 def sweep_kernel(prior, model, M: int, child: bool = False) -> str:
     """The CUDA kernel that runs this target: ``"K1"`` (Gaussian noise,
-    SDSS beta = 3, Pareto flux, 8x8, 1..8 slots), ``"K2"`` (every other
-    noise, PSF and flux prior on 8x8 or 16x16 tiles with 1..16 slots) or,
+    SDSS beta = 3, 8x8, 1..16 slots: the M71 main path, whatever its flux
+    prior), ``"K2"`` (every other noise, PSF and flux prior on 8x8 or 16x16
+    tiles with 1..16 slots) or,
     for the aggregation bridge (``child``), ``"K3"`` (the joined 16x8 tile
     with 1..16 slots and 16x16 with 1..32). Raises ``NotImplementedError``
     naming what is missing for a target none covers."""
@@ -381,10 +373,6 @@ def sweep_kernel(prior, model, M: int, child: bool = False) -> str:
                                for (h, w), m in K3_TILES.items()))
         _check_target(prior, model, pareto)
         return "K3"
-    if (model.noise == "gaussian" and isinstance(model.psf, SDSSPSF)
-            and model.psf.wing_beta3 and pareto
-            and shape == (8, 8) and 1 <= M <= 8):
-        return "K1"
     if shape not in K2_TILES or not 1 <= M <= K2_MAX_SLOTS:
         raise NotImplementedError(
             f"no CUDA sweep kernel for {shape[0]}x{shape[1]} tiles "
@@ -392,6 +380,9 @@ def sweep_kernel(prior, model, M: int, child: bool = False) -> str:
             f"{' and '.join(f'{h}x{w}' for h, w in K2_TILES)} tiles with "
             f"1..{K2_MAX_SLOTS} slots")
     _check_target(prior, model, pareto)
+    if (model.noise == "gaussian" and isinstance(model.psf, SDSSPSF)
+            and model.psf.wing_beta3 and shape == (8, 8)):
+        return "K1"
     return "K2"
 
 
@@ -404,19 +395,6 @@ def _pareto_lognorm(flux):
     if isinstance(flux, ParetoFlux):
         return torch.log(flux.alpha) + flux.alpha * torch.log(flux.scale)
     return flux.logpdf_norm_const
-
-
-def _k1_params(proposal, prior, model) -> _MHParams:
-    psf, flux = model.psf, prior.flux
-    values = [
-        proposal.locs_stdev, proposal.fluxes_stdev, proposal.flux_lo,
-        proposal.flux_hi, prior.loc_low[0], prior.loc_low[1],
-        prior.loc_high[0], prior.loc_high[1], model.adu_per_nmgy,
-        model.noise_additive, model.noise_multiplicative,
-        torch.tensor(float(model.psf_radius)), *psf.params,
-        psf.normalizing_constant, flux.alpha, _pareto_lognorm(flux),
-    ]
-    return _MHParams(*_host_floats(values))
 
 
 def _k2_params(proposal, prior, model) -> _K2Params:
@@ -460,11 +438,11 @@ def _k3_params(proposal, prior, model, child) -> _K3Params:
                      int(child.slot_side is not None))
 
 
-_ENTRY_POINTS = {"K1": "smcdet_mh_sweeps_launch",
+_ENTRY_POINTS = {"K1": "smcdet_mh_sweeps_k2_launch",
                  "K2": "smcdet_mh_sweeps_k2_launch",
                  "K3": "smcdet_mh_sweeps_k3_launch",
                  "K4": "smcdet_mala_sweeps_k4_launch"}
-_PARAMS = {"K1": (_MHParams, 15), "K2": (_K2Params, 15),
+_PARAMS = {"K1": (_K2Params, 15), "K2": (_K2Params, 15),
            "K3": (_K3Params, 20), "K4": (_K3Params, 20)}
 
 
@@ -576,10 +554,8 @@ def launch(name, key, proposal, prior, model, image, temperature, counts,
         bufs = ins + outs
     if name in ("K3", "K4"):
         params = _k3_params(proposal, prior, model, child)
-    elif name == "K2":
-        params = _k2_params(proposal, prior, model)
     else:
-        params = _k1_params(proposal, prior, model)
+        params = _k2_params(proposal, prior, model)
     fn = _entry(name)
     ptrs = [None if t is None else t.data_ptr() for t in bufs]
     with torch.cuda.device(dev):

@@ -138,7 +138,7 @@ def test_cuda_tensor_never_reaches_plain_version(dev, monkeypatch):
     assert mh_sweep.mh_sweeps.k2_launches == k2_before + 1
 
 
-@pytest.mark.parametrize("max_objects", [1, 6, 8])
+@pytest.mark.parametrize("max_objects", [1, 6, 8, 16])
 def test_cuda_kernel_matches_plain_version(dev, max_objects):
     """Same key, 20 sweeps: the kernel and the plain version draw the same
     Philox stream, so they agree particle by particle (rtol 1e-4: expf /
@@ -219,18 +219,26 @@ def test_k2_matches_plain_version(dev, name, N):
     assert float(close.float().mean()) >= 0.99
 
 
-def _mixed_counts_target(dev, tile, M, N, num_iters):
-    """A K2 target (Poisson noise, Gaussian PSF, Normal flux, ``tile`` x
-    ``tile``, M slots) with counts that vary per particle: 2 tiles x 3
-    groups x N, every third particle empty (so every warp and every lane
-    group of K2 mixes empty and occupied particles next to each other) and
-    particles 64..127 of each group empty (whole warps that skip the
-    loop)."""
-    prior, _ = _normal_flux(dev, M, tile)
-    kernel = SingleComponentMH(num_iters, 0.25, 60.0, 500.0, 5000.0,
-                               device=dev)
-    model = ImageModel(tile, tile, 4, GaussianPSF(1.0, device=dev),
-                       noise="poisson", background=100.0, device=dev)
+def _mixed_counts_target(dev, tile, M, N, num_iters, name="poisson"):
+    """A tile target with counts that vary per particle: 2 tiles x 3 groups
+    x N, every third particle empty (so every warp and every lane group
+    mixes empty and occupied particles next to each other) and particles
+    64..127 of each group empty (whole warps that skip the loop). ``name``:
+    "poisson" (K2's: Poisson noise, Gaussian PSF, Normal flux, ``tile`` x
+    ``tile``, M slots) or "m71" (K1's: Gaussian noise, SDSS beta = 3,
+    truncated Pareto flux, 8x8)."""
+    if name == "m71":
+        prior = M71Prior(0, M, 0.03, 8, 8, 0.214, 0.252, 1804.679, pad=1.0,
+                         device=dev)
+        model = _m71_model(dev)
+        kernel = SingleComponentMH(num_iters, 0.25, 5.0, 0.252, 1804.679,
+                                   device=dev)
+    else:
+        prior, _ = _normal_flux(dev, M, tile)
+        kernel = SingleComponentMH(num_iters, 0.25, 60.0, 500.0, 5000.0,
+                                   device=dev)
+        model = ImageModel(tile, tile, 4, GaussianPSF(1.0, device=dev),
+                           noise="poisson", background=100.0, device=dev)
     g = torch.Generator(device=dev).manual_seed(5)
     counts = torch.randint(1, M + 1, (2, 3, N), generator=g, device=dev,
                            dtype=torch.int32)
@@ -261,41 +269,96 @@ def test_k2_lane_groups_match_plain_version(dev, tile, M, N, num_iters):
     kernel, ctx, counts, state = _mixed_counts_target(dev, tile, M, N,
                                                       num_iters)
     assert mh_sweep.sweep_kernel(ctx.prior, ctx.model, M) == "K2"
-    G, HW = 6, tile * tile
-    args = [torch.tensor([777, 4242], dtype=torch.int64, device=dev),
-            kernel.proposal(ctx.prior), ctx.prior, ctx.model,
-            ctx.image.expand(2, 3, 1, tile, tile).reshape(G, HW)
-            .contiguous(), torch.full((G,), 0.8, device=dev),
+    args, _ = _launch_args(kernel, ctx, counts, state, num_iters)
+    _lane_groups_agree(mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference,
+                       lambda: mh_sweep.mh_sweeps.k2_launches, args)
+
+
+def _launch_args(kernel, ctx, counts, state, num_iters):
+    """The flattened arguments of one sweep-kernel launch on the ``[T, C,
+    N]`` batch of ``state`` (what ``run_from_state`` passes), key (777,
+    4242), and the bridge's flattened child term (None on a tile)."""
+    T, C, N = counts.shape
+    model = ctx.model
+    G, HW, M = T * C, model.height * model.width, state.fluxes.shape[-1]
+    args = [torch.tensor([777, 4242], dtype=torch.int64,
+                         device=counts.device),
+            kernel.proposal(ctx.prior), ctx.prior, model,
+            ctx.image.expand(T, C, 1, model.height, model.width)
+            .reshape(G, HW).contiguous(),
+            ctx.temperature.expand(T, C, 1).reshape(G).contiguous(),
             counts.reshape(G, N).contiguous(),
             state.locs.reshape(G, N, M, 2).contiguous(),
             state.fluxes.reshape(G, N, M).contiguous(),
             state.rate.reshape(G, N, HW).contiguous(),
             state.parent_ll.reshape(G, N).contiguous(),
             state.logprior.reshape(G, N).contiguous(), num_iters]
-    before = mh_sweep.mh_sweeps.k2_launches
-    got = mh_sweep.mh_sweeps(*args)
-    want = mh_sweep.mh_sweeps_reference(*args)
+    child = ctx.child_term(state, counts.shape)
+    if child is not None:
+        tags = child.slot_side
+        child = child._replace(
+            rate=child.rate.reshape(G, N, HW).contiguous(),
+            ll=child.ll.reshape(G, N).contiguous(),
+            slot_side=None if tags is None
+            else tags.expand(T, C, N, M).reshape(G, N, M).contiguous())
+    return args, child
+
+
+def _lane_groups_agree(run, plain, launches, args, child=None):
+    """One launch of a kernel's wrapper ``run`` (its counter ``launches()``
+    goes up by one) against its plain version ``plain`` on the same key:
+    the empty particles pass through bit-exactly with acceptance 0; >= 99%
+    of the occupied ones agree to rtol 1e-4 (the rest are accept flips on
+    the boundary and, under MALA, tail proposals and truncation masses in
+    Phi's f32 tail: chip_smoke.py classifies them)."""
+    before = launches()
+    got = run(*args, child=child)
+    want = plain(*args, child=child)
     torch.cuda.synchronize()
-    assert mh_sweep.mh_sweeps.k2_launches == before + 1
+    assert launches() == before + 1
     empty = args[6] == 0
-    for a, b in zip(got[:5], args[7:12]):
+    assert bool(empty.any()) and not bool(empty.all())
+    ins = list(args[7:12]) + ([] if child is None else [child.rate, child.ll])
+    for a, b in zip(list(got[:5]) + list(got[6:]), ins):
         assert torch.equal(a[empty], b[empty])
     assert float(got[5][empty].abs().max()) == 0.0
     assert float(got[5][~empty].mean()) > 0.01
-    close = torch.ones((G, N), dtype=torch.bool, device=dev)
-    for a, b in zip(got[:5], want[:5]):
+    close = torch.ones(empty.shape, dtype=torch.bool, device=empty.device)
+    for a, b in zip(list(got[:5]) + list(got[6:]),
+                    list(want[:5]) + list(want[6:])):
         ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
-        close &= ok.reshape(G, N, -1).all(-1)
+        close &= ok.reshape(empty.shape + (-1,)).all(-1)
     assert float(close[~empty].float().mean()) >= 0.99
 
 
+@pytest.mark.parametrize("M,N,num_iters", [
+    (6, 1001, 20),     # the quick cell's M; N not a multiple of a block's
+    (16, 999, 20),     # M = 16, K1's most
+    (8, 512, 37),      # sweeps that end inside a Philox draw-ahead batch
+    (16, 1000, 37),
+])
+def test_k1_lane_groups_match_plain_version(dev, M, N, num_iters):
+    """K1 (K2's lane-group kernel on the M71 8x8 target) on what its layout
+    risks: empty and occupied particles mixed in every warp and lane group,
+    whole warps of empty particles, ragged N, M up to 16, and a sweep count
+    that is not a multiple of the sweeps one Philox draw-ahead covers."""
+    kernel, ctx, counts, state = _mixed_counts_target(dev, 8, M, N,
+                                                      num_iters, "m71")
+    assert mh_sweep.sweep_kernel(ctx.prior, ctx.model, M) == "K1"
+    args, _ = _launch_args(kernel, ctx, counts, state, num_iters)
+    _lane_groups_agree(mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference,
+                       lambda: mh_sweep.mh_sweeps.launches, args)
+
+
 def _bridge_target(dev, name="m71", shape=(16, 8), mode="tag", N=512,
-                   M=None):
+                   M=None, mixed=False):
     """An aggregation-bridge target on a joined tile: random catalogs with
     counts varying per particle, origin tags (``mode`` "tag") or the side
     of each star's location ("location"), a ghost rate, temperature 0.4.
     ``name``: "m71" (Gaussian noise, SDSS beta = 3, truncated Pareto) or
-    "poisson" (Poisson noise, Gaussian PSF, Normal flux)."""
+    "poisson" (Poisson noise, Gaussian PSF, Normal flux). ``mixed`` empties
+    every third particle and particles 64..127 of each group, as
+    ``_mixed_counts_target``."""
     from smcdet_tpu_torch.inference.aggregate import SideMask, expand_prior
 
     h, w = shape
@@ -317,6 +380,9 @@ def _bridge_target(dev, name="m71", shape=(16, 8), mode="tag", N=512,
     G = 2
     counts = torch.randint(0, M + 1, (1, G, N), generator=g, device=dev,
                            dtype=torch.int32)
+    if mixed:
+        counts[..., ::3] = 0
+        counts[..., 64:128] = 0
     locs, fluxes = prior.sample_marks(g, counts, (1, G, N))
     tags = (torch.rand((1, G, N, M), generator=g, device=dev) < 0.5).float()
     ghost = 50.0 * torch.rand((1, G, N, h * w), generator=g, device=dev)
@@ -482,6 +548,41 @@ def test_k4_bridge_matches_plain_version(dev, name, shape, mode):
     _k4_passthrough(kernel, ctx, counts, locs, fluxes, dev, bridge=True)
     state = init_kernel_state(ctx, counts, locs, fluxes)
     assert _k4_agreement(kernel, ctx, counts, state, dev) >= 0.99
+
+
+@pytest.mark.parametrize("name,shape,mode,M,N,num_iters", [
+    ("m71", (8, 8), None, 16, 999, 37),          # K1's target, M = 16
+    ("poisson", (8, 8), None, 8, 1001, 20),
+    ("poisson", (16, 16), None, 16, 999, 37),    # M = 16 on 16x16
+    ("m71", (16, 8), "tag", 16, 999, 37),
+    ("m71", (16, 8), "location", 16, 1001, 20),
+    ("m71", (16, 16), "tag", 32, 1001, 37),      # M = 32 on the bridge
+    ("m71", (16, 16), "location", 32, 999, 37),
+])
+def test_k4_lane_groups_match_plain_version(dev, name, shape, mode, M, N,
+                                            num_iters):
+    """K4's lane groups on what their layout risks, on the tile target and
+    on both bridge tiles in tag and location mode: empty and occupied
+    particles mixed in every warp and lane group, whole warps of empty
+    particles, ragged N, M = 16 on both tiles and 32 on the 16x16 bridge,
+    and 37 sweeps, which end inside a Philox draw-ahead batch."""
+    if mode is None:
+        mh, ctx, counts, state = _mixed_counts_target(dev, shape[0], M, N,
+                                                      num_iters, name)
+        kernel = _mala(mh, name)
+    else:
+        mh, ctx, counts, locs, fluxes = _bridge_target(
+            dev, name, shape, mode, N, M, mixed=True)
+        kernel = _mala(mh, f"{name} bridge")
+        state = init_kernel_state(ctx, counts, locs, fluxes)
+    assert mala_sweep.mala_kernel(ctx.prior, ctx.model, M,
+                                  child=mode is not None) == "K4"
+    args, child = _launch_args(kernel, ctx, counts, state, num_iters)
+    counter = "launches" if mode is None else "bridge_launches"
+    _lane_groups_agree(mala_sweep.mala_sweeps,
+                       mala_sweep.mala_sweeps_reference,
+                       lambda: getattr(mala_sweep.mala_sweeps, counter),
+                       args, child)
 
 
 def test_mala_on_cuda_never_reaches_plain_version(dev, monkeypatch):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_lane_variant
 from test_torch_aggregate import _bridge, _port_state
 from test_torch_aggregate import _jax_setup as _bridge_setup
 from test_torch_mh_sweep import (
@@ -459,23 +460,32 @@ def test_run_csmc_with_mala_matches_jax():
     assert 0.5 * np.abs(pmfs[0] - pmfs[1]).sum() <= 0.05, pmfs
 
 
-@pytest.mark.parametrize("hw", [64, 128, 256])
-def test_lane_sum_adds_in_the_kernels_order(hw):
-    """``lane_sum`` is K4's sum, bit for bit: each of L = HW / 8 lanes adds
-    its pixels ``lane + L k`` in turn from 0, then every lane adds its
-    ``__shfl_xor_sync`` partner's total at offsets L/2, L/4, ..., 1 (all
-    lanes end with the same bits)."""
-    rng = np.random.default_rng(hw)
+@pytest.mark.parametrize("target", sorted(mala_sweep.K4_LANES))
+def test_lane_sum_adds_in_the_kernels_order(target):
+    """``lane_sum`` is K4's sum, bit for bit, at the lane count K4 takes on
+    each target (``K4_LANES``): each of L lanes adds its pixels ``lane +
+    L k`` in turn from 0, then every lane adds its ``__shfl_xor_sync``
+    partner's total at offsets L/2, L/4, ..., 1 (all lanes end with the
+    same bits). ``K4_LANES`` repeats ``csrc/mala_sweep_k4.cu``'s
+    ``kLanes*`` constants."""
+    (h, w), bridge = target
+    hw, L = h * w, mala_sweep.K4_LANES[target]
+    assert torch_lane_variant.k4_source_lanes()[target] == L
+    rng = np.random.default_rng(hw + L)
     x = (rng.standard_normal(hw) * 10.0 ** rng.uniform(-3, 3, hw)).astype(
         np.float32)
-    L = hw // 8
     lanes = [np.float32(0.0)] * L
-    for k in range(8):
+    for k in range(hw // L):
         lanes = [lanes[i] + x[i + L * k] for i in range(L)]
     off = L // 2
     while off:
         lanes = [lanes[i] + lanes[i ^ off] for i in range(L)]
         off //= 2
     assert len(set(v.tobytes() for v in lanes)) == 1
-    got = mala_sweep.lane_sum(torch.from_numpy(x))
+    got = mala_sweep.lane_sum(torch.from_numpy(x), L)
     assert got.numpy().tobytes() == lanes[0].tobytes()
+    from smcdet_tpu_torch.models.imaging import ImageModel
+    from smcdet_tpu_torch.models.psf import GaussianPSF
+
+    model = ImageModel(h, w, 4, GaussianPSF(1.0, device="cpu"), device="cpu")
+    assert mala_sweep.k4_lanes(model, bridge) == L

@@ -364,7 +364,9 @@ def test_auto_backend_on_cpu_runs_plain_version(noise):
 
 def test_k1_coverage_names_missing_kernel():
     """``sweep_kernel`` routes each CUDA target to K1 or K2, and names
-    what is missing for a target neither covers."""
+    what is missing for a target neither covers. K1 takes the M71 8x8
+    target (Gaussian noise, SDSS beta = 3) with 1..16 slots, as K2 takes
+    its targets."""
     from smcdet_tpu_torch.models.imaging import ImageModel
     from smcdet_tpu_torch.models.psf import GaussianPSF
 
@@ -372,8 +374,10 @@ def test_k1_coverage_names_missing_kernel():
     pp, pm = port_prior(prior), port_model(model)
     assert mh_sweep.sweep_kernel(pp, pm, 6) == "K1"
     assert mh_sweep.sweep_kernel(pp, pm, 8) == "K1"
-    # more slots than K1 is built for: K2
-    assert mh_sweep.sweep_kernel(pp, pm, 12) == "K2"
+    assert mh_sweep.sweep_kernel(pp, pm, 12) == "K1"
+    assert mh_sweep.sweep_kernel(pp, pm, 16) == "K1"
+    with pytest.raises(NotImplementedError, match="1..16 slots"):
+        mh_sweep.sweep_kernel(pp, pm, 17)
     for target, M in (("poisson", 4), ("wing", 4), ("cells", 12),
                       ("gauss16", 6)):
         prior, model, *_ = _jax_setup(target, **_SWEEP_TARGETS[target])

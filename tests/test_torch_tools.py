@@ -1,14 +1,20 @@
 """The host-side tools around the port's kernels, on the CPU: the build of a
 variant library (``_build.build(source_flags=...)``, against a stand-in for
 ``nvcc``), the SASS reader (``tests/torch_sass.py``) on text in
-``cuobjdump -sass``'s format, ``chip_smoke.launch_agreement``'s bars and
-``chip_smoke.print_paths``' ranking."""
+``cuobjdump -sass``'s format, the kernel comparison's arguments, kernel ids
+and SASS verdict (``tests/torch_kernel_compare.py``), the lane-count variant
+(``tests/torch_lane_variant.py``),
+``chip_smoke.launch_agreement``'s bars and ``chip_smoke.print_paths``'
+ranking."""
 
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
+import torch_kernel_compare as compare
+import torch_lane_variant as variant
 import torch_sass as sass
 from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
@@ -98,6 +104,98 @@ def test_sass_branch_to_an_address_becomes_a_label():
                     "EXIT"]
     assert sass.loop_sizes(body) == (2, 0)
     assert sass.loop_sizes(["MOV R2, RZ", "EXIT"]) == (0, 0)
+
+
+@pytest.mark.parametrize("name, kid", [
+    ("mh_sweep_k2_kernel<8,8,4,0,1>", "K1"),
+    ("mh_sweep_k2_kernel<8,8,8,0,1>", "K1"),
+    ("void (anonymous namespace)::mh_sweep_k2_kernel<8, 8, 4, 0, 1>"
+     "(long const*, float const*)", "K1"),
+    ("mh_sweep_k2_kernel<8,8,4,1,0>", "K2"),
+    ("mh_sweep_k2_kernel<16,16,16,0,1>", "K2"),
+    ("mh_sweep_k3_kernel<16,8,16>", "K3"),
+    ("mala_sweep_k4_kernel<8,8,4,0,0,1>", "K4"),
+    ("chain_k5_kernel<2>", "K5"),
+    ("at::native::vectorized_elementwise_kernel<4>", None)])
+def test_kernel_ids_of_kernel_names(name, kid):
+    assert chip_smoke.kernel_id(name) == kid
+
+
+def test_compare_names_an_earlier_checkouts_thread_per_particle_k1():
+    assert compare.kernel_id("mh_sweep_kernel<8,8,6>") == "K1"
+    assert chip_smoke.kernel_id("mh_sweep_kernel<8,8,6>") is None
+    for name in ("mh_sweep_k2_kernel<8,8,4,0,1>",
+                 "mh_sweep_k3_kernel<16,8,16>",
+                 "at::native::vectorized_elementwise_kernel<4>"):
+        assert compare.kernel_id(name) == chip_smoke.kernel_id(name)
+
+
+def test_compare_takes_the_kernels_to_compare():
+    opts = compare.parse_args(["--parent", "x", "--kernel", "K1", "K4"])
+    assert opts.kernel == ["K1", "K4"] and opts.parent == Path("x")
+    assert not opts.end_to_end
+    with pytest.raises(SystemExit):
+        compare.parse_args(["--parent", "x", "--kernel", "K9"])
+    with pytest.raises(SystemExit):
+        compare.parse_args(["--parent", "x"])
+    assert set(compare.SHAPES) | {"K5"} == set(compare.KERNELS)
+    assert set(compare.END_TO_END) == set(compare.SHAPES)
+
+
+def test_compare_fails_only_on_kernels_it_was_not_asked_about():
+    body = sass.functions(SASS.format(a=1, b=0, c=2, d=3))["_Z3fooPfi"]
+    other = sass.functions(SASS.format(a=1, b=0, c=2, d=3).replace(
+        "FMUL", "FADD"))["_Z3fooPfi"]
+    names = {"k1": "mh_sweep_k2_kernel<8,8,4,0,1>",
+             "k2": "mh_sweep_k2_kernel<8,8,4,1,0>",
+             "k4": "mala_sweep_k4_kernel<8,8,4,0,0,1>"}
+    earlier = {names["k1"]: body, names["k2"]: body, names["k4"]: body}
+
+    def differ(new, asked):
+        return compare.kernels_that_differ(earlier, new, asked,
+                                           lambda n: n, chip_smoke.kernel_id)
+
+    assert differ(dict(earlier), {"K1"}) == []
+    changed = dict(earlier, **{names["k1"]: other, names["k4"]: other})
+    assert differ(changed, {"K1", "K4"}) == []
+    assert differ(changed, {"K4"}) == [names["k1"]]
+    assert differ(changed, {"K2"}) == sorted([names["k1"], names["k4"]])
+    # a kernel one build lacks differs too
+    fewer = {n: b for n, b in earlier.items() if n != names["k2"]}
+    assert differ(fewer, {"K1", "K4"}) == [names["k2"]]
+    assert differ(fewer, {"K2"}) == []
+
+
+def test_lane_variant_sets_the_kernels_and_the_plain_versions_lanes(
+        tmp_path):
+    import importlib.util
+
+    pkg = variant.write_variant(tmp_path, mh_8x8=8,
+                                k4={"8x8": 8, "16x16": 32, "bridge16x16": 16})
+    root = Path(variant.__file__).resolve().parents[1] / "smcdet_tpu_torch"
+
+    def constants(path):
+        return variant._constants(path.read_text())
+
+    want = constants(root / "csrc" / "mh_sweep_k2.cu")
+    assert want["kLanes8x8"] == 4
+    assert constants(pkg / "csrc" / "mh_sweep_k2.cu") == dict(want,
+                                                               kLanes8x8=8)
+    got = variant.k4_source_lanes(pkg)
+    want = variant.k4_source_lanes()
+    want.update({((8, 8), False): 8, ((16, 16), False): 32,
+                 ((16, 16), True): 16})
+    assert got == want
+    spec = importlib.util.spec_from_file_location(
+        "variant_mala_sweep", pkg / "ops" / "mala_sweep.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.K4_LANES == got
+    for other in ("mh_sweep_k3.cu", "mh_pixel.cuh"):
+        assert (pkg / "csrc" / other).read_text() == (
+            root / "csrc" / other).read_text()
+    with pytest.raises(SystemExit):
+        variant.main([str(tmp_path), "--k4", "9x9=4"])
 
 
 @pytest.fixture
@@ -207,3 +305,55 @@ def test_print_paths_ranks_kernels_by_launches_times_gap(capsys):
     assert "launches x (time - bound) 0.040 s" in out[1]
     assert out[-1] == ("[paths] kernels by launches x (time - bound): "
                        "K1 0.045 s, K2 0.040 s")
+
+
+def test_binomial_floor_is_the_lower_tail_at_the_reference_rate():
+    # every one of 40 image-runs within +-1, and 32 of 40
+    assert chip_smoke.binomial_floor(40, 40) == 37
+    assert chip_smoke.binomial_floor(40, 32) == 27
+    assert chip_smoke.binomial_floor(40, 32, alpha=1.0) == 40
+    assert chip_smoke.binomial_floor(40, 0, alpha=1e-12) == 0
+
+
+def _fake_dnc_runs(within, converged):
+    """``chip_smoke.dnc_runs``' result for runs that put ``within[r]`` of
+    the 4 images within +-1 of the truth, each image at one bridge level of
+    3 iterations."""
+    truth = np.array(chip_smoke.DNC_TRUE_COUNTS)
+    levels = [[(3, [1.0], 0.5)] for _ in truth]
+    launches = {"K1": 10, "K2": 0, "K3": 12, "K4 tile": 0, "K4 bridge": 0,
+                "K5": 0}
+    return truth, [(launches, levels, [converged] * 4,
+                    truth + np.where(np.arange(4) < w, 0.2, 2.5))
+                   for w in within]
+
+
+@pytest.mark.parametrize("within, converged, ok", [
+    ([3] + [4] * 9, True, True),    # the config seed's run misses one
+    ([4, 4, 4, 3, 3, 3, 4, 4, 4, 4], True, True),     # 37 of 40
+    ([4, 4, 4, 3, 3, 3, 3, 4, 4, 4], True, False),    # 36 of 40
+    ([4] * 10, False, False)])
+def test_dnc_batch_holds_the_runs_to_the_earlier_kernels_rate(
+        monkeypatch, capsys, within, converged, ok):
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(chip_smoke, "DNC_RUNS", len(within))
+    monkeypatch.setattr(chip_smoke, "dnc_runs",
+                        lambda *a: _fake_dnc_runs(within, converged))
+    floor = chip_smoke.binomial_floor(40, 40)
+    hits = sum(within)
+    assert ok == (converged and hits >= floor)
+
+    def run():
+        return chip_smoke._dnc_batch(None, SimpleNamespace(seed=5), "dnc",
+                                     1.0, 1.0, 40)
+
+    if not ok:
+        with pytest.raises(AssertionError):
+            run()
+        return
+    assert run()["bridge levels"] == [12]
+    out = capsys.readouterr().out
+    first = "meets" if within[0] == 4 else "misses"
+    assert f"the config seed's run: {within[0]}/4 within +-1 ({first}" in out
+    assert f"{hits}/40 image-runs within +-1" in out
