@@ -107,14 +107,23 @@ constexpr int kLanesBridge16x16 = 32;
 constexpr int kMinBlocks = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Phi as the plain version computes it: torch.special.ndtr is
-// (1 + erf(z / sqrt(2))) / 2. A drift far outside the box leaves a
-// truncation mass of a few ulps of 1, the difference of two values of Phi
-// near 1; computed alike, the kernel's and the plain version's masses round
-// alike there, where K1-K3's normcdff and torch's ndtr differ by whole ulps
-// and their logs by nats.
+// Phi as the plain version computes it (distributions.py: ndtr, the JAX
+// package's formula): (1 + erf(w)) / 2 for |w| < 1 / sqrt(2), w = z /
+// sqrt(2), and erfc(|w|) / 2 (or 1 minus it) beyond. A drift far above the
+// box leaves a mass of two values of Phi deep in its lower tail, which erfc
+// keeps to f32's smallest numbers: its log is the true one, where
+// (1 + erf(w)) / 2 flushes to 0 below z = -5.4 and the log mass to 0, which
+// inflated the acceptance of such moves; a subnormal Phi is 0, as in the
+// plain version. A drift far below the box leaves a mass of a few ulps of 1;
+// computed alike, the kernel's and the plain version's masses round alike
+// there.
 __device__ __forceinline__ float phi_cdf(float z) {
-  return (1.f + erff(z * 0.70710678118654752f)) * 0.5f;
+  const float w = z * 0.70710678f;
+  const float a = fabsf(w);
+  const float y = a < 0.70710678f ? 0.5f * (1.f + erff(w))
+                                  : 0.5f * (w > 0.f ? 2.f - erfcf(a)
+                                                    : erfcf(a));
+  return y < 1.17549435e-38f ? 0.f : y;
 }
 
 __device__ __forceinline__ float box_mass(float mu, float sigma, float lb,

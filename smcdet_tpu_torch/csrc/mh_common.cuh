@@ -1,5 +1,5 @@
-// Device helpers shared by the sweep kernels (K1 and K2: mh_sweep_k2.cu,
-// K3: mh_sweep_k3.cu, K4: mala_sweep_k4.cu): the Philox4x32-10 stream, its
+// Device helpers shared by the sweep kernels (K1-K3: mh_sweep.cuh's body,
+// K4: mala_sweep_k4.cu): the Philox4x32-10 stream, its
 // uniforms, and the truncated-normal random walk with its truncation
 // masses. Each follows the plain PyTorch version in ops/mh_sweep.py and
 // distributions.py operation by operation.

@@ -1,6 +1,7 @@
-// The tile model shared by kernels K1 and K2 (mh_sweep_k2.cu),
-// K3 (mh_sweep_k3.cu) and K4 (mala_sweep_k4.cu): their scalar parameters, the
-// PSF (Gaussian, SDSS with the beta = 3 wing, SDSS with the general wing),
+// The tile model shared by kernels K1-K3 (mh_sweep.cuh's body, in
+// mh_sweep_k2.cu and mh_sweep_k3.cu) and K4 (mala_sweep_k4.cu): their
+// scalar parameters, the PSF (Gaussian, SDSS with the beta = 3 wing, SDSS
+// with the general wing),
 // one star's unit-flux render at one pixel under the patch mask, the pixel
 // log-likelihood (Gaussian noise, or Poisson noise with a Normal tail), the
 // flux prior's log-density (Pareto, Normal or none), and K4's gradient
@@ -29,33 +30,6 @@ struct K2Params {
 
 namespace smcdet {
 
-__device__ __forceinline__ float psf_eval(float r2, const K2Params& P) {
-  if (P.psf_kind == 0) {
-    return expf((-0.5f * r2) / (P.gauss_stdev * P.gauss_stdev)) /
-           P.gauss_norm;
-  }
-  const float t1 = expf(-r2 / (2.f * P.s1));
-  const float t2 = P.b * expf(-r2 / (2.f * P.s2));
-  const float q = 1.f + r2 / (P.beta * P.sp);
-  const float t3 = P.psf_kind == 1 ? P.p0 * rsqrtf(q * q * q)
-                                   : P.p0 * powf(q, -P.beta / 2.f);
-  return ((t1 + t2 + t3) / (1.f + P.b + P.p0)) / P.norm;
-}
-
-template <int W>
-__device__ __forceinline__ float star_pixel(int p, float ly, float lx,
-                                            float fy, float fx,
-                                            const K2Params& P) {
-  const float h = (float)(p / W);
-  const float w = (float)(p % W);
-  const float dy = (h + 0.5f) - ly;
-  const float dx = (w + 0.5f) - lx;
-  const bool in_patch =
-      (fabsf(h - fy) <= P.psf_radius) && (fabsf(w - fx) <= P.psf_radius);
-  const float psi = psf_eval(dy * dy + dx * dx, P);
-  return in_patch ? psi : 0.f;
-}
-
 __device__ __forceinline__ float pixel_loglik(float img, float lg, float rp,
                                               const K2Params& P) {
   const float diff = img - rp;
@@ -80,7 +54,7 @@ __device__ __forceinline__ float flux_log_prob(float f, const K2Params& P) {
 }
 
 // The PSF of K2Params with each division by a launch constant turned into a
-// product with its reciprocal, worked out once per thread (K1, K2 and K4).
+// product with its reciprocal, worked out once per thread (K1-K4).
 struct PsfRecip {
   int kind;      // K2Params::psf_kind
   float e1, e2;  // Gaussian: -1 / (2 stdev^2); SDSS: -1 / (2 s1), -1 / (2 s2)
@@ -120,7 +94,7 @@ __device__ __forceinline__ float psf_eval_recip(float r2, const PsfRecip& R) {
 }
 
 // One star's unit-flux render at the pixel in row h, column w (as floats)
-// under the patch mask, as star_pixel.
+// under the patch mask (models/imaging.py: star_image_flat).
 __device__ __forceinline__ float star_pixel_recip(float h, float w, float ly,
                                                   float lx, float fy,
                                                   float fx, float radius,

@@ -10,12 +10,13 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.special import ndtr, ndtri
+from torch.special import ndtri
 
 __all__ = [
     "UNIFORM_EPS",
     "DiscreteUniform",
     "TruncatedPareto",
+    "ndtr",
     "truncated_normal_sample",
     "truncated_normal_log_mass",
     "truncated_normal_log_prob",
@@ -23,6 +24,24 @@ __all__ = [
 
 UNIFORM_EPS = 1e-6
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+_HALF_SQRT_2 = 0.5 * math.sqrt(2.0)
+
+
+def ndtr(x):
+    """The standard normal CDF by the JAX package's formula
+    (``jax.scipy.special.ndtr``): ``(1 + erf(x / sqrt 2)) / 2`` near 0 and
+    ``erfc(|x| / sqrt 2) / 2`` (or 1 minus it) beyond. The lower tail stays
+    accurate down to f32's smallest normal number, where
+    ``torch.special.ndtr`` in f32 flushes to 0 below about -5.4: a
+    truncation mass far above the box (a MALA drift's) then has its true
+    log, not 0. A subnormal result is 0, as XLA's f32 arithmetic flushes
+    it."""
+    w = x * _HALF_SQRT_2
+    z = w.abs()
+    y = 0.5 * torch.where(z < _HALF_SQRT_2, 1.0 + torch.erf(w),
+                          torch.where(w > 0, 2.0 - torch.erfc(z),
+                                      torch.erfc(z)))
+    return torch.where(y < torch.finfo(y.dtype).tiny, 0.0, y)
 
 
 def truncated_normal_sample(mu, sigma, lb, ub, *, u=None, generator=None):

@@ -45,6 +45,7 @@ import torch
 
 from smcdet_tpu_torch.distributions import (
     TruncatedPareto,
+    ndtr,
     truncated_normal_log_prob,
     truncated_normal_sample,
 )
@@ -379,8 +380,6 @@ def smallest_box_mass(q: MALAProposal, proposal, prior):
     longer small against it, so its log, and with it the proposal and the
     acceptance ratio, is rounding noise that differs from one Phi
     implementation to another."""
-    from torch.special import ndtr
-
     p = proposal
     lo, hi = prior.loc_low, prior.loc_high
 

@@ -16,9 +16,8 @@ RTOL = ATOL = 1e-5
 
 def _case(seed, n=4096):
     """Means inside the box, as in every MH proposal (the walk starts from
-    the current state). Far outside it the box mass falls below ~1e-6,
-    where torch's f32 ``ndtr`` flushes to 0 about z < -9 and JAX's does
-    not; neither value enters a sweep."""
+    the current state). MALA's drifted means also lie far outside it: see
+    test_truncated_normal_far_outside_the_box_matches_jax."""
     rng = np.random.default_rng(seed)
     mu = rng.uniform(-1.0, 9.0, n).astype(np.float32)
     sigma = rng.uniform(0.1, 5.0, n).astype(np.float32)
@@ -68,6 +67,55 @@ def test_truncated_normal_log_mass_and_log_prob(seed):
         np.asarray(jd.truncated_normal_log_prob(value, mu, sigma, lb, ub)),
         rtol=RTOL, atol=ATOL,
     )
+
+
+def test_ndtr_matches_jax():
+    """Phi by JAX's formula: within the f32 rounding of erf / erfc (a few
+    ulps) of JAX's values from -15 to 15, 0 where JAX's f32 result is
+    subnormal."""
+    x = np.concatenate([np.linspace(-15.0, 15.0, 30001),
+                        np.random.default_rng(0).normal(0.0, 4.0, 4096)])
+    x = x.astype(np.float32)
+    want = np.asarray(jax.scipy.special.ndtr(jnp.asarray(x)))
+    got = td.ndtr(t(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0.0)
+    assert (got[want == 0.0] == 0.0).all()
+    assert float(td.ndtr(torch.tensor(-10.0))) > 0.0  # torch's ndtr: 0
+
+
+@pytest.mark.parametrize("sigma,lb,ub", [(0.25, -1.0, 17.0),
+                                         (5.0, 7.0, 1804.679)])
+def test_truncated_normal_far_outside_the_box_matches_jax(sigma, lb, ub):
+    """Means a MALA drift carries above the box, up to 15 sigma (the
+    location and the flux box of divideandconquer at its steps): the box
+    mass is a difference of two values of Phi in the lower tail, and its
+    log, the proposal's log-density and the sample are JAX's, with the
+    log mass between 0 and -88 where torch's f32 ndtr gave 0 beyond 5.4
+    sigma. Means below the box, up to 5 sigma, where the mass is still
+    above 1e-7."""
+    rng = np.random.default_rng(1)
+    above = ub + sigma * rng.uniform(0.0, 15.0, 2048)
+    below = lb - sigma * rng.uniform(0.0, 5.0, 2048)
+    mu = np.concatenate([above, below]).astype(np.float32)
+    key = jax.random.key(3)
+    u = jax.random.uniform(key, mu.shape, minval=1e-6, maxval=1 - 1e-6)
+    value = np.clip(mu - sigma * rng.uniform(0.0, 3.0, mu.shape), lb, ub)
+    value = value.astype(np.float32)
+    args = (np.float32(sigma), np.float32(lb), np.float32(ub))
+    want_mass = np.asarray(jd.truncated_normal_log_mass(mu, *args))
+    got_mass = td.truncated_normal_log_mass(t(mu), *map(float, args))
+    np.testing.assert_allclose(got_mass.numpy(), want_mass, rtol=1e-5,
+                               atol=1e-4)
+    assert want_mass[:2048].min() < -80.0  # the tail is exercised
+    np.testing.assert_allclose(
+        td.truncated_normal_log_prob(t(value), t(mu),
+                                     *map(float, args)).numpy(),
+        np.asarray(jd.truncated_normal_log_prob(value, mu, *args)),
+        rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(
+        td.truncated_normal_sample(t(mu), *map(float, args), u=t(u)).numpy(),
+        np.asarray(jd.truncated_normal_sample(key, mu, *args)), rtol=1e-5,
+        atol=1e-5)
 
 
 def test_truncated_normal_log_mass_guards_empty_box():

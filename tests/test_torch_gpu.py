@@ -350,14 +350,30 @@ def test_k1_lane_groups_match_plain_version(dev, M, N, num_iters):
                        lambda: mh_sweep.mh_sweeps.launches, args)
 
 
+def _kind_model(dev, noise, psf):
+    """An 8x8 tile model of one noise kind ("gaussian", "poisson") and one
+    PSF kind ("gaussian", "sdss3": SDSS with the beta = 3 wing, "sdss": the
+    general wing at beta = 2.5), the three PSF kinds of the sweep kernels'
+    instantiations."""
+    if psf == "gaussian":
+        shape, radius = GaussianPSF(1.0, device=dev), 4
+    else:
+        shape = _m71_model(dev, beta=3.0 if psf == "sdss3" else 2.5).psf
+        radius = 8
+    return ImageModel(8, 8, radius, shape, noise=noise, background=179.0,
+                      adu_per_nmgy=155.0 if noise == "gaussian" else 1.0,
+                      noise_multiplicative=1.94, device=dev)
+
+
 def _bridge_target(dev, name="m71", shape=(16, 8), mode="tag", N=512,
-                   M=None, mixed=False):
+                   M=None, mixed=False, kind=None):
     """An aggregation-bridge target on a joined tile: random catalogs with
     counts varying per particle, origin tags (``mode`` "tag") or the side
     of each star's location ("location"), a ghost rate, temperature 0.4.
     ``name``: "m71" (Gaussian noise, SDSS beta = 3, truncated Pareto) or
-    "poisson" (Poisson noise, Gaussian PSF, Normal flux). ``mixed`` empties
-    every third particle and particles 64..127 of each group, as
+    "poisson" (Poisson noise, Gaussian PSF, Normal flux); ``kind`` (noise,
+    PSF) replaces the model by ``_kind_model``'s. ``mixed`` empties every
+    third particle and particles 64..127 of each group, as
     ``_mixed_counts_target``."""
     from smcdet_tpu_torch.inference.aggregate import SideMask, expand_prior
 
@@ -374,6 +390,8 @@ def _bridge_target(dev, name="m71", shape=(16, 8), mode="tag", N=512,
         prior, kernel = _normal_flux(dev, 8, 8)
         model = ImageModel(8, 8, 4, GaussianPSF(1.0, device=dev),
                            noise="poisson", background=100.0, device=dev)
+    if kind is not None:
+        model = _kind_model(dev, *kind)
     prior = expand_prior(prior, h, w, M)
     model = model.with_shape(h, w)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -435,6 +453,36 @@ def test_k3_matches_plain_version(dev, name, shape, mode):
         ok = torch.isclose(a, b, rtol=1e-4, atol=1e-4)
         close &= ok.reshape(counts.shape + (-1,)).all(-1)
     assert float(close.float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("shape,mode,M,N,num_iters,kind", [
+    ((16, 8), "tag", 16, 999, 37, ("gaussian", "sdss3")),  # dnc's kind
+    ((16, 8), "location", 16, 1001, 20, ("gaussian", "sdss3")),
+    ((16, 16), "tag", 32, 1001, 37, ("gaussian", "sdss3")),  # M = 32
+    ((16, 16), "location", 32, 999, 37, ("gaussian", "sdss3")),
+    ((16, 8), "tag", 16, 999, 37, ("gaussian", "gaussian")),
+    ((16, 16), "location", 32, 1001, 37, ("gaussian", "sdss")),
+    ((16, 8), "location", 16, 1001, 37, ("poisson", "gaussian")),
+    ((16, 16), "tag", 32, 999, 37, ("poisson", "sdss3")),
+    ((16, 8), "tag", 16, 1000, 37, ("poisson", "sdss")),
+])
+def test_k3_lane_groups_match_plain_version(dev, shape, mode, M, N,
+                                            num_iters, kind):
+    """K3's lane groups on what their layout risks, on both joined tiles in
+    tag and location mode and on each noise and PSF kind (one
+    instantiation each): empty and occupied particles mixed in every warp
+    and lane group, whole warps of empty particles, ragged N, M = 16 on
+    16x8 and 32 on 16x16, and 37 sweeps, which end inside a Philox
+    draw-ahead batch. One K3 launch; the empty particles pass through
+    bit-exactly; >= 99% of the occupied ones agree with the plain version
+    in both caches."""
+    kernel, ctx, counts, locs, fluxes = _bridge_target(
+        dev, "m71", shape, mode, N, M, mixed=True, kind=kind)
+    assert mh_sweep.sweep_kernel(ctx.prior, ctx.model, M, child=True) == "K3"
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    args, child = _launch_args(kernel, ctx, counts, state, num_iters)
+    _lane_groups_agree(mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference,
+                       lambda: mh_sweep.mh_sweeps.k3_launches, args, child)
 
 
 def test_k3_raises_for_an_unbuilt_joined_tile(dev):

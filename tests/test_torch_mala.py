@@ -10,6 +10,7 @@ itself runs only on the card: see tests/test_torch_gpu.py.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -33,15 +34,22 @@ from torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
     t,
 )
 
+from smcdet_tpu.inference import aggregate as jagg
 from smcdet_tpu.inference.kernels import (
     SingleComponentMALA as JaxMALA,
+    TargetContext as JaxCtx,
     _take_slot,
     init_kernel_state as jax_init_state,
+    relocate_sweeps as jax_relocate,
 )
+from smcdet_tpu_torch.distributions import truncated_normal_log_prob
+from smcdet_tpu_torch.inference import aggregate as tagg
 from smcdet_tpu_torch.inference.kernels import (
     KernelState,
     SingleComponentMALA,
+    TargetContext,
     init_kernel_state,
+    relocate_sweeps,
 )
 from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
 
@@ -357,6 +365,198 @@ def test_plain_bridge_loop_keeps_both_caches(mode):
                                    atol=1e-2)
     np.testing.assert_allclose(st.logprior.numpy(), fresh.logprior.numpy(),
                                rtol=1e-5, atol=1e-3)
+
+
+# divideandconquer's MALA steps: its shipped kernel's locs_stdev and
+# fluxes_stdev (chip_smoke.py: MALA_DNC_STEPS)
+_DNC_STEPS = (0.25, 5.0)
+
+
+def _ks_distance(a, b):
+    """The two-sample Kolmogorov-Smirnov distance of samples ``a`` and
+    ``b`` and its critical value at level 0.001 for their sizes."""
+    a, b = np.sort(np.ravel(a)), np.sort(np.ravel(b))
+    grid = np.concatenate([a, b])
+    d = np.abs(np.searchsorted(a, grid, side="right") / a.size
+               - np.searchsorted(b, grid, side="right") / b.size).max()
+    return d, math.sqrt(-math.log(0.001 / 2) / 2 * (a.size + b.size)
+                        / (a.size * b.size))
+
+
+def _bridge_samples(counts, tau, logprior, pll, cll, locs, fluxes):
+    """The particles' tempered bridge targets, and the occupied slots'
+    locations and fluxes."""
+    active = np.arange(fluxes.shape[-1]) < np.asarray(counts)[..., None]
+    locs, fluxes = np.asarray(locs), np.asarray(fluxes)
+    return {"target": np.asarray(logprior + tau * pll + (1.0 - tau) * cll),
+            "y": locs[..., 0][active], "x": locs[..., 1][active],
+            "flux": fluxes[active]}
+
+
+@pytest.mark.parametrize("relocate", [0, 8])
+@pytest.mark.parametrize("mode", ["tag", "location"])
+def test_plain_bridge_loop_matches_jax_equilibrium(mode, relocate):
+    """Different random streams, so the comparison is at equilibrium: 400
+    MALA sweeps at divideandconquer's steps (0.25 / 5.0) of JAX and of the
+    plain version of K4 on the level-0 bridge of test_torch_aggregate.py
+    (tau 0.4, counts fixed), then ``relocate`` prior-draw relocation sweeps
+    (the aggregation's 8, inference/aggregate.py's bridge step). The
+    acceptance within 0.025 (the tile test's 0.02 above, and the spread of
+    JAX's and the port's seeds here), and the two-sample KS distance of the
+    particles' tempered targets and of the occupied slots' y, x and flux
+    below its 0.1% critical value. (On this pure-noise image the posterior
+    is diffuse and bimodal near the box's edges: the tile test's target
+    quantiles move by 300 nats, and the location quartiles by 2 px, from
+    one JAX seed to the next; the distributions agree to a KS distance
+    under 0.09 over seeds 1, 2 and 5 of both.)"""
+    jctx, pctx, counts, locs, fluxes = _bridge(mode)
+    _, _, mh = _bridge_setup(num_iters=400)
+    kernel = JaxMALA(num_iters=400, locs_step=jnp.float32(_DNC_STEPS[0]),
+                     fluxes_step=jnp.float32(_DNC_STEPS[1]),
+                     fluxes_min=mh.fluxes_min, fluxes_max=mh.fluxes_max,
+                     backend="xla")
+
+    def jax_run(key):
+        k_mut, k_rel = jax.random.split(key)
+        st, acc = kernel.run(k_mut, jctx, counts, locs, fluxes)
+        if relocate:
+            st, _ = jax_relocate(k_rel, jctx, counts, st, relocate)
+        return st, acc
+
+    stx, accx = jax.jit(jax_run)(jax.random.key(5))
+    pkernel = port_kernel(kernel)
+    pcounts = t(counts, torch.int32)
+    g = torch.Generator().manual_seed(5)
+    stp, accp = pkernel.run(g, pctx, pcounts, t(locs), t(fluxes))
+    if relocate:
+        stp, _ = relocate_sweeps(g, pctx, pcounts, stp, relocate)
+
+    tau = float(np.asarray(jctx.temperature).ravel()[0])
+    want = _bridge_samples(counts, tau, stx.logprior, stx.parent_ll,
+                           stx.child_ll, stx.locs, stx.fluxes)
+    got = _bridge_samples(counts, tau, stp.logprior.numpy(),
+                          stp.parent_ll.numpy(), stp.child_ll.numpy(),
+                          stp.locs, stp.fluxes)
+    for name in ("target", "y", "x", "flux"):
+        d, bound = _ks_distance(want[name], got[name])
+        assert d < bound, (name, d, bound)
+    assert 0.05 < float(accx.mean()) < 0.95
+    assert abs(float(accp.mean()) - float(accx.mean())) < 0.025
+
+
+@functools.cache
+def _dnc_bridge(mode):
+    """A level-0 bridge of divideandconquer's model and prior (its SDSS PSF,
+    Gaussian noise, truncated-Pareto flux; JAX objects): a 16x8 joined tile
+    holding four bright stars, two of them by the far edges of the image,
+    and 256 particles of four stars near them, two from each child (origin
+    tags in "tag" mode), at tau 0.5. Returns the JAX and the port contexts,
+    counts, locs and fluxes (numpy), and the JAX MALA kernel of the suite's
+    flux bounds at its steps."""
+    from pathlib import Path
+
+    from smcdet_tpu import config as jcfg
+
+    cfg = jcfg.load_config(Path(__file__).resolve().parents[1]
+                           / "experiments" / "divideandconquer"
+                           / "config.yaml")
+    tile = jagg.expand_prior(jcfg.build_prior(cfg.prior), 8, 8,
+                             cfg.prior.max_objects)
+    H, W, M = 16, 8, 8
+    prior = jagg.expand_prior(tile, H, W, M)
+    model = jcfg.build_image_model(cfg.image_model).replace(height=H,
+                                                            width=W)
+    rng = np.random.default_rng(0)
+    true_locs = np.array([[2.2, 6.8], [6.6, 1.1], [11.0, 3.3], [15.4, 7.2]],
+                         np.float32)
+    true_fluxes = np.array([400.0, 150.0, 900.0, 300.0], np.float32)
+    bare = JaxCtx(prior=prior, model=model, image=jnp.zeros((H, W)),
+                  temperature=jnp.float32(1.0))
+    rate = np.asarray(bare.init_rates(jnp.asarray(true_locs),
+                                      jnp.asarray(true_fluxes))[0])
+    sd = np.sqrt(float(model.noise_additive)
+                 + float(model.noise_multiplicative) * rate)
+    image = (rate + sd * rng.standard_normal(rate.shape)).reshape(H, W)
+    image = image.astype(np.float32)
+    N = 256
+    counts = np.full(N, 4, np.int32)
+    locs = np.zeros((N, M, 2), np.float32)
+    fluxes = np.zeros((N, M), np.float32)
+    locs[:, :4] = true_locs + rng.normal(0.0, 0.2, (N, 4, 2))
+    fluxes[:, :4] = true_fluxes * rng.uniform(0.9, 1.1, (N, 4))
+    side = np.broadcast_to(np.arange(M) < 2, (N, M)).astype(np.float32)
+    tag = mode == "tag"
+    jctx = JaxCtx(prior=prior, model=model, image=jnp.asarray(image),
+                  temperature=jnp.float32(0.5), child_model=model,
+                  child_side_mask=jagg._side_mask_fn(0, 8, H, W),
+                  child_slot_side=jnp.asarray(side) if tag else None)
+    pmodel = port_model(model)
+    pctx = TargetContext(port_prior(prior), pmodel, t(image),
+                         torch.tensor(0.5), child_model=pmodel,
+                         child_side_mask=tagg.SideMask(0, 8, H, W),
+                         child_slot_side=t(side) if tag else None)
+    kernel = JaxMALA(num_iters=300, locs_step=jnp.float32(_DNC_STEPS[0]),
+                     fluxes_step=jnp.float32(_DNC_STEPS[1]),
+                     fluxes_min=jnp.float32(cfg.kernel.fluxes_min),
+                     fluxes_max=jnp.float32(cfg.kernel.fluxes_max),
+                     backend="xla")
+    return jctx, pctx, counts, locs, fluxes, kernel
+
+
+@pytest.mark.parametrize("mode", ["tag", "location"])
+def test_proposal_densities_match_jax_far_outside_the_box(mode):
+    """The fault behind the MALA under-count on divideandconquer: at its
+    steps, on a bridge near bright stars, MALA's drifted means lie far
+    outside the box for most particles. Where a mean lies more than 5.4
+    sigma above the box, its truncation mass is a difference of two values
+    of Phi in the lower tail, which torch.special.ndtr's f32 flushed to 0
+    (log mass 0) and JAX's ndtr keeps (log mass -17 to -88): the port's
+    proposal densities were off by that much, and it accepted moves JAX
+    rejects. After 300 plain K4 sweeps, every forward and reverse proposal
+    log-density of the next sweep's proposals equals JAX's
+    ``truncated_normal_log_prob`` of the same values (rtol 1e-5), but
+    where a mass is a difference of two values of Phi near 1 (a mean far
+    below the box), which each package rounds its own way."""
+    from smcdet_tpu import distributions as jd
+
+    _, pctx, counts, locs, fluxes, kernel = _dnc_bridge(mode)
+    pkernel = port_kernel(kernel)
+    pcounts = t(counts, torch.int32)
+    st0 = init_kernel_state(pctx, pcounts, t(locs), t(fluxes))
+    st, _ = pkernel.run_from_state(torch.Generator().manual_seed(1), pctx,
+                                   pcounts, st0)
+    g = torch.Generator().manual_seed(2)
+    u = [torch.rand(s, generator=g)
+         for s in (pcounts.shape, pcounts.shape + (2,), pcounts.shape)]
+    prop = pkernel.proposal(pctx.prior)
+    q = mala_sweep.mala_proposal(
+        *u, prior=pctx.prior, model=pctx.model, proposal=prop,
+        image_flat=pctx.image_flat, temperature=pctx.temperature,
+        counts=pcounts, locs=st.locs, fluxes=st.fluxes, rate=st.rate,
+        pll=st.parent_ll, lp=st.logprior,
+        child=pctx.child_term(st, pcounts.shape))
+    lo, hi = pctx.prior.loc_low, pctx.prior.loc_high
+    boxes = ((q.loc_prop, q.mu_loc, q.loc, q.mu_loc_rev, prop.locs_stdev,
+              lo, hi),
+             (q.f_prop, q.mu_f, q.f, q.mu_f_rev, prop.fluxes_stdev,
+              prop.flux_lo, prop.flux_hi))
+    far_above = 0
+    for x_new, mu, x_old, mu_rev, sigma, lb, ub in boxes:
+        for value, mean in ((x_new, mu), (x_old, mu_rev)):
+            args = [np.broadcast_to(np.asarray(v, np.float32), mean.shape)
+                    for v in (value, mean, sigma, lb, ub)]
+            want = np.asarray(jd.truncated_normal_log_prob(*args))
+            got = truncated_normal_log_prob(*(torch.from_numpy(a.copy())
+                                              for a in args)).numpy()
+            z_lb = (args[3] - args[1]) / args[2]
+            z_ub = (args[4] - args[1]) / args[2]
+            near_one = (z_lb > 0.0) & (np.asarray(jd.ndtr(z_ub))
+                                       - np.asarray(jd.ndtr(z_lb)) < 1e-3)
+            far_above += int((z_ub < -5.5).sum())
+            np.testing.assert_allclose(got[~near_one], want[~near_one],
+                                       rtol=1e-5, atol=1e-3)
+    # the regime is this sweep's common case, not a corner
+    assert far_above >= pcounts.numel() // 4, far_above
 
 
 # ----------------------------------------------------------------------

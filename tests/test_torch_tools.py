@@ -166,6 +166,36 @@ def test_compare_fails_only_on_kernels_it_was_not_asked_about():
     assert differ(fewer, {"K2"}) == []
 
 
+def test_k3_lanes_fit_the_kernels_layout():
+    """K3's ``constexpr int kLanes*`` lines, read by the lane variant's
+    parser: 16 lanes on the joined 16x8 tile and 32 on 16x16 (K4's bridge
+    picks), each dividing the tile's pixels and a warp, at least the three
+    proposal lanes, dividing a row or a multiple of it, and at most 32
+    pixels a lane (one bit each in the even-child mask)."""
+    lanes = variant.k3_source_lanes()
+    assert lanes == {(16, 8): 16, (16, 16): 32}
+    for (h, w), L in lanes.items():
+        hw = h * w
+        assert hw % L == 0 and 32 % L == 0 and L >= 4
+        assert w % L == 0 or L % w == 0
+        assert hw // L <= 32
+
+
+def test_lane_variant_sets_k3_lanes(tmp_path):
+    """``--k3`` changes K3's constants in the copy and nothing else of the
+    kernels' sources."""
+    pkg = variant.write_variant(tmp_path, k3={"bridge16x8": 8,
+                                              "bridge16x16": 16})
+    root = Path(variant.__file__).resolve().parents[1] / "smcdet_tpu_torch"
+    assert variant.k3_source_lanes(pkg) == {(16, 8): 8, (16, 16): 16}
+    for src in sorted((root / "csrc").iterdir()):
+        if src.name != "mh_sweep_k3.cu":
+            assert (pkg / "csrc" / src.name).read_text() == src.read_text()
+    assert variant.k4_source_lanes(pkg) == variant.k4_source_lanes()
+    with pytest.raises(SystemExit):
+        variant.main([str(tmp_path), "--k3", "bridge8x8=4"])
+
+
 def test_lane_variant_sets_the_kernels_and_the_plain_versions_lanes(
         tmp_path):
     import importlib.util
@@ -328,25 +358,37 @@ def _fake_dnc_runs(within, converged):
                    for w in within]
 
 
-@pytest.mark.parametrize("within, converged, ok", [
-    ([3] + [4] * 9, True, True),    # the config seed's run misses one
-    ([4, 4, 4, 3, 3, 3, 4, 4, 4, 4], True, True),     # 37 of 40
-    ([4, 4, 4, 3, 3, 3, 3, 4, 4, 4], True, False),    # 36 of 40
-    ([4] * 10, False, False)])
+@pytest.mark.parametrize("kind", ["MH", "MALA"])
+@pytest.mark.parametrize("within, converged, ok_mh, ok_mala", [
+    ([3] + [4] * 9, True, True, True),  # the config seed's run misses one
+    ([4, 4, 4, 3, 3, 3, 4, 4, 4, 4], True, True, True),     # 37 of 40
+    ([4, 4, 3, 3, 3, 3, 3, 4, 4, 4], True, False, True),    # 35 of 40
+    ([4, 3, 3, 3, 3, 3, 3, 3, 3, 1], True, False, False),   # 29 of 40
+    ([4] * 10, False, False, False)])
 def test_dnc_batch_holds_the_runs_to_the_earlier_kernels_rate(
-        monkeypatch, capsys, within, converged, ok):
+        monkeypatch, capsys, within, converged, ok_mh, ok_mala, kind):
+    """The 40 image-runs within +-1 are held to ``binomial_floor`` at the
+    JAX runner's count on the same seeds, ``DNC_JAX_WITHIN`` (MH 39, floor
+    36; MALA 35, floor 30); the config seed's single run is printed, not
+    held."""
     from types import SimpleNamespace
 
+    reference = chip_smoke.DNC_JAX_WITHIN[kind]
+    assert reference == sum(chip_smoke.DNC_JAX_WITHIN_BY_SEED[kind])
+    assert len(chip_smoke.DNC_JAX_WITHIN_BY_SEED[kind]) == \
+        chip_smoke.DNC_RUNS
+    floor = chip_smoke.binomial_floor(40, reference)
+    assert floor == {"MH": 36, "MALA": 30}[kind]
     monkeypatch.setattr(chip_smoke, "DNC_RUNS", len(within))
     monkeypatch.setattr(chip_smoke, "dnc_runs",
                         lambda *a: _fake_dnc_runs(within, converged))
-    floor = chip_smoke.binomial_floor(40, 40)
     hits = sum(within)
+    ok = ok_mh if kind == "MH" else ok_mala
     assert ok == (converged and hits >= floor)
 
     def run():
         return chip_smoke._dnc_batch(None, SimpleNamespace(seed=5), "dnc",
-                                     1.0, 1.0, 40)
+                                     1.0, 1.0, reference)
 
     if not ok:
         with pytest.raises(AssertionError):

@@ -123,16 +123,39 @@ def build_all(parent: Path) -> dict:
         return {name: f.result() for name, f in futures.items()}
 
 
+def _own_distributions(checkout: Path, tag: str):
+    """The checkout's ``distributions.py`` as a module of its own, with this
+    checkout's classes in place of its own (the priors are this
+    checkout's, and the wrappers test their flux marks' classes), so that
+    its truncated-normal functions, which its plain versions call, are
+    its own."""
+    import smcdet_tpu_torch.distributions as this
+
+    spec = importlib.util.spec_from_file_location(
+        f"{tag}_distributions", checkout / "smcdet_tpu_torch"
+        / "distributions.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for name, value in vars(this).items():
+        if isinstance(value, type) and hasattr(mod, name):
+            setattr(mod, name, value)
+    return mod
+
+
 def load_wrappers(checkout: Path, tag: str) -> dict:
     """A checkout's kernel wrappers, ``{"mh_sweep": module, "mala_sweep":
     module}``: its ``ops/mh_sweep.py`` and ``ops/mala_sweep.py`` loaded
     from its files as modules of their own (``mala_sweep`` importing that
-    checkout's ``mh_sweep``); everything else they import comes from this
-    checkout's package."""
+    checkout's ``mh_sweep``), both importing the checkout's own
+    truncated-normal functions (``_own_distributions``); everything else
+    they import comes from this checkout's package."""
+    import smcdet_tpu_torch.distributions as this
     import smcdet_tpu_torch.ops as ops
 
     mods = {}
     saved = {name: getattr(ops, name) for name in _OPS}
+    sys.modules["smcdet_tpu_torch.distributions"] = _own_distributions(
+        checkout, tag)
     try:
         for name in _OPS:
             spec = importlib.util.spec_from_file_location(
@@ -146,6 +169,7 @@ def load_wrappers(checkout: Path, tag: str) -> dict:
             sys.modules[f"smcdet_tpu_torch.ops.{name}"] = mod
             setattr(ops, name, mod)
     finally:
+        sys.modules["smcdet_tpu_torch.distributions"] = this
         for name, mod in saved.items():
             sys.modules[f"smcdet_tpu_torch.ops.{name}"] = mod
             setattr(ops, name, mod)
