@@ -4,8 +4,8 @@
 
 Phases (a failing phase raises; there is no CPU fallback):
 
-1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
-   versions; exits non-zero without a CUDA card;
+1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc and
+   scipy versions; exits non-zero without a CUDA card;
 2. build: compiles the kernels from ``smcdet_tpu_torch/csrc`` (one nvcc
    per source, in parallel) into ``build/``;
 3. K5: the dependent FP32 / SFU chains against their plain version at
@@ -48,17 +48,27 @@ Phases (a failing phase raises; there is no CPU fallback):
 9. main path: the M71 quick cell (16 tiles from ``generate_images`` with
    seed 7, N = 2048, 100 sweeps per SMC iteration, systematic resampling,
    ESS 0.5) through ``run_csmc_chunked(sort_tiles=True)``, with every
-   mutate call counted against K1's launch counter;
+   mutate call counted against K1's launch counter, its peak memory held
+   to ``run_csmc_chunked``'s estimate (``smc.chunk_bytes_per_tile``), as
+   every batch's below;
 10. entry point: ``run_experiment`` on ``experiments/basic/config.yaml``
     (one batch of 20 images) and ``experiments/cells/config.yaml`` (one
     batch of 10 images) at the shipped configurations, into a temporary
     directory, with every mutate call counted against K2's launch counter
     and the basic batch's detection share held to the JAX reference's;
-11. MALA entry point: the same basic batch with ``kernel.kind: mala`` (a
+11. pair: ``run_experiment`` on one batch of
+    ``experiments/cells/config_pair.yaml`` (the cells batch's 10 tiles,
+    N = 4096, C = 13, 200 K2 sweeps + 16 relocations + 8 pair-redistribute
+    sweeps per SMC iteration): every mutate call a K2 launch, none of K1,
+    the pair move's applied share in (0, 1), the posterior mean counts
+    beside the cells batch's, wall and peak memory; then one basic batch
+    with 16 relocation and 8 pair sweeps (the estimate at 8x8 with both
+    moves);
+12. MALA entry point: the same basic batch with ``kernel.kind: mala`` (a
     copy of the config in a temporary directory, compare_kernels.py's
     steps): every mutate call a K4 launch, the detection share held to the
     JAX runner's under MALA, the count-pmf TVD against the MH batch;
-12. aggregation entry point: ``run_experiment`` on one batch of 4 images
+13. aggregation entry point: ``run_experiment`` on one batch of 4 images
     of ``experiments/divideandconquer/config.yaml`` (K1 tile stage, K3
     bridges), ``DNC_RUNS`` times with the sampler seeded by the config's
     seed and the next ones, and on the first 8 tiles of the m71 real-data
@@ -68,12 +78,22 @@ Phases (a failing phase raises; there is no CPU fallback):
     convergence share of every run held to the JAX runner's, the config
     seed's run printed (not held) beside the JAX runner's single-run
     detection share, and the count of image-runs within +-1 held to the
-    JAX runner's rate on the same seeds (``binomial_floor``);
-13. MALA aggregation: the same 4 divideandconquer images with
+    JAX runner's rate on the same seeds (``binomial_floor``); one m71
+    image alone holds the chunk estimate (its one tile is its chunk);
+14. MALA aggregation: the same 4 divideandconquer images with
     ``kernel.kind: mala``, K4 on the tile stage and on both bridge levels,
     held to the JAX runner's shares under MALA the same way;
-14. profile: ``torch.profiler`` over one divideandconquer image, device
-    time by ``agg.*`` / ``smc.*`` range and the device's idle share.
+15. profile: ``torch.profiler`` over one divideandconquer image, device
+    time by ``agg.*`` / ``smc.*`` range and the device's idle share; then
+    over one SMC iteration of the cells_pair batch: device time by
+    ``smc.*`` range, K2's share, and the time per sweep of the plain
+    relocation and pair moves;
+16. score: the port's analyzer (``smcdet_tpu_torch.analyze``) on the
+    basic, cells and cells_pair batches, matching on the card and on the
+    CPU with the same sampled catalogs: identical ``MatchCounts`` but for
+    pairs within 1e-5 of a tolerance (counted, printed); count accuracy,
+    confusion asymmetry, coverage at 0.95, F1 by magnitude bin and the
+    matching's time on the card.
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -383,9 +403,15 @@ def phase_device():
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     nvcc = _run([_build.nvcc_path(), "--version"]).splitlines()
+    try:
+        import scipy  # the analyzer's SBC test (validation.py) needs it
+
+        scipy_version = scipy.__version__
+    except ImportError:
+        scipy_version = "not installed"
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"nvcc: {nvcc[-1] if nvcc else 'unknown'}, "
+          f"nvcc: {nvcc[-1] if nvcc else 'unknown'}, scipy {scipy_version}, "
           f"{torch.cuda.device_count()} card(s)")
     return smi
 
@@ -1487,9 +1513,10 @@ def phase_main_path(dev):
         return run_from_state(*args, **kwargs)
 
     kernel.run_from_state = counted
-    torch.cuda.reset_peak_memory_stats(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
     _reset_launches()
     start = time.perf_counter()
     res = run_csmc_chunked(gen, images, prior, model, kernel, cfg,
@@ -1509,6 +1536,8 @@ def phase_main_path(dev):
           f"{T / elapsed:.4f} tiles/s, min final ESS/N {min_ess:.4f}, "
           f"peak memory {peak} B ({peak / 2**30:.3f} GiB)")
     print(f"[main] mutate calls {mutate_calls}, K1 launches {launches}")
+    _check_chunk_budget("main", "quick cell", prior, N, TILE * TILE, T,
+                        peak - before)
 
     assert torch.all(res.temperature == 1.0), res.temperature
     assert torch.isfinite(res.log_normalizing_constant).all()
@@ -1535,6 +1564,7 @@ def _entry_batch(dev, cfg, label, out_root):
     """One full batch of a chunked suite (``cfg``, as loaded) through
     ``run_experiment``, its mutate calls counted; returns (calls, launches,
     results)."""
+    from smcdet_tpu_torch.config import build_prior
     from smcdet_tpu_torch.runner import load_results, run_experiment
 
     T = cfg.num_images = cfg.batch_size
@@ -1542,6 +1572,7 @@ def _entry_batch(dev, cfg, label, out_root):
     with _Calls() as calls:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
         _reset_launches()
         start = time.perf_counter()
         out = run_experiment(cfg, device=dev, verbose=False)
@@ -1553,11 +1584,12 @@ def _entry_batch(dev, cfg, label, out_root):
     N, s, kind = cfg.sampler.num_catalogs, cfg.sampler, cfg.kernel.kind
     iters = int(res["num_iters"][0])
     runtime = float(res["runtime"][0])
-    sweeps = cfg.kernel.num_iters + s.relocate_sweeps
+    sweeps = cfg.kernel.num_iters + s.relocate_sweeps + s.pair_sweeps
     updates = T * C * N * sweeps * iters
     print(f"[{label}] {cfg.name}: {T} tiles x {C} strata x N={N}, "
           f"{cfg.kernel.num_iters} {kind.upper()} + {s.relocate_sweeps} "
-          f"relocation sweeps/iter: {iters} SMC iterations, batch "
+          f"relocation + {s.pair_sweeps} pair sweeps/iter: {iters} SMC "
+          f"iterations, batch "
           f"{runtime:.3f} s ({runtime / iters * 1e3:.1f} ms/iter; "
           f"run_experiment {wall:.3f} s with the tile simulation)")
     print(f"[{label}] {cfg.name}: {updates / runtime:.6e} updates/s "
@@ -1566,12 +1598,32 @@ def _entry_batch(dev, cfg, label, out_root):
           f"{T / runtime:.4f} tiles/s, peak memory {peak} B "
           f"({peak / 2**30:.3f} GiB); mutate calls {calls.tile[kind]}, "
           f"launches {launches}")
+    _check_chunk_budget(label, cfg.name, build_prior(cfg.prior, "cpu"), N,
+                        cfg.image_model.image_height
+                        * cfg.image_model.image_width, T, peak - before)
     assert calls.tile[kind] == iters and sum(calls.bridge.values()) == 0
     assert res["image_index"].tolist() == list(range(T))
     assert np.all(res["temperature"] == 1.0), res["temperature"]
     assert np.isfinite(res["log_normalizing_constant"]).all()
     np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
     return calls, launches, res
+
+
+def _check_chunk_budget(label, name, prior, N, tile_hw, T, peak):
+    """A run's peak memory above what was allocated before it, against
+    ``run_csmc_chunked``'s estimate for its ``T`` tiles
+    (``chunk_bytes_per_tile``): a full frame's chunk, sized by that
+    estimate, stays inside its budget. Prints the peak as rate copies."""
+    from smcdet_tpu_torch.inference import smc
+
+    per_tile = smc.chunk_bytes_per_tile(prior, N, tile_hw)
+    rate = prior.num_counts * N * tile_hw * 4
+    copies = (peak / T - (per_tile - smc.RATE_COPIES * rate)) / rate
+    print(f"[{label}] {name}: peak {peak / T / 2**20:.1f} MiB per tile "
+          f"above the allocation before the run, {copies:.2f} rate copies; "
+          f"chunk estimate {per_tile / 2**20:.1f} MiB per tile "
+          f"({smc.RATE_COPIES} copies; ratio {peak / (T * per_tile):.3f})")
+    assert peak <= T * per_tile, (peak, T * per_tile)
 
 
 def _suite_config(suite, tmp=None, mala_steps=None):
@@ -1606,32 +1658,216 @@ def _basic_share(label, res, truth, bar):
     assert within.mean() >= bar - 1e-9, within.mean()
 
 
-def phase_entry_point(dev):
-    """``run_experiment`` on one batch each of basic and cells (K2); returns
-    the K2 launches of each and basic's results."""
+def _write_tiles(cfg, out_dir):
+    """The batch's simulated tiles (``run_experiment``'s, for ``cfg`` as it
+    ran) in ``out_dir/tiles.npz``, where the analyzer reads the truth."""
     from smcdet_tpu_torch.runner import simulate_tiles
 
-    with tempfile.TemporaryDirectory() as tmp:
-        calls, launches, basic = _entry_batch(
-            dev, _suite_config("basic"), "entry", tmp)
-        k2 = {"basic": launches["K2"]}
-        assert k2["basic"] == calls.tile["mh"] and launches["K1"] == 0, \
-            launches
-        cfg = _suite_config("basic")
-        cfg.num_images = cfg.batch_size
-        truth = simulate_tiles(cfg)["true_counts"]
-        assert truth.tolist() == BASIC_TRUE_COUNTS, (
-            "the simulated basic tiles differ from the reference's",
-            truth.tolist())
-        _basic_share("entry", basic, truth, BASIC_REFERENCE_COUNT_SHARE)
-        calls, launches, res = _entry_batch(
-            dev, _suite_config("cells"), "entry", tmp)
-        assert launches["K2"] == calls.tile["mh"] and launches["K1"] == 0
-        k2["cells"] = launches["K2"]
-        mean = (res["weights"] * res["pruned_counts"]).sum(-1)
-        print(f"[entry] cells: posterior mean pruned count "
-              f"{[round(float(x), 3) for x in mean]}")
-    return k2, basic
+    tiles = simulate_tiles(cfg)
+    np.savez_compressed(Path(out_dir) / "tiles.npz", **tiles)
+    return tiles
+
+
+def phase_entry_point(dev, work):
+    """``run_experiment`` on one batch each of basic and cells (K2), into
+    ``work``; returns the K2 launches of each, basic's results and the two
+    results directories (with their tiles, for ``[score]``)."""
+    cfg = _suite_config("basic")
+    calls, launches, basic = _entry_batch(dev, cfg, "entry", work)
+    k2 = {"basic": launches["K2"]}
+    assert k2["basic"] == calls.tile["mh"] and launches["K1"] == 0, launches
+    truth = _write_tiles(cfg, Path(work) / "basic")["true_counts"]
+    assert truth.tolist() == BASIC_TRUE_COUNTS, (
+        "the simulated basic tiles differ from the reference's",
+        truth.tolist())
+    _basic_share("entry", basic, truth, BASIC_REFERENCE_COUNT_SHARE)
+    cfg = _suite_config("cells")
+    calls, launches, res = _entry_batch(dev, cfg, "entry", work)
+    assert launches["K2"] == calls.tile["mh"] and launches["K1"] == 0
+    k2["cells"] = launches["K2"]
+    _write_tiles(cfg, Path(work) / "cells")
+    mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+    print(f"[entry] cells: posterior mean pruned count "
+          f"{[round(float(x), 3) for x in mean]}")
+    return k2, basic, {"basic": Path(work) / "basic",
+                       "cells": Path(work) / "cells"}
+
+
+def _pair_config(work):
+    """``experiments/cells/config_pair.yaml`` at one batch, reading the
+    ``[entry]`` cells batch's tiles (its ``data_path`` is the cells suite's
+    tiles) and writing under ``work``."""
+    from smcdet_tpu_torch.config import load_config
+
+    cfg = load_config("experiments/cells/config_pair.yaml")
+    cfg.data_path = str(Path(work) / "cells" / "tiles.npz")
+    cfg.output_dir = str(work)
+    return cfg
+
+
+def phase_pair(dev, work, cells_res):
+    """``run_experiment`` on one batch of ``cells_pair`` (10 16x16 tiles,
+    N = 4096, C = 13, 200 sweeps + 16 relocations + 8 pair sweeps per SMC
+    iteration) on the ``[entry]`` cells batch's tiles: every mutate call a
+    K2 launch and none of K1, the pair move's applied share in (0, 1), the
+    posterior mean pruned counts beside the cells batch's. Then one basic
+    batch with 16 relocation and 8 pair sweeps, whose peak memory holds the
+    chunk estimate at 8x8 with both moves. Returns the K2 launches of each
+    batch and the cells_pair results directory."""
+    from smcdet_tpu_torch.inference.kernels import pair_redistribute_sweeps
+    from smcdet_tpu_torch.runner import load_results
+
+    cfg = _pair_config(work)
+    pair_redistribute_sweeps.calls = 0
+    pair_redistribute_sweeps.applied = 0.0
+    calls, launches, res = _entry_batch(dev, cfg, "pair", work)
+    assert launches["K2"] == calls.tile["mh"] and launches["K1"] == 0, \
+        launches
+    assert all(launches[k] == 0 for k in ("K3", "K4 tile", "K4 bridge"))
+    iters = int(res["num_iters"][0])
+    n_calls = pair_redistribute_sweeps.calls
+    assert n_calls == iters, (n_calls, iters)
+    share = float(pair_redistribute_sweeps.applied) / n_calls
+    print(f"[pair] pair move: {n_calls} calls of "
+          f"{cfg.sampler.pair_sweeps} sweeps, applied share {share:.6f}; "
+          f"blended acceptance per tile "
+          f"{[round(float(x), 4) for x in res['acc_rate']]}")
+    assert 0.0 < share < 1.0, share
+    truth = np.load(cfg.data_path)["true_counts"][:cfg.num_images]
+    mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+    cells = load_results(cells_res)
+    cmean = (cells["weights"] * cells["pruned_counts"]).sum(-1)
+    print(f"[pair] truth           {truth.tolist()}")
+    print(f"[pair] cells_pair mean {[round(float(x), 3) for x in mean]}")
+    print(f"[pair] cells mean      {[round(float(x), 3) for x in cmean]}")
+    print(f"[pair] within +-1 of truth: cells_pair "
+          f"{int((np.abs(mean - truth) <= 1).sum())}/{len(truth)}, cells "
+          f"{int((np.abs(cmean - truth) <= 1).sum())}/{len(truth)}; SMC "
+          f"iterations {iters} vs {int(cells['num_iters'][0])}")
+    k2 = {"cells_pair": launches["K2"]}
+    cfg = _suite_config("basic")
+    cfg.name = "basic_moves"
+    cfg.sampler.relocate_sweeps, cfg.sampler.pair_sweeps = 16, 8
+    calls, launches, _ = _entry_batch(dev, cfg, "pair", work)
+    assert launches["K2"] == calls.tile["mh"] and launches["K1"] == 0, \
+        launches
+    k2["basic with moves"] = launches["K2"]
+    return k2, Path(work) / "cells_pair"
+
+
+def _match_diff(a, b):
+    """The (tile, catalog) cells where two ``MatchCounts`` differ."""
+    diff = torch.zeros(a[0].shape[:2], dtype=torch.bool)
+    for x, y in zip(a, b):
+        diff |= (x.cpu() != y.cpu()).any(-1)
+    return diff
+
+
+def _boundary_pairs(results_dir, tiles, idx, locs_tol, mags_tol, eps=1e-5):
+    """``[T, S]`` counts of the (true, estimated) pairs of the sampled
+    catalogs whose location distance lies within ``eps`` of ``locs_tol``,
+    and of those whose magnitude distance lies within ``eps`` of
+    ``mags_tol`` (the pairs whose matchability rounding can flip)."""
+    from smcdet_tpu_torch.runner import load_results
+    from smcdet_tpu_torch.utils.units import convert_nmgy_to_mag
+
+    res = load_results(results_dir)
+    truth = np.load(tiles)
+    n = res["counts"].shape[0]
+    tc = torch.as_tensor(truth["true_counts"][:n])
+    tl = torch.as_tensor(truth["true_locs"][:n]).double()
+    tf = torch.as_tensor(np.maximum(truth["true_fluxes"][:n], 1e-6))
+    ec, el, ef = (torch.as_tensor(res[k]) for k in (
+        "pruned_counts", "pruned_locs", "pruned_fluxes"))
+    i = torch.as_tensor(idx).long()
+    ec = ec.gather(1, i)
+    el = el.gather(1, i[..., None, None].expand(i.shape + el.shape[2:]))
+    ef = ef.gather(1, i[..., None].expand(i.shape + ef.shape[2:]))
+    ef = torch.as_tensor(np.maximum(ef.numpy(), 1e-6))
+    tv = torch.arange(tl.shape[1]) < tc[:, None]
+    ev = torch.arange(el.shape[2]) < ec[..., None]
+    both = tv[:, None, :, None] & ev[:, :, None, :]
+    dist = (tl[:, None, :, None] - el.double()[:, :, None]).norm(dim=-1)
+    mags = (convert_nmgy_to_mag(tf.double())[:, None, :, None]
+            - convert_nmgy_to_mag(ef.double())[:, :, None]).abs()
+    near_l = (both & ((dist - locs_tol).abs() <= eps)).sum((-1, -2))
+    near_m = (both & ((mags - mags_tol).abs() <= eps)).sum((-1, -2))
+    return near_l, near_m
+
+
+def phase_score(dev, dirs, tiles):
+    """The port's analyzer (``smcdet_tpu_torch.analyze``) on the ``[entry]``
+    basic and cells batches and the ``[pair]`` batch, matching once on the
+    card and once on the CPU with the same sampled catalogs: the
+    ``MatchCounts`` identical but where a pair's location or magnitude
+    distance lies within 1e-5 of its tolerance (each such pair counted and
+    printed); then count accuracy, confusion asymmetry, coverage at 0.95
+    and F1 by magnitude bin, and the matching's time on the card."""
+    from smcdet_tpu_torch.analyze import analyze, catalog_indices
+    from smcdet_tpu_torch.metrics import match_catalogs
+    from smcdet_tpu_torch.runner import load_results
+
+    kw = dict(num_match=50, locs_tol=0.5, mags_tol=0.5, bootstrap=1000)
+    for name, path in dirs.items():
+        drawn = {}
+
+        def draw(seed, weights, num):
+            drawn[seed] = catalog_indices(seed, weights, num)
+            return drawn[seed]
+
+        reports = {d: analyze(path, device=d, tiles=tiles[name],
+                              draw=draw, **kw) for d in ("cuda", "cpu")}
+        # the analyzer's first matching again, on either device with the
+        # catalogs it drew
+        res = load_results(path)
+        truth = np.load(tiles[name])
+        n = res["counts"].shape[0]
+        host = (truth["true_counts"][:n], truth["true_locs"][:n],
+                np.maximum(truth["true_fluxes"][:n], 1e-6),
+                res["pruned_counts"], res["pruned_locs"],
+                np.maximum(res["pruned_fluxes"], 1e-6))
+
+        def matching(device):
+            args = [torch.as_tensor(np.asarray(x), device=device)
+                    for x in host]
+            idx = drawn[0].to(device)
+            return lambda: match_catalogs(
+                *args, num_est_catalogs_to_match=kw["num_match"],
+                locs_tol=kw["locs_tol"], mags_tol=kw["mags_tol"],
+                mag_bins=[15.0, 18.0, 21.0, 24.0], indices=idx)
+
+        solve = matching(dev)
+        mc = {"cuda": solve(), "cpu": matching("cpu")()}
+        diff = _match_diff(mc["cuda"], mc["cpu"])
+        near_l, near_m = _boundary_pairs(path, tiles[name], drawn[0],
+                                         kw["locs_tol"], kw["mags_tol"])
+        n_diff = int(diff.sum())
+        print(f"[score] {name}: MatchCounts cuda vs cpu differ in {n_diff} "
+              f"of {diff.numel()} (tile, catalog) cells; pairs within 1e-5 "
+              f"of locs_tol {int(near_l.sum())}, of mags_tol "
+              f"{int(near_m.sum())}")
+        for t, s in diff.nonzero().tolist():
+            print(f"[score] {name}: tile {t} catalog {s}: boundary pairs "
+                  f"(locs) {int(near_l[t, s])}, (mags) {int(near_m[t, s])}")
+        assert bool(((near_l + near_m)[diff] > 0).all()), \
+            "MatchCounts differ away from the tolerance boundaries"
+        a, b = reports["cuda"], reports["cpu"]
+        for key in ("count_accuracy", "confusion_asymmetry",
+                    "total_flux_coverage"):
+            assert a[key] == b[key], (key, a[key], b[key])
+        f1 = a["detection"]["f1_by_bin"]
+        print(f"[score] {name}: {a['images']} images, count accuracy "
+              f"{a['count_accuracy']}, confusion asymmetry "
+              f"{a['confusion_asymmetry']}, coverage at 0.95 "
+              f"{a['total_flux_coverage']['0.95']}, SBC KS p "
+              f"{a['sbc_total_flux_ks_pvalue']}; F1 by bin {f1['point']} "
+              f"(ci95 {f1['ci95_lo']} .. {f1['ci95_hi']}); cpu F1 "
+              f"{b['detection']['f1_by_bin']['point']}")
+        # the solver on the card: the batch's 50 catalogs per tile
+        ms = _time_ms(solve, 3)
+        n_slots = max(host[1].shape[1], host[4].shape[2])
+        print(f"[score] {name}: matching {drawn[0].numel()} catalogs "
+              f"({n_slots}x{n_slots} assignments) on the card: {ms:.3f} ms")
 
 
 def _count_pmf(res, C):
@@ -1741,12 +1977,14 @@ def _launches():
 def _aggregation_batch(dev, cfg, label):
     """One batch of an aggregation-enabled suite through ``run_experiment``
     with the tile and bridge mutate calls counted against the kernels'
-    launches; returns (launches, results, per-image level diagnostics)."""
+    launches; returns (launches, results, per-image level diagnostics, the
+    peak memory above the allocation before the run)."""
     from smcdet_tpu_torch.runner import load_results, run_experiment
 
     with _Calls() as calls:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
         _reset_launches()
         start = time.perf_counter()
         out = run_experiment(cfg, device=dev, verbose=False)
@@ -1771,7 +2009,7 @@ def _aggregation_batch(dev, cfg, label):
     assert res["image_index"].tolist() == list(range(cfg.num_images))
     assert np.isfinite(res["log_normalizing_constant"].max(-1)).all()
     np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
-    return launches, res, calls.levels
+    return launches, res, calls.levels, peak - before
 
 
 def _count_share(label, res, truth):
@@ -1805,7 +2043,7 @@ def dnc_runs(dev, cfg, label, seeds):
         staged = Path(cfg.output_dir) / cfg.name / "tiles.npz"
         staged.parent.mkdir(parents=True)
         np.savez_compressed(staged, **tiles)
-        launches, res, levels = _aggregation_batch(
+        launches, res, levels, _ = _aggregation_batch(
             dev, cfg, f"{label} seed {run_seed}")
         converged = [all(it < cap and np.all(np.asarray(t) == 1.0)
                          for it, t, _ in lv) for lv in levels]
@@ -1879,6 +2117,8 @@ def phase_aggregation(dev):
     settings: tile stage K1, bridges K3) and on the first 8 tiles of the
     m71 real-data fixture (fitted params, per-tile backgrounds, the general
     SDSS wing: K2), each held to the JAX runner's shares."""
+    from smcdet_tpu_torch.config import build_prior
+
     with tempfile.TemporaryDirectory() as tmp:
         cfg = _suite_config("divideandconquer")
         cfg.output_dir = tmp
@@ -1890,7 +2130,7 @@ def phase_aggregation(dev):
         cfg.data_path = "experiments/m71/data/m71/tiles.npz"
         cfg.num_images = cfg.batch_size = 8
         cfg.output_dir = tmp
-        m71, res, levels = _aggregation_batch(dev, cfg, "m71")
+        m71, res, levels, _ = _aggregation_batch(dev, cfg, "m71")
         assert m71["K2"] > 0 and m71["K1"] == m71["K3"] == 0, m71
         assert all(lv == [] for lv in levels)  # one tile: no level
         truth = np.load(cfg.data_path)["true_counts"][:8]
@@ -1898,6 +2138,16 @@ def phase_aggregation(dev):
         print(f"[m71] count share {share} (JAX reference "
               f"{M71_REFERENCE_COUNT_SHARE})")
         assert share >= M71_REFERENCE_COUNT_SHARE - 1e-9
+        # the chunk estimate on one image, whose one tile is its chunk (a
+        # batch of images also keeps the earlier images' results)
+        cfg.num_images = cfg.batch_size = 1
+        cfg.output_dir = f"{tmp}/one"
+        *_, peak = _aggregation_batch(dev, cfg, "m71 one image")
+        _check_chunk_budget("m71", "m71 fixture, one image",
+                            build_prior(cfg.prior, "cpu"),
+                            cfg.sampler.num_catalogs,
+                            cfg.image_model.image_height
+                            * cfg.image_model.image_width, 1, peak)
     return dnc, m71
 
 
@@ -1971,6 +2221,87 @@ def phase_profile(dev):
     rest = kernel_ms - sum(ms for _, ms in ranges.values()) - sum(
         ms for _, ms in sweeps.values())
     print(f"[profile] outside the ranges: device {rest:.3f} ms")
+
+
+def phase_profile_pair(dev, work):
+    """``torch.profiler`` over one SMC iteration (``csmc_step``, after the
+    first temper step) of the ``[pair]`` batch at the config's width: the
+    kernels' device time in each ``smc.*`` range, K2's share of it, and the
+    time per sweep of the plain relocation and of the plain pair move."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smcdet_tpu_torch.config import (
+        build_image_model,
+        build_kernel,
+        build_prior,
+    )
+    from smcdet_tpu_torch.inference.smc import (
+        SMCConfig,
+        csmc_init,
+        csmc_step,
+    )
+
+    cfg = _pair_config(work)
+    s = cfg.sampler
+    prior = build_prior(cfg.prior, dev)
+    model = build_image_model(cfg.image_model, dev)
+    kernel = build_kernel(cfg.kernel, dev)
+    smc_cfg = SMCConfig(num_catalogs=s.num_catalogs,
+                        ess_threshold_prop=s.ess_threshold_prop,
+                        resample_method=s.resample_method,
+                        flux_detection_threshold=s.flux_detection_threshold,
+                        relocate_sweeps=s.relocate_sweeps,
+                        pair_sweeps=s.pair_sweeps)
+    images = torch.as_tensor(np.load(cfg.data_path)["images"][:10],
+                             device=dev)
+    state = csmc_init(torch.Generator(device=dev).manual_seed(0), images,
+                      prior, model, smc_cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        csmc_step(images, prior, model, kernel, smc_cfg, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    # Each kernel is charged to the range whose device-side span holds its
+    # start: on this iteration the host-side ranges' device totals add up
+    # to more than the kernels' time, and K2, launched through its own CUDA
+    # runtime, has no host range at all.
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.name.startswith("smc.")]
+    ranges, k2_ms, kernel_ms = {}, 0.0, 0.0
+    for e in events:
+        if e.name.startswith("smc."):
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        kernel_ms += ms
+        if kernel_id(e.name) == "K2":
+            k2_ms += ms
+        key = next((name for lo, hi, name in spans
+                    if lo <= e.time_range.start < hi), "outside")
+        ranges[key] = ranges.get(key, 0.0) + ms
+    T, C, N = images.shape[0], prior.num_counts, s.num_catalogs
+    print(f"[profile] one cells_pair SMC iteration ({T} tiles x {C} x "
+          f"N={N}, {cfg.kernel.num_iters} sweeps + {s.relocate_sweeps} "
+          f"relocations + {s.pair_sweeps} pair sweeps) under the profiler: "
+          f"wall {wall * 1e3:.1f} ms, kernels {kernel_ms:.1f} ms, device "
+          f"idle {1 - kernel_ms / (wall * 1e3):.3f}")
+    print(f"[profile] cells_pair K2 (in smc.mutate): {k2_ms:.3f} ms, "
+          f"{k2_ms / kernel_ms:.3f} of the kernels' time")
+    for key in ("smc.resample", "smc.rerender", "smc.mutate", "smc.relocate",
+                "smc.pair", "smc.temper", "outside"):
+        ms = ranges.get(key, 0.0)
+        print(f"[profile] cells_pair {key}: device {ms:.3f} ms "
+              f"({ms / kernel_ms:.3f})")
+    reloc = ranges.get("smc.relocate", 0.0) / s.relocate_sweeps
+    pair = ranges.get("smc.pair", 0.0) / s.pair_sweeps
+    print(f"[profile] cells_pair per sweep: plain relocation {reloc:.3f} ms, "
+          f"plain pair move {pair:.3f} ms, K2 "
+          f"{k2_ms / cfg.kernel.num_iters:.3f} ms")
+    assert ranges.get("smc.pair", 0.0) > 0, ranges
+    assert 0 < k2_ms <= ranges.get("smc.mutate", 0.0) + 1e-6, (ranges, k2_ms)
 
 
 def phase_chain(dev):
@@ -2098,7 +2429,11 @@ def main():
     del levels
     quick, _ = phase_main_path(dev)
     launches["K1"] = quick
-    k2_entry, mh_basic = phase_entry_point(dev)
+    work = tempfile.TemporaryDirectory()
+    k2_entry, mh_basic, scored = phase_entry_point(dev, work.name)
+    k2_pair, scored["cells_pair"] = phase_pair(dev, work.name,
+                                               scored["cells"])
+    k2_entry.update(k2_pair)
     launches["K4"] = mala_basic = phase_mala_entry(dev, mh_basic)
     dnc, m71 = phase_aggregation(dev)
     launches["K1"] += dnc["K1"] + m71["K1"]
@@ -2107,7 +2442,13 @@ def main():
     mala_dnc = phase_mala_dnc(dev)
     launches["K4"] += mala_dnc["K4 tile"] + mala_dnc["K4 bridge"]
     phase_profile(dev)
-    print(f"[done] phases 2-14 in {time.perf_counter() - start:.1f} s on "
+    phase_profile_pair(dev, work.name)
+    # the cells_pair batch ran on the cells batch's tiles
+    tiles = {name: scored[name] / "tiles.npz" for name in ("basic", "cells")}
+    tiles["cells_pair"] = tiles["cells"]
+    phase_score(dev, scored, tiles)
+    work.cleanup()
+    print(f"[done] phases 2-16 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
@@ -2124,6 +2465,9 @@ def main():
         ("K1", "divideandconquer tiles", dnc["K1"], shapes["dnc tile K1"]),
         ("K2", "basic", k2_entry["basic"], records["K2 basic"]),
         ("K2", "cells", k2_entry["cells"], shapes["cells batch K2"]),
+        ("K2", "cells_pair", k2_entry["cells_pair"], shapes["cells batch K2"]),
+        ("K2", "basic with moves", k2_entry["basic with moves"],
+         records["K2 basic"]),
         ("K2", "m71 fixture", m71["K2"], shapes["m71 tile K2"]),
         *[("K3", f"divideandconquer bridge level {i}", n, k3_levels[i])
           for i, n in enumerate(dnc["bridge levels"])],

@@ -16,6 +16,10 @@ __all__ = [
     "UNIFORM_EPS",
     "DiscreteUniform",
     "TruncatedPareto",
+    "beta_log_prob",
+    "beta_sample",
+    "gamma_log_sample",
+    "gumbel_sample",
     "ndtr",
     "truncated_normal_sample",
     "truncated_normal_log_mass",
@@ -85,6 +89,64 @@ def truncated_normal_log_prob(value, mu, sigma, lb, ub):
     z = (value - mu) / sigma
     normal = -0.5 * z * z - torch.log(torch.as_tensor(sigma)) - _HALF_LOG_2PI
     return normal - truncated_normal_log_mass(mu, sigma, lb, ub)
+
+
+def gumbel_sample(shape, generator, device):
+    """Standard Gumbel draws ``-log(-log(U))`` from ``generator``, with U
+    clamped away from 0 and 1 so that both logs are finite."""
+    u = torch.rand(tuple(shape), generator=generator, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    u = u.clamp(tiny, 1.0 - torch.finfo(torch.float32).eps / 2)
+    return -torch.log(-torch.log(u))
+
+
+def gamma_log_sample(a: float, shape, generator, device):
+    """Logs of Gamma(a, 1) draws from ``generator`` by Marsaglia and Tsang's
+    rejection (for ``a < 1`` a Gamma(a + 1) draw times ``U^(1/a)``, added
+    in logs so that small shapes do not underflow). Rejected entries draw
+    again, a round at a time, until every entry is accepted."""
+    a = float(a)
+    if a <= 0:
+        raise ValueError(f"gamma shape must be positive, got {a}")
+    shape = tuple(shape)
+    d = (a + 1.0 if a < 1.0 else a) - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    out = torch.zeros(shape, device=device)
+    done = torch.zeros(shape, dtype=torch.bool, device=device)
+    while not bool(done.all()):
+        x = torch.randn(shape, generator=generator, device=device)
+        u = torch.rand(shape, generator=generator, device=device)
+        v = (1.0 + c * x) ** 3
+        # log of a non-positive v is nan or -inf: the comparison rejects
+        log_v = torch.log(v)
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v + d * log_v)
+        take = ok & ~done
+        out = torch.where(take, math.log(d) + log_v, out)
+        done = done | take
+    if a < 1.0:
+        u = torch.rand(shape, generator=generator, device=device)
+        out = out + torch.log(u) / a
+    return out
+
+
+def beta_sample(a: float, shape, generator, device):
+    """Symmetric Beta(a, a) draws from ``generator``: a uniform for
+    ``a == 1`` (the only value the shipped configs use), else ``X / (X +
+    Y)`` for two Gamma(a) draws, as the logistic of their log ratio."""
+    if float(a) == 1.0:
+        return torch.rand(tuple(shape), generator=generator, device=device)
+    log_x = gamma_log_sample(a, shape, generator, device)
+    log_y = gamma_log_sample(a, shape, generator, device)
+    return torch.sigmoid(log_x - log_y)
+
+
+def beta_log_prob(u, a: float):
+    """Log-density of Beta(a, a) at ``u`` in (0, 1); 0 for ``a == 1``."""
+    a = float(a)
+    if a == 1.0:
+        return torch.zeros_like(u)
+    log_norm = 2.0 * math.lgamma(a) - math.lgamma(2.0 * a)
+    return (a - 1.0) * (torch.log(u) + torch.log1p(-u)) - log_norm
 
 
 class DiscreteUniform:

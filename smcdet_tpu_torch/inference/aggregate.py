@@ -13,10 +13,10 @@ reductions over a dense ``[Th, Tw, C, N]`` membership mask.
 The bridge loop runs on the host, one ``(temperature < 1).any()`` read per
 iteration, like ``run_csmc``; its mutation is the tile stage's kernel,
 ``SingleComponentMH`` (on a CUDA tensor kernel K3) or ``SingleComponentMALA``
-(kernel K4), then plain-PyTorch relocation sweeps,
+(kernel K4), then plain-PyTorch relocation and pair-redistribute sweeps,
 as the JAX package runs them outside its Pallas kernel. Each stage runs in
 a profiler range: ``agg.merge``, ``agg.resample``, ``agg.rerender``,
-``agg.mutate``, ``agg.relocate``, ``agg.temper``.
+``agg.mutate``, ``agg.relocate``, ``agg.pair``, ``agg.temper``.
 
 Not ported: the multi-device level sharding (``Aggregate.run(devices=)``
 raises).
@@ -34,6 +34,7 @@ from torch.profiler import record_function
 from smcdet_tpu_torch.inference.kernels import (
     TargetContext,
     init_kernel_state,
+    pair_redistribute_sweeps,
     relocate_sweeps,
 )
 from smcdet_tpu_torch.models.priors import (
@@ -71,14 +72,8 @@ class AggregateConfig:
     max_objects_cap: Optional[int] = None
     # prior-draw relocation sweeps appended to each bridge mutation
     relocate_sweeps: int = 8
-    # pair-redistribute sweeps are not ported yet
+    # pair-redistribute sweeps appended after the relocations
     pair_sweeps: int = 0
-
-    def __post_init__(self):
-        if self.pair_sweeps:
-            raise NotImplementedError(
-                "pair_sweeps is not ported yet (ROADMAP item 7: "
-                "pair_redistribute_sweeps)")
 
 
 class AggregateState(NamedTuple):
@@ -374,13 +369,20 @@ def _run_level(generator, state: AggregateState, prior, model, kernel,
         with record_function("agg.mutate"):
             kstate, acc = kernel.run_from_state(generator, ctx, counts,
                                                 kstate)
+        n_prev = kernel.num_iters
         if cfg.relocate_sweeps:
             with record_function("agg.relocate"):
                 kstate, acc_rel = relocate_sweeps(
                     generator, ctx, counts, kstate, cfg.relocate_sweeps)
-                n_mh = kernel.num_iters
-                acc = (acc * n_mh + acc_rel * cfg.relocate_sweeps) / (
-                    n_mh + cfg.relocate_sweeps)
+                acc = (acc * n_prev + acc_rel * cfg.relocate_sweeps) / (
+                    n_prev + cfg.relocate_sweeps)
+                n_prev += cfg.relocate_sweeps
+        if cfg.pair_sweeps:
+            with record_function("agg.pair"):
+                kstate, acc_pair = pair_redistribute_sweeps(
+                    generator, ctx, counts, kstate, cfg.pair_sweeps)
+                acc = (acc * n_prev + acc_pair * cfg.pair_sweeps) / (
+                    n_prev + cfg.pair_sweeps)
         locs = torch.where(keep[..., None, None], locs, kstate.locs)
         fluxes = torch.where(keep[..., None], fluxes, kstate.fluxes)
         ld = torch.where(keep, ld, kstate.parent_ll - kstate.child_ll)
@@ -495,7 +497,7 @@ class Aggregate:
         if devices is not None:
             raise NotImplementedError(
                 "sharding the aggregation over devices is not ported "
-                "(ROADMAP item 11)")
+                "(ROADMAP queue 1 item 5)")
         state = self.state
         if generator is None:
             generator = torch.Generator(device=state.data.device)

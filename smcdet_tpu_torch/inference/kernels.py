@@ -16,6 +16,9 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from smcdet_tpu_torch.distributions import (
+    beta_log_prob,
+    beta_sample,
+    gumbel_sample,
     truncated_normal_log_prob,
     truncated_normal_sample,
 )
@@ -28,6 +31,10 @@ __all__ = [
     "SingleComponentMALA",
     "SingleComponentMH",
     "init_kernel_state",
+    "PairProposal",
+    "pair_propose",
+    "pair_redistribute_sweep",
+    "pair_redistribute_sweeps",
     "relocate_sweep",
     "relocate_sweeps",
 ]
@@ -564,3 +571,278 @@ def relocate_sweeps(generator, ctx: TargetContext, counts,
                                         f_prop, u_acc)
         applied_sum = applied_sum + applied.to(torch.float32)
     return state, (applied_sum / num_sweeps).mean(-1)
+
+
+def _flux_support(prior):
+    """(lower, upper) bounds of the flux mark's support (+-inf when there
+    is no flux mark); they gate the moves that build fluxes arithmetically
+    instead of drawing them from the prior."""
+    if prior.flux is None:
+        inf = torch.tensor(float("inf"), device=prior.device)
+        return -inf, inf
+    return prior.flux.support_lower, prior.flux.support_upper
+
+
+def _take_slot(values, onehot):
+    """Slot ``onehot [..., N, M]`` of ``values [..., N, M, *ev]`` as a
+    masked sum (0 where ``onehot`` selects no slot)."""
+    ev = values.ndim - onehot.ndim
+    oh = onehot.reshape(onehot.shape + (1,) * ev)
+    return (values * oh).sum(onehot.ndim - 1)
+
+
+def _apply_slot_update(values, onehot, new_slot, apply):
+    """``new_slot [..., N, *ev]`` written into the one-hot slot where
+    ``apply [..., N]``."""
+    ev = values.ndim - onehot.ndim
+    sel = (onehot & apply[..., None]).reshape(onehot.shape + (1,) * ev)
+    return torch.where(sel, new_slot.unsqueeze(onehot.ndim - 1), values)
+
+
+class PairProposal(NamedTuple):
+    """A pair-redistribute proposal per particle: the two slots, their new
+    locations and fluxes, whether the split is valid, its log acceptance
+    ratio and the proposed caches."""
+
+    onehot_i: torch.Tensor  # [..., N, M]
+    onehot_j: torch.Tensor  # [..., N, M]
+    loc_i: torch.Tensor  # [..., N, 2]
+    loc_j: torch.Tensor  # [..., N, 2]
+    f_i: torch.Tensor  # [..., N]
+    f_j: torch.Tensor  # [..., N]
+    valid: torch.Tensor  # [..., N]
+    log_alpha: torch.Tensor  # [..., N]
+    rate: torch.Tensor  # [..., N, H*W]
+    parent_ll: torch.Tensor  # [..., N]
+    logprior: torch.Tensor  # [..., N]
+    child_rate: Optional[torch.Tensor]
+    child_ll: Optional[torch.Tensor]
+
+
+def pair_propose(ctx: TargetContext, counts, state: KernelState, u_i, g, u,
+                 d, *, select_scale=2.0, displace_scale=1.0,
+                 flux_conc=1.0) -> PairProposal:
+    """The proposal of one coordinated two-star sweep given its draws (port
+    of the sweep body of
+    ``smcdet_tpu/inference/kernels.py:pair_redistribute_sweeps``).
+
+    Each particle with at least two stars picks slot ``i`` uniformly over
+    its occupied prefix (``u_i [..., N]``) and slot ``j`` among the other
+    occupied slots by the proximity softmax ``-|l_i - l_k|^2 / (2
+    select_scale^2)``, Gumbel-max with the noise ``g [..., N, M]``. The pair
+    is merged, keeping the total flux ``f`` and the flux-weighted centroid
+    ``c``, and split again with the fraction ``u [..., N]`` (a Beta(a, a)
+    draw, ``a = flux_conc``) and the displacement ``d [..., N, 2]`` (an
+    N(0, displace_scale^2 I) draw): ``f_i' = u f``, ``f_j' = (1 - u) f``,
+    ``l_i' = c + (1 - u) d``, ``l_j' = c - u d``. The map swaps ``(u, d)``
+    with the reverse move's auxiliaries ``u* = f_i / f``, ``d* = l_i -
+    l_j`` (Jacobian 1), so the acceptance ratio is the tempered target ratio
+    times the pair-selection ratio (the reverse one at the proposed
+    locations, where ``|l_i' - l_j'| = |d|``) times ``q(u*) q(d*) / q(u)
+    q(d)``. A split that leaves the box or the flux support, or a current
+    pair with ``u*`` outside (0, 1), is rejected outright. Counts never
+    change.
+    """
+    prior, model = ctx.prior, ctx.model
+    eff = model.adu_per_nmgy
+    M = state.fluxes.shape[-1]
+    dev = counts.device
+    flux_lo, flux_hi = _flux_support(prior)
+    inv2s2 = 1.0 / (2.0 * float(select_scale) ** 2)
+    neg = torch.finfo(torch.float32).min
+    slots = torch.arange(M, device=dev)
+    occupied = slots < counts[..., None]
+    locs, fluxes = state.locs, state.fluxes
+
+    def pair_logits(all_locs, loc_a, exclude):
+        """Selection logits from star ``a`` to every other occupied slot."""
+        d2 = ((all_locs - loc_a[..., None, :]) ** 2).sum(-1)
+        return torch.where(occupied & ~exclude, -d2 * inv2s2, neg)
+
+    active = counts >= 2
+    # slot i: uniform over the occupied prefix (-1, no slot, at count 0)
+    i = torch.minimum(torch.floor(u_i * counts).to(torch.int64).clamp(min=0),
+                      counts.to(torch.int64) - 1)
+    onehot_i = slots == i[..., None]
+    loc_i = _take_slot(locs, onehot_i)
+    f_i = _take_slot(fluxes, onehot_i)
+
+    # slot j: proximity softmax by Gumbel-max
+    logits_i = pair_logits(locs, loc_i, onehot_i)
+    j = torch.argmax(logits_i + g, dim=-1)
+    onehot_j = slots == j[..., None]
+    loc_j = _take_slot(locs, onehot_j)
+    f_j = _take_slot(fluxes, onehot_j)
+
+    # forward selection log[p(i, j) + p(j, i)] (the 1/n factor cancels):
+    # w_ij = w_ji, so log w_ij + log(1/Z_i + 1/Z_j)
+    logits_j = pair_logits(locs, loc_j, onehot_j)
+    log_z_i = torch.logsumexp(logits_i, dim=-1)
+    log_z_j = torch.logsumexp(logits_j, dim=-1)
+    log_w = -((loc_i - loc_j) ** 2).sum(-1) * inv2s2
+    log_sel_fwd = log_w + torch.logaddexp(-log_z_i, -log_z_j)
+
+    # merge invariants and the fresh split
+    f_tot = f_i + f_j
+    safe_tot = torch.clamp(f_tot, min=torch.finfo(torch.float32).tiny)
+    cent = (f_i[..., None] * loc_i + f_j[..., None] * loc_j) / (
+        safe_tot[..., None])
+    f_i_new = u * f_tot
+    f_j_new = (1.0 - u) * f_tot
+    loc_i_new = cent + (1.0 - u)[..., None] * d
+    loc_j_new = cent - u[..., None] * d
+
+    # reverse auxiliaries that recover the current pair
+    u_star = f_i / safe_tot
+    d_star = loc_i - loc_j
+
+    def in_box(loc):
+        return ((loc >= prior.loc_low) & (loc <= prior.loc_high)).all(-1)
+
+    valid = (active & (f_tot > 0) & in_box(loc_i_new) & in_box(loc_j_new)
+             & (f_i_new >= flux_lo) & (f_i_new <= flux_hi)
+             & (f_j_new >= flux_lo) & (f_j_new <= flux_hi)
+             & (u_star > 0.0) & (u_star < 1.0))
+
+    # reverse selection at the proposed locations
+    always = torch.ones_like(active)
+    locs_prop = _apply_slot_update(locs, onehot_i, loc_i_new, always)
+    locs_prop = _apply_slot_update(locs_prop, onehot_j, loc_j_new, always)
+    log_z_i_rev = torch.logsumexp(
+        pair_logits(locs_prop, loc_i_new, onehot_i), dim=-1)
+    log_z_j_rev = torch.logsumexp(
+        pair_logits(locs_prop, loc_j_new, onehot_j), dim=-1)
+    log_w_rev = -(d**2).sum(-1) * inv2s2  # |l_i' - l_j'| = |d|
+    log_sel_rev = log_w_rev + torch.logaddexp(-log_z_i_rev, -log_z_j_rev)
+
+    # auxiliary-density ratio (the Jacobian is 1)
+    eps = 1e-6
+    u_star_safe = torch.where(valid, u_star.clamp(eps, 1 - eps), 0.5)
+    u_safe = u.clamp(eps, 1 - eps)
+    log_q_aux = (beta_log_prob(u_star_safe, flux_conc)
+                 - beta_log_prob(u_safe, flux_conc)
+                 + ((d**2).sum(-1) - (d_star**2).sum(-1))
+                 / (2.0 * float(displace_scale) ** 2))
+
+    # flux-prior change (the uniform location terms are constant inside
+    # the box; a split outside it is invalid)
+    if prior.flux is not None:
+        ref = prior.flux.reference_point
+        lp = prior.flux.log_prob
+        sf_i, sf_j, sf_i_new, sf_j_new = (
+            torch.where(valid, x, ref) for x in (f_i, f_j, f_i_new, f_j_new))
+        lp_delta = torch.where(
+            valid, lp(sf_i_new) + lp(sf_j_new) - lp(sf_i) - lp(sf_j), 0.0)
+    else:
+        lp_delta = torch.zeros_like(f_i)
+
+    # incremental rates: four single-star renders, accumulated one at a
+    # time in the reference's order ((+i' + j') - i) - j, so that at most
+    # one render is held at once
+    side_i = side_j = None
+    if ctx.child_slot_side is not None:
+        tags = torch.broadcast_to(ctx.child_slot_side, onehot_i.shape)
+        side_i = _take_slot(tags, onehot_i)
+        side_j = _take_slot(tags, onehot_j)
+    def accumulate(acc, sign, term):
+        if acc is None:
+            return term
+        return acc.add_(term) if sign > 0 else acc.sub_(term)
+
+    dparent = dchild = None
+    for sign, f, loc, side in ((1, f_i_new, loc_i_new, side_i),
+                               (1, f_j_new, loc_j_new, side_j),
+                               (-1, f_i, loc_i, side_i),
+                               (-1, f_j, loc_j, side_j)):
+        img, child_img = ctx.star_images(loc, side)
+        dparent = accumulate(dparent, sign, f[..., None] * img)
+        if state.child_rate is not None:
+            dchild = accumulate(dchild, sign, f[..., None] * child_img)
+        del img, child_img
+    v = valid[..., None]
+    rate_prop = state.rate + torch.where(v, dparent.mul_(eff), 0.0)
+    del dparent
+    child_rate_prop = None
+    if state.child_rate is not None:
+        child_rate_prop = state.child_rate + torch.where(
+            v, dchild.mul_(eff), 0.0)
+        del dchild
+
+    pll_prop, cll_prop = ctx.loglik_terms(rate_prop, child_rate_prop)
+    lp_prop = state.logprior + lp_delta
+    log_alpha = (ctx.combine(lp_prop, pll_prop, cll_prop)
+                 - ctx.combine(state.logprior, state.parent_ll,
+                               state.child_ll)
+                 + log_sel_rev - log_sel_fwd + log_q_aux)
+    return PairProposal(onehot_i, onehot_j, loc_i_new, loc_j_new, f_i_new,
+                        f_j_new, valid, log_alpha, rate_prop, pll_prop,
+                        lp_prop, child_rate_prop, cll_prop)
+
+
+def pair_redistribute_sweep(ctx: TargetContext, counts, state: KernelState,
+                            u_i, g, u, d, u_acc, **scales):
+    """One pair-redistribute sweep given its draws (``pair_propose``'s and
+    ``u_acc [..., N]``), accepted where ``u_acc <= alpha``. ``scales``:
+    ``select_scale``, ``displace_scale``, ``flux_conc``. Returns ``(state,
+    applied)``."""
+    q = pair_propose(ctx, counts, state, u_i, g, u, d, **scales)
+    applied = q.valid & (u_acc <= torch.exp(torch.clamp(q.log_alpha,
+                                                        max=0.0)))
+    ap = applied[..., None]
+    locs = _apply_slot_update(state.locs, q.onehot_i, q.loc_i, applied)
+    locs = _apply_slot_update(locs, q.onehot_j, q.loc_j, applied)
+    fluxes = _apply_slot_update(state.fluxes, q.onehot_i, q.f_i, applied)
+    fluxes = _apply_slot_update(fluxes, q.onehot_j, q.f_j, applied)
+    return KernelState(
+        locs=locs,
+        fluxes=fluxes,
+        rate=torch.where(ap, q.rate, state.rate),
+        parent_ll=torch.where(applied, q.parent_ll, state.parent_ll),
+        logprior=torch.where(applied, q.logprior, state.logprior),
+        child_rate=None if q.child_rate is None
+        else torch.where(ap, q.child_rate, state.child_rate),
+        child_ll=None if q.child_ll is None
+        else torch.where(applied, q.child_ll, state.child_ll),
+    ), applied
+
+
+def pair_redistribute_sweeps(generator, ctx: TargetContext, counts,
+                             state: KernelState, num_sweeps: int, *,
+                             select_scale=2.0, displace_scale=1.0,
+                             flux_conc=1.0):
+    """``num_sweeps`` pair-redistribute sweeps (port of
+    ``smcdet_tpu/inference/kernels.py:pair_redistribute_sweeps``), plain
+    PyTorch as in the JAX package, which runs them outside its Pallas
+    kernel. Each sweep draws ``u_i``, the Gumbel noise, the Beta fraction,
+    the displacement and ``u_acc`` from ``generator`` in that order (see
+    ``pair_redistribute_sweep``). Returns the state and the applied
+    fraction averaged over sweeps and particles (``[...]`` = ``counts``'
+    shape without N). Every call adds one to ``pair_redistribute_sweeps
+    .calls`` and that fraction's mean over ``[...]`` to ``.applied`` (a
+    tensor on the state's device; no value is read back)."""
+    shape = counts.shape
+    dev = counts.device
+    M = state.fluxes.shape[-1]
+    applied_sum = torch.zeros(shape, dtype=torch.float32, device=dev)
+    for _ in range(num_sweeps):
+        u_i = torch.rand(shape, generator=generator, device=dev)
+        g = gumbel_sample(shape + (M,), generator, dev)
+        u = beta_sample(flux_conc, shape, generator, dev)
+        d = float(displace_scale) * torch.randn(shape + (2,),
+                                                generator=generator,
+                                                device=dev)
+        u_acc = torch.rand(shape, generator=generator, device=dev)
+        state, applied = pair_redistribute_sweep(
+            ctx, counts, state, u_i, g, u, d, u_acc,
+            select_scale=select_scale, displace_scale=displace_scale,
+            flux_conc=flux_conc)
+        applied_sum = applied_sum + applied.to(torch.float32)
+    share = (applied_sum / num_sweeps).mean(-1)
+    pair_redistribute_sweeps.calls += 1
+    pair_redistribute_sweeps.applied = (pair_redistribute_sweeps.applied
+                                        + share.mean())
+    return state, share
+
+
+pair_redistribute_sweeps.calls = 0
+pair_redistribute_sweeps.applied = 0.0

@@ -29,6 +29,7 @@ from smcdet_tpu_torch.inference.kernels import (
     KernelState,
     TargetContext,
     init_kernel_state,
+    pair_redistribute_sweeps,
     relocate_sweeps,
 )
 from smcdet_tpu_torch.ops.catalogs import prune_catalog, slot_mask
@@ -44,6 +45,7 @@ __all__ = [
     "csmc_finalize",
     "run_csmc",
     "run_csmc_chunked",
+    "chunk_bytes_per_tile",
     "default_budget_bytes",
     "max_tiles_per_chunk",
     "tile_image",
@@ -66,15 +68,10 @@ class SMCConfig:
     # (kernels.relocate_sweeps): a star jumps between source modes that the
     # random walk cannot connect
     relocate_sweeps: int = 0
-    # pair-redistribute sweeps are not ported yet
+    # coordinated two-star sweeps appended after the relocations
+    # (kernels.pair_redistribute_sweeps): flux and separation move between
+    # a nearby pair, the split mode single-star moves cannot leave
     pair_sweeps: int = 0
-
-    def __post_init__(self):
-        if self.pair_sweeps:
-            raise NotImplementedError(
-                "pair_sweeps is not ported yet (ROADMAP item 7: "
-                "pair_redistribute_sweeps)"
-            )
 
 
 class SMCState(NamedTuple):
@@ -189,8 +186,8 @@ def csmc_init(generator, images, prior, model, cfg: SMCConfig) -> SMCState:
 
 def csmc_step(images, prior, model, kernel, cfg: SMCConfig,
               state: SMCState) -> SMCState:
-    """One resample -> re-render -> mutate (+ relocate) -> temper/reweight
-    iteration."""
+    """One resample -> re-render -> mutate (+ relocate, + pair) ->
+    temper/reweight iteration."""
     T, C, N = state.loglik.shape
     counts = _counts(prior, T, N)
     done = state.temperature >= 1.0
@@ -211,14 +208,21 @@ def csmc_step(images, prior, model, kernel, cfg: SMCConfig,
     with record_function("smc.mutate"):
         kstate, acc_rate = kernel.run_from_state(state.generator, ctx,
                                                  counts, kstate)
+    # the acceptance rate over all sweeps of the mutation
+    n_prev = kernel.num_iters
     if cfg.relocate_sweeps:
         with record_function("smc.relocate"):
             kstate, acc_rel = relocate_sweeps(state.generator, ctx, counts,
                                               kstate, cfg.relocate_sweeps)
-            # the acceptance rate over all sweeps of the mutation
-            n_mh = kernel.num_iters
-            acc_rate = (acc_rate * n_mh + acc_rel * cfg.relocate_sweeps) / (
-                n_mh + cfg.relocate_sweeps)
+            acc_rate = (acc_rate * n_prev + acc_rel * cfg.relocate_sweeps) / (
+                n_prev + cfg.relocate_sweeps)
+            n_prev += cfg.relocate_sweeps
+    if cfg.pair_sweeps:
+        with record_function("smc.pair"):
+            kstate, acc_pair = pair_redistribute_sweeps(
+                state.generator, ctx, counts, kstate, cfg.pair_sweeps)
+            acc_rate = (acc_rate * n_prev + acc_pair * cfg.pair_sweeps) / (
+                n_prev + cfg.pair_sweeps)
     state = state._replace(
         locs=torch.where(keep[..., None, None], state.locs, kstate.locs),
         fluxes=torch.where(keep[..., None], state.fluxes, kstate.fluxes),
@@ -290,21 +294,37 @@ def run_csmc(generator, images, prior, model, kernel,
 
 def default_budget_bytes(device) -> int:
     """Memory budget for one chunk's particle state: a quarter of the
-    card's memory on CUDA (the 5-copy model below undercounts the eager
-    render's temporaries), an eighth of physical memory on the CPU."""
+    card's memory on CUDA, an eighth of physical memory on the CPU."""
     device = torch.device(device)
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).total_memory // 4
     return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 8
 
 
+# float copies of the [T, C, N, H*W] rate cache that one SMC step holds at
+# its peak, whatever its moves: the cache, the proposed cache, the rate
+# change and a single-star render with its temporaries, then the
+# likelihood's temporaries. The JAX package counts 5; the port's eager step
+# holds more: 6.8 to 11.4 copies in the peaks measured on an H100
+# (chip_smoke.py [main], [entry], [pair], [m71]: 8x8 and 16x16, with and
+# without relocation and pair sweeps; the most at 8x8 with both moves),
+# so 13 leaves over a tenth of headroom.
+RATE_COPIES = 13
+
+
+def chunk_bytes_per_tile(prior, num_catalogs: int, tile_hw: int) -> int:
+    """Device bytes one tile takes in a chunk: ``RATE_COPIES`` rate-cache
+    copies plus the catalogs."""
+    C = prior.num_counts
+    return C * num_catalogs * (RATE_COPIES * tile_hw
+                               + 8 * prior.max_objects + 32) * 4
+
+
 def max_tiles_per_chunk(prior, num_catalogs: int, tile_hw: int,
                         budget_bytes: int) -> int:
-    """Largest tile batch within ``budget_bytes``, counting ~5 float copies
-    of the ``[T, C, N, H*W]`` rate caches plus the catalogs."""
-    C = prior.num_counts
-    per_tile = C * num_catalogs * (5 * tile_hw + 8 * prior.max_objects
-                                   + 32) * 4
+    """Largest tile batch within ``budget_bytes`` (``chunk_bytes_per_tile``:
+    the JAX package's formula with the port's count of rate copies)."""
+    per_tile = chunk_bytes_per_tile(prior, num_catalogs, tile_hw)
     return max(1, budget_bytes // max(per_tile, 1))
 
 

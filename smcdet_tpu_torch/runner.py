@@ -96,14 +96,16 @@ def _load_tiles(cfg: ExperimentConfig):
 def _check_supported(cfg: ExperimentConfig, method: str):
     if method == "mcmc":
         raise NotImplementedError(
-            "method 'mcmc' is not ported yet (ROADMAP item 10: baselines)")
+            "method 'mcmc' is not ported yet (ROADMAP queue 1 item 4: "
+            "baselines)")
     if method != "smc":
         raise ValueError(f"unknown method {method!r}")
     if cfg.aggregation.enabled:
         return
     if cfg.sampler.streaming:
         raise NotImplementedError(
-            "the streaming tile pool is not ported yet (ROADMAP item 11)")
+            "the streaming tile pool is not ported yet (ROADMAP queue 1 "
+            "item 5)")
     if cfg.use_tile_backgrounds:
         raise ValueError(
             "per-tile backgrounds require the per-image pipeline "

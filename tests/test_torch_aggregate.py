@@ -543,8 +543,56 @@ def test_aggregate_cap_exit_warns():
     agg = tagg.Aggregate.from_smc(ps, max_smc_iters=1, relocate_sweeps=0)
     with pytest.warns(UserWarning, match="max_smc_iters"):
         agg.run(gen)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         agg.run(gen, devices=["cuda:0"])
+
+
+def test_bridge_runs_pair_sweeps_and_blends_acceptance(monkeypatch):
+    """``agg.pair`` runs after ``agg.relocate`` in every bridge iteration,
+    and a level's acceptance is JAX's blend (aggregate.py:479-489): the
+    mutation's, the relocations' and the pair move's, weighted by their
+    sweep counts."""
+    from smcdet_tpu_torch.inference.smc import SMCSampler
+
+    prior, model, kernel = _jax_setup(num_iters=3)
+    ps = SMCSampler(image=t(_image()), Prior=port_prior(prior),
+                    ImageModel=port_model(model),
+                    MutationKernel=port_kernel(kernel),
+                    **dict(_SAMPLER, num_catalogs=32, max_smc_iters=10))
+    gen = torch.Generator().manual_seed(5)
+    ps.run(gen)
+    agg = tagg.Aggregate.from_smc(ps, max_smc_iters=2, relocate_sweeps=2,
+                                  pair_sweeps=4)
+    with torch.profiler.profile() as prof, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the 2-iteration cap
+        agg.run(gen)
+    names = [e.name for e in prof.events() if e.name.startswith("agg.")]
+    assert names.index("agg.relocate") < names.index("agg.pair")
+    assert names.count("agg.pair") == names.count("agg.mutate")
+
+    def fixed(value, run):
+        def wrapped(*args, **kwargs):
+            st, acc = run(*args, **kwargs)
+            return st, torch.full_like(acc, value)
+        return wrapped
+
+    pk = agg.kernel
+    monkeypatch.setattr(pk, "run_from_state", fixed(0.2, pk.run_from_state))
+    monkeypatch.setattr(tagg, "relocate_sweeps",
+                        fixed(0.5, tagg.relocate_sweeps))
+    monkeypatch.setattr(tagg, "pair_redistribute_sweeps",
+                        fixed(0.9, tagg.pair_redistribute_sweeps))
+    agg = tagg.Aggregate.from_smc(ps, max_smc_iters=1, relocate_sweeps=2,
+                                  pair_sweeps=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        agg.run(gen)
+    want = (0.2 * 3 + 0.5 * 2 + 0.9 * 4) / (3 + 2 + 4)
+    acc = torch.cat([d["acc_rate"].flatten() for d in agg.diagnostics])
+    blended = (acc - want).abs() <= 1e-6 * want
+    # a merged tile already at temperature 1 before the first iteration
+    # keeps the acceptance 0
+    assert torch.all(blended | (acc == 0)) and bool(blended.any()), acc
 
 
 @pytest.mark.parametrize("grid,method,match", [
@@ -566,8 +614,9 @@ def test_aggregate_rejects_bad_inputs(grid, method, match):
             weights=torch.full((th, tw, 8), 1 / 8),
             log_normalizing_constant=torch.zeros((th, tw, 4)),
             resample_method=method)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tagg.AggregateConfig(pair_sweeps=4)
+    # pair sweeps are ported: the config takes them
+    # (test_bridge_runs_pair_sweeps_and_blends_acceptance)
+    assert tagg.AggregateConfig(pair_sweeps=4).pair_sweeps == 4
 
 
 def test_from_smc_left_pads_log_z_below_min_objects():

@@ -685,3 +685,103 @@ def test_k5_rate_is_linear_in_the_chain_length(dev):
     m = roofline.measure("fma", target_s=0.05, device=dev)
     assert 1.8 <= m["linearity"] <= 2.2, m
     assert m["steps_per_s"] > 0 and m["sm_clock_mhz"] > 0
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch on the card: the pair move and the assignment solver
+# ----------------------------------------------------------------------
+def _pair_on_both(ctx_cpu, ctx_cuda, counts, locs, fluxes, dev):
+    """One pair sweep on the CPU and on the card from the same state and
+    the same draws (made on the CPU); returns both outcomes."""
+    from smcdet_tpu_torch.distributions import gumbel_sample
+    from smcdet_tpu_torch.inference.kernels import pair_redistribute_sweep
+
+    g = torch.Generator().manual_seed(3)
+    shape, M = counts.shape, fluxes.shape[-1]
+    draws = (torch.rand(shape, generator=g), gumbel_sample(shape + (M,), g,
+                                                           "cpu"),
+             torch.rand(shape, generator=g),
+             1.5 * torch.randn(shape + (2,), generator=g),
+             torch.rand(shape, generator=g))
+    out = []
+    for ctx, d in ((ctx_cpu, "cpu"), (ctx_cuda, dev)):
+        st = init_kernel_state(ctx, counts.to(d), locs.to(d), fluxes.to(d))
+        new, applied = pair_redistribute_sweep(
+            ctx, counts.to(d), st, *(x.to(d) for x in draws),
+            select_scale=2.0, displace_scale=1.5)
+        out.append((new, applied.cpu()))
+    return out
+
+
+def _moved(ctx, dev):
+    """``ctx`` with its tensors on ``dev`` (prior and models built there)."""
+    return ctx._replace(**{
+        k: getattr(ctx, k).to(dev) for k in (
+            "image", "temperature", "child_slot_side", "child_ghost_rate")
+        if getattr(ctx, k) is not None})
+
+
+@pytest.mark.parametrize("target", ["cells", "bridge tag", "bridge location"])
+def test_pair_move_on_cuda_matches_the_cpu(dev, target):
+    """The plain pair move on a CUDA state equals the CPU move given the
+    same draws: the same acceptances but for boundary flips (under 1%),
+    the same states elsewhere to f32 rounding (rtol 1e-4, atol 1e-3)."""
+    cpu = torch.device("cpu")
+    if target == "cells":
+        _, cctx, counts, locs, fluxes = _target(cpu, name="cells", N=256)
+        _, gctx, *_ = _target(dev, name="cells", N=8)
+    else:
+        mode = target.split()[1]
+        _, cctx, counts, locs, fluxes = _bridge_target(cpu, mode=mode, N=256)
+        _, gctx, *_ = _bridge_target(dev, mode=mode, N=8)
+    gctx = _moved(cctx, dev)._replace(prior=gctx.prior, model=gctx.model,
+                                      child_model=gctx.child_model)
+    (cst, capp), (gst, gapp) = _pair_on_both(cctx, gctx, counts, locs,
+                                             fluxes, dev)
+    flips = capp != gapp
+    assert float(flips.float().mean()) < 0.01
+    assert 0.01 < float(capp.float().mean()) < 0.99
+    same = ~flips
+    for name in ("locs", "fluxes", "rate", "parent_ll", "logprior",
+                 "child_rate", "child_ll"):
+        a, b = getattr(cst, name), getattr(gst, name)
+        if a is None:
+            continue
+        torch.testing.assert_close(b.cpu()[same], a[same], rtol=1e-4,
+                                   atol=1e-3, msg=name)
+
+
+def test_assignment_on_cuda_matches_the_cpu(dev):
+    """The batched solver and the catalog matching give the same answers
+    on the card as on the CPU (random and padded-block costs)."""
+    from smcdet_tpu_torch.metrics import match_catalogs
+    from smcdet_tpu_torch.ops.assignment import (
+        linear_sum_assignment,
+        pad_cost_matrix,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    for n in (1, 5, 13):
+        cost = torch.rand((512, n, n), generator=g)
+        rv = torch.arange(n) < torch.randint(0, n + 1, (512, 1), generator=g)
+        cv = torch.arange(n) < torch.randint(0, n + 1, (512, 1), generator=g)
+        cost = torch.cat([cost, pad_cost_matrix(cost, rv, cv)])
+        assert torch.equal(linear_sum_assignment(cost.to(dev)).cpu(),
+                           linear_sum_assignment(cost))
+    T, N, M = 20, 64, 6
+    tc = torch.randint(0, M + 1, (T,), generator=g, dtype=torch.int32)
+    tl = 8 * torch.rand((T, M, 2), generator=g)
+    tf = torch.exp(6 * torch.rand((T, M), generator=g))
+    ec = (tc[:, None] + torch.randint(-1, 2, (T, N), generator=g)).clamp(
+        0, M).to(torch.int32)
+    el = tl[:, None] + 0.3 * torch.randn((T, N, M, 2), generator=g)
+    ef = tf[:, None] * torch.exp(0.3 * torch.randn((T, N, M), generator=g))
+    idx = torch.randint(0, N, (T, 30), generator=g)
+    kw = dict(num_est_catalogs_to_match=30, locs_tol=0.5, mags_tol=0.5,
+              mag_bins=[1.0, 18.0, 21.0, 24.0])
+    a = match_catalogs(tc, tl, tf, ec, el, ef, indices=idx, **kw)
+    b = match_catalogs(*(x.to(dev) for x in (tc, tl, tf, ec, el, ef)),
+                       indices=idx.to(dev), **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y.cpu())
+    assert float(a.num_true_matches.sum()) > 0

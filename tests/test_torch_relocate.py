@@ -164,5 +164,10 @@ def test_csmc_step_runs_relocation_and_blends_acceptance():
     assert {"smc.mutate", "smc.relocate"} <= names
     assert state.iteration == 1
     assert torch.all((state.acc_rate >= 0) & (state.acc_rate <= 1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SMCConfig(num_catalogs=32, pair_sweeps=8)
+    # the pair move runs after the relocation (tests/test_torch_pair.py)
+    cfg = SMCConfig(num_catalogs=32, resample_method="systematic",
+                    relocate_sweeps=3, pair_sweeps=8)
+    with torch.profiler.profile() as prof:
+        csmc_step(images, pctx.prior, pctx.model, kernel, cfg, state)
+    names = {e.key for e in prof.key_averages()}
+    assert {"smc.mutate", "smc.relocate", "smc.pair"} <= names

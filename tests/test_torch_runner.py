@@ -120,23 +120,52 @@ def test_runner_resumes_and_shards_reproducibly(tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def _enable_pair_sweeps(cfg):
-    cfg.aggregation.enabled = True
-    cfg.aggregation.pair_sweeps = 8
-
-
 @pytest.mark.parametrize("change,match", [
-    (_enable_pair_sweeps, "item 7"),
-    (lambda c: setattr(c.sampler, "streaming", True), "item 11"),
+    (lambda c: setattr(c.sampler, "streaming", True), "queue 1 item 5"),
 ])
 def test_runner_rejects_unported_paths(tmp_path, change, match):
     cfg = _tiny_basic(tmp_path)
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):
         trunner.run_experiment(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         trunner.run_experiment(_tiny_basic(tmp_path), method="mcmc",
                                device="cpu")
+
+
+def test_aggregation_runner_runs_pair_sweeps(tmp_path, monkeypatch):
+    """``aggregation.pair_sweeps: 8`` on the tiny divideandconquer batch,
+    with room for every stage to finish: each bridge iteration runs the
+    pair move and every level ends at temperature 1."""
+    from smcdet_tpu_torch.inference import aggregate as tagg
+
+    cfg = _tiny_dnc(tmp_path)
+    cfg.sampler.max_smc_iters = 100
+    cfg.aggregation.max_smc_iters = 100
+    cfg.aggregation.pair_sweeps = 8
+    calls, levels = [], []
+    pair, run = tagg.pair_redistribute_sweeps, tagg.Aggregate.run
+
+    def counted(*args, **kwargs):
+        calls.append(args[4])
+        return pair(*args, **kwargs)
+
+    def recorded(agg, *args, **kwargs):
+        out = run(agg, *args, **kwargs)
+        levels.extend(agg.diagnostics)
+        return out
+
+    monkeypatch.setattr(tagg, "pair_redistribute_sweeps", counted)
+    monkeypatch.setattr(tagg.Aggregate, "run", recorded)
+    out = trunner.run_experiment(cfg, device="cpu", verbose=False)
+    assert len(levels) == 2
+    assert len(calls) == sum(d["iterations"] for d in levels) > 0
+    assert set(calls) == {8}
+    for d in levels:
+        assert torch.all(d["temperature"] == 1.0), d
+    res = trunner.load_results(out)
+    np.testing.assert_allclose(res["weights"].sum(-1), 1.0, rtol=1e-5)
+    assert np.isfinite(res["log_normalizing_constant"].max(-1)).all()
 
 
 def test_batch_generator_is_a_function_of_seed_and_batch():
@@ -182,6 +211,25 @@ def test_cli_refuses_a_missing_card(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="CUDA"):
         cli_main([str(tmp_path / "c.yaml")])
     assert not (Path(cfg.output_dir) / cfg.name).exists()
+
+
+def test_simulate_tiles_draws_the_jax_distribution():
+    """The port's simulator draws what the JAX package's does for the cells
+    suite (the suites' scores compare the two on different draws): KS over
+    1500 tiles on the pruned and unpruned counts and the total flux."""
+    from scipy.stats import ks_2samp
+
+    cfg = tcfg.load_config(REPO / "experiments" / "cells" / "config.yaml")
+    cfg.num_images = 1500
+    a = trunner.simulate_tiles(cfg)
+    b = jrunner.simulate_tiles(
+        jcfg._from_dict(jcfg.ExperimentConfig, tcfg._to_dict(cfg)))
+    for key in ("true_counts", "unpruned_counts"):
+        assert ks_2samp(a[key], b[key]).pvalue > 1e-3, key
+    assert ks_2samp(a["true_fluxes"].sum(-1),
+                    b["true_fluxes"].sum(-1)).pvalue > 1e-3
+    assert ks_2samp(a["images"].reshape(1500, -1).sum(-1),
+                    b["images"].reshape(1500, -1).sum(-1)).pvalue > 1e-3
 
 
 # ----------------------------------------------------------------------

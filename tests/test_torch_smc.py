@@ -157,12 +157,39 @@ def test_run_csmc_chunked_sorts_and_restores_tile_order():
 
 
 def test_max_tiles_per_chunk_formula_matches_jax():
+    """The port's formula is the JAX package's with ``RATE_COPIES`` copies
+    of the rate cache where JAX counts 5: the port's eager step holds more
+    at its peak (measured on the card), so each tile is budgeted that many
+    more rate copies, whatever moves the step runs."""
     prior, _, _, _ = _slice_problem()
+    p = port_prior(prior)
+    assert tsmc.RATE_COPIES > 5
+    for N, hw in ((2048, 64), (512, 64), (4096, 256)):
+        jax_tile = (tsmc.chunk_bytes_per_tile(p, N, hw)
+                    - (tsmc.RATE_COPIES - 5) * p.num_counts * N * hw * 4)
+        for k in (1, 7, 100):
+            assert jsmc.max_tiles_per_chunk(prior, N, hw, k * jax_tile) == k
+            assert jsmc.max_tiles_per_chunk(prior, N, hw,
+                                            k * jax_tile - 1) == max(1, k - 1)
     for budget in (2**30, 12 * 2**30):
-        assert tsmc.max_tiles_per_chunk(port_prior(prior), 2048, 64,
-                                        budget) == jsmc.max_tiles_per_chunk(
-            prior, 2048, 64, budget)
+        assert tsmc.max_tiles_per_chunk(p, 2048, 64, budget) <= (
+            jsmc.max_tiles_per_chunk(prior, 2048, 64, budget))
     assert tsmc.default_budget_bytes("cpu") > 0
+
+
+def test_chunk_estimate_fits_k_tiles():
+    """``k`` tiles' estimate fits ``k`` tiles and a byte less fits
+    ``k - 1``, at 8x8 and 16x16."""
+    prior, _, _, _ = _slice_problem()
+    p = port_prior(prior)
+    for N, hw in ((512, 64), (4096, 256)):
+        tile = tsmc.chunk_bytes_per_tile(p, N, hw)
+        assert tile == p.num_counts * N * (
+            tsmc.RATE_COPIES * hw + 8 * p.max_objects + 32) * 4
+        for k in (1, 10, 100):
+            assert tsmc.max_tiles_per_chunk(p, N, hw, k * tile) == k
+            assert tsmc.max_tiles_per_chunk(p, N, hw, k * tile - 1) == max(
+                1, k - 1)
 
 
 def test_smc_sampler_end_to_end():
@@ -183,10 +210,10 @@ def test_smc_sampler_end_to_end():
 
 
 def test_unported_options_raise():
-    # relocate_sweeps is ported (tests/test_torch_relocate.py)
+    # relocate_sweeps and pair_sweeps are ported (tests/test_torch_relocate.py,
+    # tests/test_torch_pair.py)
     assert tsmc.SMCConfig(num_catalogs=8, relocate_sweeps=4).relocate_sweeps
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsmc.SMCConfig(num_catalogs=8, pair_sweeps=4)
+    assert tsmc.SMCConfig(num_catalogs=8, pair_sweeps=4).pair_sweeps == 4
     with pytest.raises(NotImplementedError):
         SingleComponentMH(num_iters=10, sqjumpdist_tol=1e-2)
 
@@ -194,7 +221,7 @@ def test_unported_options_raise():
 def test_smc_sampler_takes_the_jax_signature(capsys):
     """``SMCSampler`` takes every argument of the JAX one: relocation
     sweeps run, ``print_every`` prints, ``dispatch_iters`` is accepted and
-    ignored, pair sweeps still raise; a per-tile background map
+    ignored, pair sweeps run; a per-tile background map
     ``[T, 1, 1, h, w]`` and a bare ``[h, w]`` map both give the scalar
     background's posterior when they hold the same value."""
     import inspect
@@ -221,5 +248,6 @@ def test_smc_sampler_takes_the_jax_signature(capsys):
     r = run(pmodel, relocate_sweeps=2, print_every=1, dispatch_iters=3)
     assert "iteration 1: temperature in" in capsys.readouterr().out
     assert not torch.equal(r.locs, base.locs)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run(pmodel, pair_sweeps=2)
+    pair = run(pmodel, pair_sweeps=2)
+    assert not torch.equal(pair.locs, base.locs)
+    assert torch.all((pair.acc_rate > 0) & (pair.acc_rate < 1))
