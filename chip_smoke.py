@@ -93,7 +93,30 @@ Phases (a failing phase raises; there is no CPU fallback):
     CPU with the same sampled catalogs: identical ``MatchCounts`` but for
     pairs within 1e-5 of a tolerance (counted, printed); count accuracy,
     confusion asymmetry, coverage at 0.95, F1 by magnitude bin and the
-    matching's time on the card.
+    matching's time on the card;
+17. mcmc: the MH chain baseline (one chain per tile, N = 1 launches) of
+    the m71 fixture (per-tile backgrounds, K2), m71synthetic (K1), basic
+    (K2, Poisson), cells (K2, 16x16) and basic under MALA (K4): each
+    kernel at its chain's launch shapes against its plain version
+    (passthrough, >= 99% same-stream agreement, equilibrium, two launches
+    on one key bit-identical, ``launch_agreement``), its burn-in and block
+    launches timed beside their bounds, the rate cache's drift over a
+    whole burn-in launch (and the plain version's on two m71 tiles); then
+    one batch each through ``run_experiment(method="mcmc")`` at the
+    configs' chain lengths (50,000 sweeps, 30,000 burn-in, thinning 2: one
+    burn-in launch and 10,000 block launches), every launch counted, with
+    the later chains cut when the batches would exceed ``MCMC_BUDGET_S``;
+    then ``torch.profiler`` over an m71 batch cut to 1,000 blocks: device
+    time, idle share and host time per block;
+18. rjmh: the reversible-jump chain (birth, death, split, merge) on
+    basic's 20 tiles, and its caches after 200 sweeps against a fresh
+    render;
+19. tdsmc: transdimensional SMC on basic's 20 tiles, every tile at
+    temperature 1, finite log Z;
+20. sep: the source-extractor baseline on the m71 fixture on the card,
+    tuned on a cut of its grid (``SEP_GRID``), and the tuned extractor on all 688 tiles on the card against
+    the CPU (counts equal on >= 99% of tiles, locations and fluxes within
+    ``SEP_LOC_ATOL`` / ``SEP_FLUX_RTOL``).
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -456,8 +479,9 @@ def launch_geometry(fn):
     from a ``torch.profiler`` trace: ``{"blocks", "per_sm", "waves"}``, with
     ``per_sm`` the blocks one SM holds at once by the kernel's registers,
     shared memory and block size (whole warps' registers in units of 256,
-    1 KiB of shared memory reserved per block), and ``waves`` the blocks
-    over all SMs' room. Empty where the trace does not give the grid."""
+    1 KiB of shared memory reserved per block), ``waves`` the blocks over
+    all SMs' room, and ``device_ms`` the kernel's time in the trace. Empty
+    where the trace does not give the grid."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
@@ -473,12 +497,13 @@ def launch_geometry(fn):
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f).get("traceEvents", [])
-        found = [e.get("args", {}) for e in events if e.get("cat") == "kernel"
+        found = [e for e in events if e.get("cat") == "kernel"
                  and kernel_id(e.get("name", ""))]
         if found:
             break
     try:
-        args = found[-1]
+        args = found[-1].get("args", {})
+        device_ms = float(found[-1]["dur"]) / 1e3
         blocks = int(np.prod(args["grid"]))
         threads = int(np.prod(args["block"]))
         regs = int(args["registers per thread"])
@@ -491,7 +516,8 @@ def launch_geometry(fn):
     per_sm = min(2048 // threads, 32, 65536 // (warp_regs * warps),
                  233472 // (smem + 1024))
     return {"blocks": blocks, "per_sm": per_sm,
-            "waves": blocks / (props.multi_processor_count * per_sm)}
+            "waves": blocks / (props.multi_processor_count * per_sm),
+            "device_ms": device_ms}
 
 
 def _geometry_text(geo):
@@ -869,14 +895,15 @@ def branch_check(dev, label, prior, model, kernel, num_tiles=2, N=1000):
     return abs_err
 
 
-def launch_agreement(run, plain, args, child=None, sweeps=20):
+def launch_agreement(run, plain, args, child=None, sweeps=20, bar=0.99):
     """A sweep kernel's wrapper ``run`` against its plain version ``plain``
     (``mh_sweeps`` and ``mh_sweeps_reference``, or MALA's) on the flattened
     arguments ``args`` of a launch, with every other particle of the first
     group set to count 0 (empty and occupied particles mixed in one warp)
     and ``sweeps`` sweeps on one key: the empty ones pass through
     bit-exactly (acceptance 0), and at least 99% of particles agree to rtol
-    1e-4, the bars of ``branch_check``. Returns the share that agrees."""
+    1e-4, the bars of ``branch_check`` (``bar``: the share held). Returns
+    the share that agrees."""
     short = list(args)
     short[6] = args[6].clone()
     short[6][0, ::2] = 0
@@ -889,7 +916,7 @@ def launch_agreement(run, plain, args, child=None, sweeps=20):
             "zero-count passthrough moved")
     assert float(outs[5][0, ::2].abs().max()) == 0.0
     share = float(_agreement(outs, ref, tuple(short[6].shape)).float().mean())
-    assert share >= 0.99, share
+    assert share >= bar, share
     return share
 
 
@@ -2375,6 +2402,480 @@ def phase_chain(dev):
             "bound_ms": bound_ms, "bound_by": "operations"}, launches, peaks
 
 
+# ----------------------------------------------------------------------
+# The baselines: the MH chain (one chain per tile, N = 1 launches), the
+# reversible-jump chain and transdimensional SMC, the source extractor
+# ----------------------------------------------------------------------
+# (label, suite, kernel kind, the sweep kernel its chain launches); the
+# m71 fixture first: its chain is never cut
+MCMC_CHAINS = (("m71 fixture", "m71", "mh", "K2"),
+               ("m71synthetic", "m71synthetic", "mh", "K1"),
+               ("basic", "basic", "mh", "K2"),
+               ("cells", "cells", "mh", "K2"),
+               ("basic under MALA", "basic", "mala", "K4"))
+# the [mcmc] batches' budget: past it, the chains after the m71 fixture's
+# keep fewer samples (the burn-in stays whole)
+MCMC_BUDGET_S = 120.0
+# the plain chain's drift check: tiles and sweeps
+MCMC_PLAIN_DRIFT = (2, 1000)
+# the equilibrium check's chains (copies of one tile)
+MCMC_EQ_CHAINS = 512
+# keys of the chain launches' agreement check, at the batch's launch and
+# at the equilibrium check's
+MCMC_AGREEMENT_KEYS = 4
+
+
+def _mcmc_setup(dev, suite, kind):
+    """A suite's config at one batch (``kernel.kind`` set to ``kind``), its
+    prior, image model, chain kernel and ``MCMCConfig``, and the batch's
+    tiles and backgrounds on ``dev`` (as ``run_experiment`` reads them)."""
+    from smcdet_tpu_torch.config import (
+        build_image_model,
+        build_kernel,
+        build_prior,
+    )
+    from smcdet_tpu_torch.run_experiment import load_suite_config
+    from smcdet_tpu_torch.runner import _load_tiles, mcmc_chain
+
+    cfg = load_suite_config(f"experiments/{suite}")
+    cfg.kernel.kind = kind
+    cfg.num_images = cfg.batch_size
+    prior = build_prior(cfg.prior, dev)
+    model = build_image_model(cfg.image_model, dev)
+    chain, mc = mcmc_chain(cfg, build_kernel(cfg.kernel, dev), dev)
+    tiles = _load_tiles(cfg)
+    T = cfg.batch_size
+    imgs = torch.as_tensor(tiles["images"][:T], dtype=torch.float32,
+                           device=dev)
+    if cfg.use_tile_backgrounds:
+        model = model.with_background(torch.as_tensor(
+            tiles["background"][:T], dtype=torch.float32,
+            device=dev)[:, None])
+    return cfg, prior, model, chain, mc, imgs, tiles
+
+
+def _chain_args(key, kernel, ctx, counts, state, num_iters):
+    """The flattened arguments of a sweep kernel's wrapper for chains
+    ``counts [T, 1]`` (what ``run_from_state`` passes: G = T, N = 1)."""
+    T = counts.shape[0]
+    HW = ctx.model.height * ctx.model.width
+    return [key, kernel.proposal(ctx.prior), ctx.prior, ctx.model,
+            ctx.image.reshape(T, HW).contiguous(),
+            ctx.temperature.reshape(T).contiguous(),
+            counts.to(torch.int32).contiguous(), state.locs.contiguous(),
+            state.fluxes.contiguous(), state.rate.contiguous(),
+            state.parent_ll.contiguous(), state.logprior.contiguous(),
+            num_iters]
+
+
+def _cache_drift(ctx, counts, state):
+    """The cached rate against a fresh render, ``max |rate - fresh| /
+    fresh``, and the cached log-likelihood against the recomputed one (max
+    relative and absolute)."""
+    from smcdet_tpu_torch.inference.kernels import init_kernel_state
+
+    fresh = init_kernel_state(ctx, counts, state.locs, state.fluxes)
+    rate = float(((state.rate - fresh.rate).abs() / fresh.rate).max())
+    d = (state.parent_ll - fresh.parent_ll).abs()
+    ll_rel = float((d / fresh.parent_ll.abs().clamp(min=1.0)).max())
+    return rate, ll_rel, float(d.max())
+
+
+def chain_vs_plain(dev, label, kid, suite, kind, peaks):
+    """The chain kernel ``kid`` at its ``[mcmc]`` launch shapes (G = a
+    batch's tiles, N = 1: one live particle in each block), from the empty
+    start moved 200 sweeps: zero-count passthrough bit-exact, >= 99% of
+    chains agree with the plain version after 20 same-stream sweeps,
+    800-sweep equilibrium and cache drift (``_equilibrium``), two launches
+    on one key bit-identical, ``launch_agreement`` pooled over
+    ``MCMC_AGREEMENT_KEYS`` keys at the batch's launch and at the
+    equilibrium chains'; then the burn-in launch
+    and a block launch timed beside their bounds, and the burn-in's cache
+    drift. The equilibrium runs on ``MCMC_EQ_CHAINS`` copies of one tile
+    (the quantiles are over chains of one target). Returns the two launch
+    records."""
+    from smcdet_tpu_torch.inference.mcmc import init_chain, with_iters
+    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
+
+    cfg, prior, model, chain, mc, imgs, _ = _mcmc_setup(dev, suite, kind)
+    M, mala = prior.max_objects, kind == "mala"
+    if mala:
+        assert mala_sweep.mala_kernel(prior, model, M) == "K4"
+        run, plain = mala_sweep.mala_sweeps, mala_sweep.mala_sweeps_reference
+    else:
+        assert mh_sweep.sweep_kernel(prior, model, M) == kid
+        run, plain = mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ctx, counts, state = init_chain(gen, imgs, prior, model, chain)
+    state, _ = with_iters(chain, 200).run_from_state(gen, ctx, counts, state)
+    T = counts.shape[0]
+    shape = f"{T} tiles x 1 chain, {model.height}x{model.width}, M={M}"
+    _passthrough(dev, chain, ctx, counts, state)
+    share, abs_err, _ = _same_stream(dev, chain, ctx, counts, state)
+    print(f"[mcmc {label}] {kid} at {shape}: zero-count passthrough "
+          f"bit-exact; 20 same-stream sweeps: {share:.6f} of chains agree "
+          f"(pll/lp max abs err {abs_err:.3e})")
+    assert share >= 0.99, share
+    # in law: MCMC_EQ_CHAINS chains of the batch's first tile (N = 1 each:
+    # one chain a block), burnt in by the kernel for the config's burn-in
+    reps = MCMC_EQ_CHAINS
+    ctx_eq, counts_eq, state_eq = init_chain(
+        gen, imgs[:1].expand(reps, -1, -1), prior, _first_tiles(model, reps),
+        chain)
+    state_eq, _ = with_iters(chain, mc.num_samples_burnin).run_from_state(
+        gen, ctx_eq, counts_eq, state_eq)
+    _equilibrium(dev, f"mcmc {label}", chain, ctx_eq, counts_eq, state_eq)
+
+    key = torch.tensor([4242, 2424], dtype=torch.int64, device=dev)
+    k, nb = mc.keep_every_k, mc.num_samples_burnin
+    block = _chain_args(key, chain, ctx, counts, state, k)
+    first, again = run(*block), run(*block)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), (
+        "two launches on one key differ")
+    # one rounding flip is 2-10% of a batch's chains: the share is pooled
+    # over MCMC_AGREEMENT_KEYS keys at the batch's launch and as many on the
+    # equilibrium check's chains (one launch shape but for G), each
+    # launch's passthrough held
+    eq_block = _chain_args(key, chain, ctx_eq, counts_eq, state_eq, k)
+    shares = [(len(args[6]), launch_agreement(
+        run, plain, [torch.tensor([4242 + i, 2424], dtype=torch.int64,
+                                  device=dev)] + args[1:], bar=0.0))
+        for args in (block, eq_block) for i in range(MCMC_AGREEMENT_KEYS)]
+    del ctx_eq, counts_eq, state_eq, eq_block
+    n_runs = sum(n for n, _ in shares)
+    agree = sum(n * a for n, a in shares) / n_runs
+    print(f"[mcmc {label}] two launches on one key bit-identical; "
+          f"launch_agreement over {len(shares)} launches ({n_runs} chain "
+          f"runs): {agree:.6f} (at the batch's launch "
+          f"{np.mean([a for n, a in shares[:MCMC_AGREEMENT_KEYS]]):.6f}, "
+          f"lowest {min(a for _, a in shares):.6f})")
+    assert agree >= 0.99, shares
+
+    records = {}
+    for name, sweeps, reps in (("burn-in", nb, 1), ("block", k, 200)):
+        args = _chain_args(key, chain, ctx, counts, state, sweeps)
+        wall_ms = _time_ms(lambda: run(*args), reps=reps)
+        plain_args = _chain_args(key, chain, ctx, counts, state,
+                                 min(sweeps, 20))
+        plain_ms = _time_ms(lambda: plain(*plain_args), reps=1) * (
+            sweeps / min(sweeps, 20))
+        geo = launch_geometry(lambda: run(*args))
+        # a block launch is shorter than the host's work between two: its
+        # time is the profiler's, the events' is the host's a launch
+        ms = geo.get("device_ms", wall_ms)
+        bound = [sweep_bound(prior, model, args[6], args[9], M, sweeps,
+                             mala=mala, peaks=p)
+                 for p in ((PEAK_FP32, PEAK_SFU), peaks)]
+        rec = {"ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+               "bound_ms": bound[0][0],
+               "bound_by": bound[0][1], "measured_bound_ms": bound[1][0],
+               "shape": f"{T} groups x 1, {model.height}x{model.width}, "
+                        f"M={M}, {sweeps} sweeps", "geometry": geo}
+        print(f"[shapes] {kid} {label} MCMC {name} ({rec['shape']}): kernel "
+              f"{ms:.4f} ms in the trace, {wall_ms:.4f} ms a launch back to "
+              f"back ({_geometry_text(geo)}), plain {plain_ms:.3f} "
+              f"ms (timed at {min(sweeps, 20)} sweeps), bound "
+              f"{bound[0][0]:.3e} ms ({bound[0][1]}; at K5's measured rates "
+              f"{bound[1][0]:.3e} ms)")
+        records[name] = rec
+
+    # the rate cache's f32 drift over a whole burn-in launch
+    ctx, counts, state = init_chain(gen, imgs, prior, model, chain)
+    burnt, _ = with_iters(chain, nb).run_from_state(gen, ctx, counts, state)
+    rate, ll_rel, ll_abs = _cache_drift(ctx, counts, burnt)
+    print(f"[mcmc {label}] after a {nb}-sweep burn-in launch on the card: "
+          f"rate cache vs fresh render max rel {rate:.3e}; cached vs "
+          f"recomputed log-likelihood max rel {ll_rel:.3e} (abs "
+          f"{ll_abs:.3e})")
+    assert rate < 1e-2 and ll_rel < 1e-2, (rate, ll_rel)
+    if label == "m71 fixture":
+        n, sweeps = MCMC_PLAIN_DRIFT
+        sub = init_chain(gen, imgs[:n], prior, _first_tiles(model, n),
+                         chain)
+        plain_chain = with_iters(chain, sweeps)
+        plain_chain.backend = "torch"
+        burnt, _ = plain_chain.run_from_state(gen, *sub)
+        rate, ll_rel, ll_abs = _cache_drift(sub[0], sub[1], burnt)
+        print(f"[mcmc {label}] the plain version, {n} tiles x {sweeps} "
+              f"sweeps: rate drift max rel {rate:.3e}; log-likelihood max "
+              f"rel {ll_rel:.3e} (abs {ll_abs:.3e})")
+    return records
+
+
+def _first_tiles(model, n):
+    """The model with its per-tile background (if any) cut to the first
+    ``n`` tiles, or the first tile's repeated ``n`` times when ``n`` is
+    more than the batch's."""
+    bg = model.background
+    if bg.ndim < 3:
+        return model
+    if n > bg.shape[0]:
+        return model.with_background(bg[:1].expand((n,) + bg.shape[1:]))
+    return model.with_background(bg[:n])
+
+
+def _mcmc_batch(dev, label, suite, kind, kid, keep=None):
+    """One batch of ``suite`` under ``--method mcmc`` through
+    ``run_experiment``, ``keep`` kept samples (default: the config's):
+    every launch a ``kid`` launch, one burn-in and one a kept sample.
+    Returns (launches, wall, results)."""
+    from smcdet_tpu_torch.inference.mcmc import num_kept
+    from smcdet_tpu_torch.runner import load_results, run_experiment
+
+    cfg, _, _, _, mc, _, tiles = _mcmc_setup(dev, suite, kind)
+    if keep is not None:
+        cfg.mcmc.num_samples_total = (mc.num_samples_burnin
+                                      + keep * mc.keep_every_k)
+        mc.num_samples_total = cfg.mcmc.num_samples_total
+    K = num_kept(mc)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.output_dir = tmp
+        _reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = run_experiment(cfg, method="mcmc", device=dev, verbose=False)
+        wall = time.perf_counter() - start
+        launches = _launches()
+        res = load_results(out, "mcmc")
+    name = "K4 tile" if kid == "K4" else kid
+    assert launches[name] == 1 + K, (launches, K)
+    assert sum(launches.values()) == launches[name], launches
+    T, M = cfg.batch_size, cfg.prior.max_objects
+    assert res["locs"].shape == (T, K, M, 2), res["locs"].shape
+    assert np.isfinite(res["fluxes"]).all() and np.isfinite(
+        res["locs"]).all()
+    acc = res["acc_rate"]
+    assert (acc > 0).all() and (acc < 1).all(), acc
+    mean = res["pruned_counts"].mean(-1)
+    truth = tiles["true_counts"][:T]
+    within = np.abs(mean - truth) <= 1.0
+    runtime = float(res["runtime"][0])
+    print(f"[mcmc] {label}: {T} chains x {mc.num_samples_total} sweeps "
+          f"({mc.num_samples_burnin} burn-in, {K} kept, every "
+          f"{mc.keep_every_k}), M={M}: batch {runtime:.3f} s "
+          f"(run_experiment {wall:.3f} s); acceptance "
+          f"{acc.min():.4f}-{acc.max():.4f} (mean {acc.mean():.4f}); "
+          f"launches {launches}; posterior mean pruned count within +-1 of "
+          f"truth on {int(within.sum())}/{T}")
+    return launches[name], runtime, res
+
+
+def phase_mcmc(dev, peaks):
+    """``[mcmc]``: the chain kernels held to their plain versions at N = 1
+    (``chain_vs_plain``), then one batch of each of ``MCMC_CHAINS`` under
+    ``--method mcmc`` at the configs' chain lengths, the chains after the
+    m71 fixture's cut (and each cut printed) when the batches would take
+    over ``MCMC_BUDGET_S``. Returns ``{kid: launches}``, the launch
+    records by (kid, path) and the batches' results by label."""
+    records, launches, results = {}, {}, {}
+    for label, suite, kind, kid in MCMC_CHAINS:
+        records[label] = chain_vs_plain(dev, label, kid, suite, kind, peaks)
+    keep, spent = None, 0.0
+    for i, (label, suite, kind, kid) in enumerate(MCMC_CHAINS):
+        n, wall, results[label] = _mcmc_batch(dev, label, suite, kind, kid,
+                                              keep)
+        launches[kid] = launches.get(kid, 0) + n
+        records[label]["launches"] = n
+        spent += wall
+        if i == 0 and wall * len(MCMC_CHAINS) > MCMC_BUDGET_S:
+            share = (MCMC_BUDGET_S - wall) / (wall * (len(MCMC_CHAINS) - 1))
+            keep = min(n - 1, max(100, int((n - 1) * share)))
+            print(f"[mcmc] cut: the chains after the m71 fixture's keep "
+                  f"{keep} samples of {n - 1} (its batch took {wall:.1f} s; "
+                  f"budget {MCMC_BUDGET_S:.0f} s)")
+    print(f"[mcmc] batches {spent:.1f} s")
+    return launches, records, results
+
+
+def phase_mcmc_profile(dev, blocks=1000):
+    """``torch.profiler`` over one m71 fixture MCMC batch cut to its whole
+    burn-in and ``blocks`` kept samples: wall, the kernels' device time,
+    the device's idle share, the sweep kernel's device time per launch and
+    the host's time per block."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smcdet_tpu_torch.inference.mcmc import run_mh
+
+    cfg, prior, model, chain, mc, imgs, _ = _mcmc_setup(dev, "m71", "mh")
+    mc.num_samples_total = mc.num_samples_burnin + blocks * mc.keep_every_k
+    gen = torch.Generator(device=dev).manual_seed(3)
+    run_mh(gen, imgs, prior, model, chain, mc)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        run_mh(gen, imgs, prior, model, chain, mc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    kernel_ms, sweep = 0.0, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernel_ms += e.device_time_total / 1e3
+            if kernel_id(e.name) is not None:
+                sweep.append(e.device_time_total / 1e3)
+    assert len(sweep) == blocks + 1, (len(sweep), blocks)
+    burn = max(sweep)
+    block_ms = (sum(sweep) - burn) / max(len(sweep) - 1, 1)
+    host_block = (wall * 1e3 - burn) / blocks
+    print(f"[profile] m71 fixture MCMC batch, {imgs.shape[0]} chains, "
+          f"{mc.num_samples_burnin}-sweep burn-in + {blocks} blocks of "
+          f"{mc.keep_every_k}: wall {wall * 1e3:.1f} ms, kernels "
+          f"{kernel_ms:.1f} ms, device idle {1 - kernel_ms / (wall * 1e3):.3f};"
+          f" {len(sweep)} sweep launches: burn-in {burn:.3f} ms, a block "
+          f"{block_ms:.4f} ms on the device and {host_block:.4f} ms of wall")
+
+
+def phase_rjmh(dev):
+    """``[rjmh]``: ``run_rjmh`` on basic's 20 tiles (all five proposal
+    kinds; the move at the SMC kernel's scales), finite; then the kernel's
+    caches after 200 sweeps from the empty start against a fresh
+    render."""
+    from smcdet_tpu_torch.inference.kernels import (
+        SingleComponentMH,
+        TargetContext,
+        init_kernel_state,
+    )
+    from smcdet_tpu_torch.inference.mcmc import MCMCConfig, run_rjmh
+    from smcdet_tpu_torch.inference.transdimensional import (
+        BirthDeathMH,
+        TDKernelState,
+    )
+
+    cfg, prior, model, _, mc, imgs, tiles = _mcmc_setup(dev, "basic", "mh")
+    move = SingleComponentMH(1, cfg.kernel.locs_stdev,
+                             cfg.kernel.fluxes_stdev, cfg.kernel.fluxes_min,
+                             cfg.kernel.fluxes_max, device=dev)
+    kernel = BirthDeathMH(1, move, prob_birth=0.15, prob_death=0.15,
+                          prob_split=0.1, prob_merge=0.1)
+    run_cfg = MCMCConfig(400, 200, 2, mc.flux_detection_threshold)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    res = run_rjmh(gen, imgs, prior, model, kernel, run_cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    T = imgs.shape[0]
+    assert torch.isfinite(res.fluxes).all() and torch.isfinite(
+        res.locs).all()
+    assert res.counts.shape == (T, 100)
+    mean = res.pruned_counts.float().mean(-1).cpu().numpy()
+    within = np.abs(mean - tiles["true_counts"][:T]) <= 1.0
+    acc = res.acc_rate.cpu().numpy()
+    print(f"[rjmh] basic: {T} chains x 400 sweeps (birth/death/split/merge "
+          f"0.15/0.15/0.1/0.1): {wall:.3f} s; acceptance "
+          f"{acc.min():.4f}-{acc.max():.4f}; posterior mean pruned count "
+          f"within +-1 of truth on {int(within.sum())}/{T}")
+    M = prior.max_objects
+    counts = torch.zeros((T, 1), dtype=torch.int32, device=dev)
+    zeros = torch.zeros((T, 1, M), device=dev)
+    ctx = TargetContext(prior, model, imgs[:, None],
+                        torch.ones((T, 1), device=dev))
+    st = TDKernelState(counts, init_kernel_state(
+        ctx, counts, torch.zeros((T, 1, M, 2), device=dev), zeros))
+    for _ in range(200):
+        st, _ = kernel.sweep(gen, ctx, st)
+    rate, ll_rel, ll_abs = _cache_drift(ctx, st.counts, st.inner)
+    print(f"[rjmh] after 200 sweeps: cached rate vs fresh render max rel "
+          f"{rate:.3e}; log-likelihood max rel {ll_rel:.3e} (abs "
+          f"{ll_abs:.3e}); counts {st.counts[:, 0].tolist()}")
+    assert rate < 1e-4 and ll_rel < 1e-4, (rate, ll_rel)
+
+
+def phase_tdsmc(dev):
+    """``[tdsmc]``: ``run_tdsmc`` on basic's 20 tiles, N = 512, 10 sweeps
+    of all five kinds an iteration: every tile at temperature 1, finite
+    log Z."""
+    from smcdet_tpu_torch.inference.kernels import SingleComponentMH
+    from smcdet_tpu_torch.inference.transdimensional import (
+        BirthDeathMH,
+        TDSMCConfig,
+        run_tdsmc,
+    )
+
+    cfg, prior, model, _, _, imgs, tiles = _mcmc_setup(dev, "basic", "mh")
+    move = SingleComponentMH(1, cfg.kernel.locs_stdev,
+                             cfg.kernel.fluxes_stdev, cfg.kernel.fluxes_min,
+                             cfg.kernel.fluxes_max, device=dev)
+    kernel = BirthDeathMH(10, move, prob_birth=0.15, prob_death=0.15,
+                          prob_split=0.1, prob_merge=0.1)
+    td_cfg = TDSMCConfig(num_particles=512, max_smc_iters=100,
+                         flux_detection_threshold=(
+                             cfg.sampler.flux_detection_threshold))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    res = run_tdsmc(torch.Generator(device=dev).manual_seed(5), imgs, prior,
+                    model, kernel, td_cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    T = imgs.shape[0]
+    assert torch.all(res.temperature == 1.0), res.temperature
+    assert torch.isfinite(res.log_normalizing_constant).all()
+    mean = res.pruned_counts.float().mean(-1).cpu().numpy()
+    within = np.abs(mean - tiles["true_counts"][:T]) <= 1.0
+    print(f"[tdsmc] basic: {T} tiles x N=512, 10 sweeps an iteration: "
+          f"{res.num_iters} iterations in {wall:.3f} s; min ESS/N "
+          f"{float(res.ess.min()) / 512:.4f}; posterior mean pruned count "
+          f"within +-1 of truth on {int(within.sum())}/{T}")
+
+
+# [sep]'s cut of the default grid (72 points, ~55 s of matching on the
+# card; tests/torch_baseline_suites.py runs it whole): it holds the
+# default grid's best point on the m71 fixture
+SEP_GRID = dict(thresh_grid=(1.0, 4.0), minarea_grid=(1, 3),
+                deblend_cont_grid=(1e-6,), clean_param_grid=(0.0, 1.0))
+# the extractor on the card against the CPU: locations to 1e-3 px and
+# fluxes to 1e-4 relative (float32 sums in another order)
+SEP_LOC_ATOL = 1e-3
+SEP_FLUX_RTOL = 1e-4
+
+
+def phase_sep(dev):
+    """``[sep]``: the tuned extractor baseline on the m71 fixture on the
+    card (``run_sep_baseline``: ``SEP_GRID`` by F1 on the 50 tuning tiles,
+    the tuned extractor on the 344 evaluation tiles), and the extractor with
+    the tuned parameters on all 688 tiles on the card and on the CPU:
+    counts equal on >= 99% of tiles, and where equal the locations and
+    fluxes within ``SEP_LOC_ATOL`` / ``SEP_FLUX_RTOL``."""
+    from smcdet_tpu_torch.detect.baseline import run_sep_baseline
+    from smcdet_tpu_torch.detect.extractor import extract_batch
+    from smcdet_tpu_torch.run_experiment import load_suite_config
+    from smcdet_tpu_torch.runner import _load_tiles
+
+    cfg = load_suite_config("experiments/m71")
+    tiles = _load_tiles(cfg)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    score, best, res = run_sep_baseline(cfg, tiles, device=dev, **SEP_GRID)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    print(f"[sep] m71 fixture: tuned on 50 tiles in {wall:.3f} s: F1 "
+          f"{score:.4f} with {best}; {int(res['counts'].sum())} detections "
+          f"on {res['counts'].shape[0]} evaluation tiles")
+    sub = (np.asarray(tiles["images"], np.float32)
+           - np.asarray(tiles["background"], np.float32))
+    err = float(np.sqrt(np.asarray(tiles["background"])[
+        np.asarray(tiles["checkerboard"], bool)][:50].mean()))
+    kw = dict(thresh=best["thresh"], err=err, minarea=best["minarea"],
+              deblend_cont=best["deblend_cont"],
+              clean_param=best["clean_param"])
+    card = [a.cpu() for a in extract_batch(torch.from_numpy(sub).to(dev),
+                                           **kw)]
+    cpu = extract_batch(torch.from_numpy(sub), **kw)
+    same = card[0] == cpu[0]
+    share = float(same.float().mean())
+    loc_err = float((card[1][same] - cpu[1][same]).abs().max())
+    flux_err = float(((card[2][same] - cpu[2][same]).abs()
+                      / cpu[2][same].abs().clamp(min=1e-6)).max())
+    print(f"[sep] extractor on all {sub.shape[0]} tiles, card vs CPU: "
+          f"counts equal on {share:.6f}; there locations max abs err "
+          f"{loc_err:.3e} px, fluxes max rel err {flux_err:.3e}")
+    assert share >= 0.99, share
+    assert loc_err <= SEP_LOC_ATOL and flux_err <= SEP_FLUX_RTOL, (
+        loc_err, flux_err)
+    assert int(card[0].sum()) > 0
+
+
 def print_paths(paths):
     """``paths``: ``(kernel, path, launches, record)``. Per path, the
     kernel's launches in this run, its launch shape, its time and bound
@@ -2385,8 +2886,8 @@ def print_paths(paths):
         gap = n * (rec["ms"] - rec["bound_ms"]) / 1e3
         totals[kid] = totals.get(kid, 0.0) + gap
         print(f"[paths] {kid} {path}: {n} launches at {rec['shape']}: "
-              f"{rec['ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms (at K5's "
-              f"rates {rec['measured_bound_ms']:.4f} ms); launches x (time "
+              f"{rec['ms']:.3f} ms, bound {rec['bound_ms']:.4g} ms (at K5's "
+              f"rates {rec['measured_bound_ms']:.4g} ms); launches x (time "
               f"- bound) {gap:.3f} s")
     ranking = sorted(totals.items(), key=lambda kv: -kv[1])
     print("[paths] kernels by launches x (time - bound): "
@@ -2448,7 +2949,19 @@ def main():
     tiles["cells_pair"] = tiles["cells"]
     phase_score(dev, scored, tiles)
     work.cleanup()
-    print(f"[done] phases 2-16 in {time.perf_counter() - start:.1f} s on "
+    mark = time.perf_counter()
+    print(f"[time] phases 2-16 in {mark - start:.1f} s")
+    mcmc, mcmc_records, _ = phase_mcmc(dev, peaks)
+    launches["K1"] += mcmc["K1"]
+    launches["K2"] += mcmc["K2"]
+    launches["K4"] += mcmc["K4"]
+    print(f"[time] mcmc in {time.perf_counter() - mark:.1f} s")
+    for name, phase in (("profile", phase_mcmc_profile), ("rjmh", phase_rjmh),
+                        ("tdsmc", phase_tdsmc), ("sep", phase_sep)):
+        mark = time.perf_counter()
+        phase(dev)
+        print(f"[time] {name} in {time.perf_counter() - mark:.1f} s")
+    print(f"[done] phases 2-20 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
@@ -2477,6 +2990,11 @@ def main():
         *[("K4", f"divideandconquer bridge level {i} under MALA", n,
            shapes[f"dnc bridge level {i} K4"])
           for i, n in enumerate(mala_dnc["bridge levels"])],
+        *[path for label, _, _, kid in MCMC_CHAINS for path in (
+            (kid, f"{label} MCMC burn-in", 1,
+             mcmc_records[label]["burn-in"]),
+            (kid, f"{label} MCMC blocks", mcmc_records[label]["launches"] - 1,
+             mcmc_records[label]["block"]))],
     ])
     print("[done] the kernels line: K2's record at the cells shapes, K3's "
           "at one divideandconquer image's level-0 launch, K4's at the basic "

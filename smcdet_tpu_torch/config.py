@@ -105,8 +105,9 @@ class SamplerConfig:
 
 @dataclass
 class MCMCExperimentConfig:
-    """Saturated-MH baseline settings (not ported: ``method="mcmc"``
-    raises)."""
+    """Saturated-MH baseline settings (``method="mcmc"``): 50k samples,
+    30k burn-in, thinning 2, and proposal scales smaller than the SMC
+    mutation kernel's (the reference ``run_mcmc.py``'s)."""
 
     num_samples_total: int = 50_000
     num_samples_burnin: int = 30_000

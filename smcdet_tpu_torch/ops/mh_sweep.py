@@ -387,8 +387,17 @@ def sweep_kernel(prior, model, M: int, child: bool = False) -> str:
 
 
 def _host_floats(values):
-    return torch.stack([torch.as_tensor(v, dtype=torch.float32).cpu()
-                        for v in values]).tolist()
+    """The 0-d values as Python floats, those on the card read back in one
+    copy: each read waits for the stream, and a chain of short launches
+    (the MCMC baseline's) makes one launch a block."""
+    ts = [torch.as_tensor(v, dtype=torch.float32) for v in values]
+    out = [float(t) if t.device.type == "cpu" else None for t in ts]
+    on_card = [i for i, t in enumerate(ts) if t.device.type != "cpu"]
+    if on_card:
+        read = torch.stack([ts[i] for i in on_card]).cpu().tolist()
+        for i, v in zip(on_card, read):
+            out[i] = v
+    return out
 
 
 def _pareto_lognorm(flux):

@@ -5,6 +5,7 @@
         [--num-images N] [--job-index i --num-jobs n] [--device cuda]
     python -m smcdet_tpu_torch.run_experiment experiments/cells \\
         --config config.yaml --generate
+    python -m smcdet_tpu_torch.run_experiment experiments/m71 --method mcmc
 
 The experiment is a config file, or a suite directory with ``--config``
 naming the file in it (default ``config.yaml``); a relative ``data_path``
@@ -12,6 +13,8 @@ that does not exist from the working directory is read from the suite
 directory (``experiments/m71/config.yaml`` reads
 ``experiments/m71/data/m71/tiles.npz``). ``--generate`` writes the
 simulated tiles to ``{output_dir}/{name}/tiles.npz`` instead of running.
+``--method mcmc`` runs the saturated MH chain baseline (one chain per tile,
+the config's ``mcmc`` settings) instead of CS-SMC.
 ``--device`` defaults to ``cuda`` and is never swapped for another device:
 without a CUDA card, pass ``--device cpu`` to run the plain PyTorch
 versions of the kernels.
@@ -38,11 +41,26 @@ def _config_path(experiment: str, config: str | None) -> Path:
     return path
 
 
+def load_suite_config(experiment: str, config: str | None = None):
+    """The config of a suite (a config file, or a suite directory and the
+    file in it), its relative ``data_path`` resolved against the suite
+    directory when it does not exist from the working directory (the JAX
+    experiment scripts run from there)."""
+    path = _config_path(experiment, config)
+    cfg = load_config(path)
+    if cfg.data_path is not None and not Path(cfg.data_path).exists():
+        local = path.parent / cfg.data_path
+        if local.exists():
+            cfg.data_path = str(local)
+    return cfg
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m smcdet_tpu_torch.run_experiment",
         description="Run an experiment suite (CS-SMC, and the aggregation "
-                    "when the config enables it) with the PyTorch port.")
+                    "when the config enables it, or the MH chain baseline) "
+                    "with the PyTorch port.")
     parser.add_argument("experiment",
                         help="config YAML, or a suite directory")
     parser.add_argument("--config", default=None,
@@ -53,18 +71,13 @@ def main(argv=None):
     parser.add_argument("--num-jobs", type=int, default=1)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
+    parser.add_argument("--method", default="smc", choices=("smc", "mcmc"),
+                        help="CS-SMC (default) or the MH chain baseline")
     parser.add_argument("--generate", action="store_true",
                         help="write the simulated tiles.npz and exit")
     args = parser.parse_args(argv)
 
-    path = _config_path(args.experiment, args.config)
-    cfg = load_config(path)
-    if cfg.data_path is not None and not Path(cfg.data_path).exists():
-        # a suite's data path is relative to its directory (the JAX
-        # experiment scripts run from there)
-        local = path.parent / cfg.data_path
-        if local.exists():
-            cfg.data_path = str(local)
+    cfg = load_suite_config(args.experiment, args.config)
     if args.num_images is not None:
         cfg.num_images = args.num_images
     if args.generate:
@@ -84,7 +97,7 @@ def main(argv=None):
                          "(torch.cuda.is_available() is False)")
     from smcdet_tpu_torch.runner import run_experiment
 
-    out = run_experiment(cfg, job_index=args.job_index,
+    out = run_experiment(cfg, method=args.method, job_index=args.job_index,
                          num_jobs=args.num_jobs, device=device)
     print(f"results in {out}")
 

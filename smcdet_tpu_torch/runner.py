@@ -7,11 +7,14 @@ shapes and dtypes of the JAX runner's, so either package's
 job skips batches whose file exists (resume) and takes every
 ``num_jobs``-th batch from ``job_index`` (sharding).
 
-Two pipelines: chunked CS-SMC over the batch's tiles, or, with
-``aggregation.enabled``, the per-image pipeline (tile the image, CS-SMC on
-its tiles, divide-and-conquer aggregation), which also takes per-tile
-background maps (``use_tile_backgrounds``). The streaming pool and the MCMC
-baseline are not ported yet and raise.
+Two pipelines for ``method="smc"``: chunked CS-SMC over the batch's
+tiles, or, with ``aggregation.enabled``, the per-image pipeline (tile the
+image, CS-SMC on its tiles, divide-and-conquer aggregation), which also
+takes per-tile background maps (``use_tile_backgrounds``). The streaming
+pool is not ported yet and raises. ``method="mcmc"`` runs the saturated MH
+chain baseline (``inference/mcmc.py:run_mh``, one chain per tile, per-tile
+backgrounds whatever ``aggregation`` says) and writes
+``mcmc_batch{b:04d}.npz``.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ from smcdet_tpu_torch.config import (
 from smcdet_tpu_torch.inference.smc import SMCConfig, run_csmc_chunked
 from smcdet_tpu_torch.models.simulate import generate_images
 
-__all__ = ["batch_generator", "simulate_tiles", "run_experiment",
-           "load_results"]
+__all__ = ["batch_generator", "simulate_tiles", "mcmc_chain",
+           "run_experiment", "load_results"]
 
 
 def batch_generator(seed: int, batch: int, device, *more) -> torch.Generator:
@@ -94,13 +97,9 @@ def _load_tiles(cfg: ExperimentConfig):
 
 
 def _check_supported(cfg: ExperimentConfig, method: str):
-    if method == "mcmc":
-        raise NotImplementedError(
-            "method 'mcmc' is not ported yet (ROADMAP queue 1 item 4: "
-            "baselines)")
-    if method != "smc":
+    if method not in ("smc", "mcmc"):
         raise ValueError(f"unknown method {method!r}")
-    if cfg.aggregation.enabled:
+    if method == "mcmc" or cfg.aggregation.enabled:
         return
     if cfg.sampler.streaming:
         raise NotImplementedError(
@@ -209,6 +208,45 @@ def _aggregate_runner(cfg: ExperimentConfig, prior, model, kernel,
     return run
 
 
+def mcmc_chain(cfg: ExperimentConfig, kernel, device):
+    """The MH chain baseline's kernel and settings (the JAX runner's
+    ``method="mcmc"`` branch): a copy of the config's mutation kernel at
+    one sweep a step with the ``mcmc`` proposal scales (MALA's step sizes
+    under ``kind: mala``), and the ``MCMCConfig``."""
+    from smcdet_tpu_torch.inference.mcmc import MCMCConfig, with_iters
+
+    mc = cfg.mcmc
+    chain = with_iters(kernel, 1)
+    scales = (("locs_step", "fluxes_step") if cfg.kernel.kind == "mala"
+              else ("locs_stdev", "fluxes_stdev"))
+    for name, v in zip(scales, (mc.locs_stdev, mc.fluxes_stdev)):
+        setattr(chain, name, torch.tensor(v, dtype=torch.float32,
+                                          device=device))
+    return chain, MCMCConfig(
+        num_samples_total=mc.num_samples_total,
+        num_samples_burnin=mc.num_samples_burnin,
+        keep_every_k=mc.keep_every_k,
+        flux_detection_threshold=cfg.sampler.flux_detection_threshold,
+    )
+
+
+def _mcmc_runner(cfg: ExperimentConfig, prior, model, kernel, device):
+    """One chain per tile (``run_mh``); per-tile backgrounds ride as ``[T,
+    1, h, w]``. Returns ``run(batch, imgs, bkgs)`` giving ``MCMCResult``'s
+    fields as numpy arrays."""
+    from smcdet_tpu_torch.inference.mcmc import run_mh
+
+    chain, mc_cfg = mcmc_chain(cfg, kernel, device)
+
+    def run(batch, imgs, bkgs=None):
+        m = model if bkgs is None else model.with_background(bkgs[:, None])
+        res = run_mh(batch_generator(cfg.seed, batch, device), imgs, prior,
+                     m, chain, mc_cfg)
+        return {f: _to_numpy(getattr(res, f)) for f in res._fields}
+
+    return run
+
+
 def _to_numpy(v):
     if isinstance(v, torch.Tensor):
         return v.cpu().numpy()
@@ -219,8 +257,9 @@ def run_experiment(cfg: ExperimentConfig, method: str = "smc",
                    job_index: int = 0, num_jobs: int = 1,
                    verbose: bool = True, device="cuda"):
     """Run the experiment over its images in batches of ``cfg.batch_size``
-    on ``device``, writing ``{output_dir}/{name}/smc_batch{b:04d}.npz`` and
-    ``smc_manifest_job{job_index}.json``; returns the output directory.
+    on ``device``, writing ``{output_dir}/{name}/{method}_batch{b:04d}.npz``
+    and ``{method}_manifest_job{job_index}.json``; returns the output
+    directory.
 
     A ragged last batch is padded with copies of its last image and the
     results sliced back. Existing batch files are skipped (resume). On the
@@ -262,7 +301,9 @@ def run_experiment(cfg: ExperimentConfig, method: str = "smc",
         relocate_sweeps=s.relocate_sweeps,
         pair_sweeps=s.pair_sweeps,
     )
-    if cfg.aggregation.enabled:
+    if method == "mcmc":
+        run = _mcmc_runner(cfg, prior, model, kernel, device)
+    elif cfg.aggregation.enabled:
         run = _aggregate_runner(cfg, prior, model, kernel, smc_cfg, device)
     else:
         def run(batch, imgs, bkgs=None):

@@ -785,3 +785,172 @@ def test_assignment_on_cuda_matches_the_cpu(dev):
     for x, y in zip(a, b):
         assert torch.equal(x, y.cpu())
     assert float(a.num_true_matches.sum()) > 0
+
+
+def _chains(dev, name, T=50):
+    """One MH chain per tile of ``_target(name)``'s images (G = T, N = 1:
+    one live particle a block), from the empty start moved 100 sweeps by
+    the kernel: ``(kernel, ctx, counts, state)``."""
+    from smcdet_tpu_torch.inference.mcmc import init_chain, with_iters
+
+    kernel, ctx, _, _, _ = _target(dev, name=name, T=T, N=1)
+    images = ctx.image[:, 0, 0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ctx, counts, state = init_chain(gen, images, ctx.prior, ctx.model,
+                                    kernel)
+    state, _ = with_iters(kernel, 100).run_from_state(gen, ctx, counts,
+                                                      state)
+    return kernel, ctx, counts, state
+
+
+@pytest.mark.parametrize("name,kid,mala", [
+    ("m71", "K1", False), ("basic", "K2", False), ("cells", "K2", False),
+    ("basic", "K4", True)])
+def test_chain_launches_at_one_particle_match_plain_version(dev, name, kid,
+                                                            mala):
+    """The MCMC baseline's launch shape, N = 1 with 63 or 15 padded
+    particles in every block: empty chains pass through bit-exactly, two
+    launches on one key are bit-identical, and the chains agree with the
+    plain version after 20 sweeps on one stream."""
+    from smcdet_tpu_torch.inference.mcmc import with_iters
+
+    kernel, ctx, counts, state = _chains(dev, name)
+    if mala:
+        kernel = SingleComponentMALA(1, 0.05, 20.0, kernel.fluxes_min,
+                                     kernel.fluxes_max, device=dev)
+        run, plain = mala_sweep.mala_sweeps, mala_sweep.mala_sweeps_reference
+        assert mala_sweep.mala_kernel(ctx.prior, ctx.model,
+                                      ctx.prior.max_objects) == kid
+    else:
+        run, plain = mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference
+        assert mh_sweep.sweep_kernel(ctx.prior, ctx.model,
+                                     ctx.prior.max_objects) == kid
+    T = counts.shape[0]
+    key = torch.tensor([7, 9], dtype=torch.int64, device=dev)
+    counts_mixed = counts.clone()
+    counts_mixed[::2] = 0  # every other chain empty
+    args = [key, kernel.proposal(ctx.prior), ctx.prior, ctx.model,
+            ctx.image.reshape(T, -1).contiguous(),
+            ctx.temperature.reshape(T).contiguous(), counts_mixed,
+            state.locs, state.fluxes, state.rate, state.parent_ll,
+            state.logprior, 20]
+    first, again = run(*args), run(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    for out, inp in zip(first[:5], args[7:12]):
+        assert torch.equal(out[::2], inp[::2])
+    assert float(first[5][::2].abs().max()) == 0.0
+    ref = plain(*args)
+    agree = torch.ones(T, dtype=torch.bool, device=dev)
+    for a, b in zip(first, ref):
+        agree &= torch.isclose(a, b, rtol=1e-4, atol=1e-4).reshape(
+            T, -1).all(-1)
+    assert float(agree.float().mean()) >= 0.99
+    assert float(first[5][1::2].mean()) > 0.0
+
+    # and through run_from_state: one launch per block, counted
+    counter = (mala_sweep.mala_sweeps, "launches") if mala else (
+        mh_sweep.mh_sweeps, "launches" if kid == "K1" else "k2_launches")
+    before = getattr(*counter)
+    with_iters(kernel, 2).run_from_state(
+        torch.Generator(device=dev).manual_seed(0), ctx, counts, state)
+    assert getattr(*counter) == before + 1
+
+
+def test_run_mh_on_cuda_launches_one_kernel_a_block(dev, monkeypatch):
+    """``run_mh`` on the card: one burn-in launch and one launch a kept
+    sample, never the plain version, and the burn-in's rate cache within
+    f32 drift of a fresh render."""
+    from smcdet_tpu_torch.inference.mcmc import MCMCConfig, run_mh
+
+    kernel, ctx, _, _, _ = _target(dev, name="basic", T=20, N=1)
+
+    def forbidden(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(mh_sweep, "mh_sweeps_reference", forbidden)
+    before = mh_sweep.mh_sweeps.k2_launches
+    res = run_mh(torch.Generator(device=dev).manual_seed(0),
+                 ctx.image[:, 0, 0], ctx.prior, ctx.model, kernel,
+                 MCMCConfig(3000, 2000, 2, 384.26))
+    torch.cuda.synchronize()
+    assert mh_sweep.mh_sweeps.k2_launches == before + 1 + 500
+    assert res.locs.shape == (20, 500, 8, 2)
+    assert torch.isfinite(res.fluxes).all()
+    assert 0.0 < float(res.acc_rate.min()) < 1.0
+
+
+def test_birth_death_sweep_on_cuda_matches_the_cpu(dev):
+    """One reversible-jump sweep (all five kinds) on the card equals the
+    CPU's on the same draws."""
+    from smcdet_tpu_torch.inference.kernels import init_kernel_state
+    from smcdet_tpu_torch.inference.transdimensional import (
+        BirthDeathMH,
+        TDKernelState,
+    )
+
+    kernel, ctx, counts, locs, fluxes = _target(dev, name="poisson", T=2,
+                                                N=512)
+    counts, locs, fluxes = counts[:, 2], locs[:, 2], fluxes[:, 2]
+    ctx = ctx._replace(image=ctx.image[:, 0], temperature=ctx.temperature[:,
+                                                                          0])
+    bd = BirthDeathMH(1, kernel, prob_birth=0.2, prob_death=0.2,
+                      prob_split=0.15, prob_merge=0.15)
+    state = TDKernelState(counts, init_kernel_state(ctx, counts, locs,
+                                                    fluxes))
+    draws = bd.draws(torch.Generator(device=dev).manual_seed(3), ctx.prior,
+                     counts, ctx.prior.max_objects)
+    got, applied = bd.sweep(None, ctx, state, draws)
+
+    def cpu(x):
+        if isinstance(x, tuple):
+            return tuple(cpu(v) for v in x)
+        return None if x is None else x.cpu()
+
+    cprior, _ = _normal_flux("cpu", 4, 8)
+    cmodel = ImageModel(8, 8, 4, GaussianPSF(1.0, device="cpu"),
+                        noise="poisson", background=100.0, device="cpu")
+    ckernel = SingleComponentMH(1, 0.25, 60.0, 500.0, 5000.0, device="cpu")
+    cctx = TargetContext(cprior, cmodel, ctx.image.cpu(),
+                         ctx.temperature.cpu())
+    cbd = BirthDeathMH(1, ckernel, prob_birth=0.2, prob_death=0.2,
+                       prob_split=0.15, prob_merge=0.15)
+    cstate = TDKernelState(counts.cpu(), init_kernel_state(
+        cctx, counts.cpu(), locs.cpu(), fluxes.cpu()))
+    want, wapplied = cbd.sweep(None, cctx, cstate,
+                               type(draws)(*(cpu(v) for v in draws)))
+    same = applied.cpu() == wapplied
+    assert float(same.float().mean()) >= 0.99
+    assert torch.equal(got.counts.cpu()[same], want.counts[same])
+    for a, b in zip(got.inner, want.inner):
+        if a is not None:
+            torch.testing.assert_close(a.cpu()[same], b[same], rtol=1e-4,
+                                       atol=1e-3)
+
+
+def test_extractor_on_cuda_matches_the_cpu(dev):
+    """The extractor on the card gives the CPU's detections (the m71
+    fixture's tiles)."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from smcdet_tpu_torch.detect import extract_batch
+
+    d = np.load(Path(__file__).resolve().parents[1]
+                / "experiments/m71/data/m71/tiles.npz")
+    sub = torch.as_tensor(d["images"] - d["background"],
+                          dtype=torch.float32)
+    for thresh, minarea, deblend in ((1.0, 1, 1e-6), (4.0, 3, 1e-3)):
+        kw = dict(thresh=thresh, err=29.4, minarea=minarea,
+                  deblend_cont=deblend, clean_param=1.0)
+        a = extract_batch(sub, **kw)
+        b = [x.cpu() for x in extract_batch(sub.to(dev), **kw)]
+        same = a[0] == b[0]
+        assert float(same.float().mean()) >= 0.99
+        torch.testing.assert_close(b[1][same], a[1][same], rtol=0,
+                                   atol=1e-3)
+        torch.testing.assert_close(b[2][same], a[2][same], rtol=1e-4,
+                                   atol=1e-3)
+        assert int(a[0].sum()) > 0

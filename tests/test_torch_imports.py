@@ -1,0 +1,42 @@
+"""The port runs on a machine without JAX: no module of
+``smcdet_tpu_torch`` and no line of ``chip_smoke.py`` imports ``jax``,
+``flax``, ``optax`` or the JAX package ``smcdet_tpu``, at any depth of the
+file (functions included)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smcdet_tpu")
+FILES = sorted((REPO / "smcdet_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def imported_modules(source: str):
+    """The top-level names of every module an ``import`` or ``from``
+    statement in ``source`` names (relative imports excluded)."""
+    names = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return [n.split(".")[0] for n in names]
+
+
+def test_the_check_sees_nested_and_from_imports():
+    src = ("import os\nfrom smcdet_tpu_torch import runner\n"
+           "def f():\n    from smcdet_tpu.models import priors\n"
+           "    import jax.numpy as jnp\n")
+    found = imported_modules(src)
+    assert [n for n in found if n in FORBIDDEN] == ["smcdet_tpu", "jax"]
+    assert "smcdet_tpu_torch" in found
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(REPO)) for p in FILES])
+def test_no_jax_import(path):
+    bad = [n for n in imported_modules(path.read_text()) if n in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"

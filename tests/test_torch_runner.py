@@ -128,8 +128,9 @@ def test_runner_rejects_unported_paths(tmp_path, change, match):
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):
         trunner.run_experiment(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        trunner.run_experiment(_tiny_basic(tmp_path), method="mcmc",
+    # method "mcmc" is ported (test_torch_mcmc.py); an unknown one raises
+    with pytest.raises(ValueError, match="unknown method 'sampler'"):
+        trunner.run_experiment(_tiny_basic(tmp_path), method="sampler",
                                device="cpu")
 
 
