@@ -73,7 +73,7 @@ class KernelConfig:
     fluxes_min: float = 0.252
     fluxes_max: float = 1804.679
     # stop a mutation's sweeps early below this mean squared location jump
-    # (None = fixed num_iters); not ported: both kernels raise
+    # (None = fixed num_iters); on the card one kernel launch a sweep
     sqjumpdist_tol: float | None = None
 
 

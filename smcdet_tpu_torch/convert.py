@@ -19,16 +19,24 @@ Dict layouts::
                    "wing_beta3"} | {"kind": "gaussian", "stdev"}
     kernel: num_iters, locs_stdev, fluxes_stdev, fluxes_min, fluxes_max
             (MALA: locs_step, fluxes_step in place of the stdevs)
+
+``m71_model_from_fit`` builds the M71 image model of a fitted
+``FittedImageModel`` (either package's), and ``history_from_arrays`` an
+``SMCResult.history`` of arrays (the JAX package's) as the port's dict of
+tensors.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from smcdet_tpu_torch.distributions import TruncatedPareto
 from smcdet_tpu_torch.inference.kernels import (
     SingleComponentMALA,
     SingleComponentMH,
 )
-from smcdet_tpu_torch.models.imaging import ImageModel
+from smcdet_tpu_torch.models.imaging import ImageModel, M71ImageModel
 from smcdet_tpu_torch.models.priors import (
     GeometricCounts,
     NormalFlux,
@@ -40,7 +48,8 @@ from smcdet_tpu_torch.models.priors import (
 from smcdet_tpu_torch.models.psf import SDSSPSF, GaussianPSF
 
 __all__ = ["prior_from_params", "image_model_from_params",
-           "mh_kernel_from_params", "mala_kernel_from_params"]
+           "mh_kernel_from_params", "mala_kernel_from_params",
+           "m71_model_from_fit", "history_from_arrays"]
 
 
 def _counts(d, device):
@@ -129,3 +138,22 @@ def mala_kernel_from_params(d: dict, device="cuda",
         backend=backend,
         device=device,
     )
+
+
+def m71_model_from_fit(fit, height, width, psf_radius=8, background=None,
+                       device="cuda"):
+    """The M71 image model of a ``FittedImageModel`` on a ``height x
+    width`` tile (its scalar background unless ``background`` is given)."""
+    return M71ImageModel(
+        height, width, fit.background if background is None else background,
+        fit.adu_per_nmgy, fit.psf_params, psf_radius, fit.noise_additive,
+        fit.noise_multiplicative, device=device)
+
+
+def history_from_arrays(history, device="cuda"):
+    """``{temperature, ess, acc_rate}`` arrays as float32 tensors on
+    ``device`` (``None`` stays ``None``)."""
+    if history is None:
+        return None
+    return {k: torch.as_tensor(np.array(v), dtype=torch.float32,
+                               device=device) for k, v in history.items()}

@@ -28,6 +28,7 @@ from smcdet_tpu_torch.ops.mh_sweep import MHProposal
 __all__ = [
     "TargetContext",
     "KernelState",
+    "early_stop_sweeps",
     "SingleComponentMALA",
     "SingleComponentMH",
     "init_kernel_state",
@@ -191,7 +192,8 @@ class SingleComponentMH:
     aggregation bridge target, K3 (``mh_sweep.sweep_kernel``; raising for a
     target none covers) and CPU tensors to the plain version;
     ``backend="torch"`` always runs the plain version, which is how the
-    kernel is compared with it on the card.
+    kernel is compared with it on the card. ``sqjumpdist_tol`` stops a
+    mutation's sweeps early (``early_stop_sweeps``): one launch a sweep.
     """
 
     def __init__(self, num_iters, locs_stdev=0.1, fluxes_stdev=1.0,
@@ -200,10 +202,6 @@ class SingleComponentMH:
         if backend not in ("auto", "torch"):
             raise ValueError(f"backend must be 'auto' or 'torch', got "
                              f"{backend!r}")
-        if sqjumpdist_tol is not None:
-            raise NotImplementedError(
-                "sqjumpdist_tol early stopping is not ported yet"
-            )
 
         def t(v):
             return torch.as_tensor(v, dtype=torch.float32, device=device)
@@ -214,6 +212,9 @@ class SingleComponentMH:
         self.fluxes_min = t(fluxes_min)
         self.fluxes_max = t(fluxes_max)
         self.backend = backend
+        # stop sweeping once a sweep's batch-mean squared location jump
+        # falls below this (None: always num_iters sweeps)
+        self.sqjumpdist_tol = sqjumpdist_tol
 
     def proposal(self, prior) -> MHProposal:
         return MHProposal(
@@ -252,19 +253,63 @@ class SingleComponentMH:
         """``num_iters`` sweeps from caller-provided caches. Draws one
         64-bit Philox key from ``generator`` and returns the final state and
         the acceptance rate averaged over sweeps and particles
-        (``[...]`` = the batch shape without N)."""
+        (``[...]`` = the batch shape without N). With ``sqjumpdist_tol``
+        set, a key a sweep (``early_stop_sweeps``)."""
         run = (mh_sweep.mh_sweeps_reference if self.backend == "torch"
                else mh_sweep.mh_sweeps)
         return _run_fused(run, self.proposal(ctx.prior), self.num_iters,
-                          generator, ctx, counts, state)
+                          generator, ctx, counts, state,
+                          self.sqjumpdist_tol)
 
 
 def _run_fused(run, proposal, num_iters, generator, ctx: TargetContext,
-               counts, state: KernelState):
+               counts, state: KernelState, sqjumpdist_tol=None):
     """``run`` (a fused sweep loop of ``ops/``, or its plain version) over
-    the state flattened to the kernels' ``[G, N, ...]`` layouts, on one
-    64-bit Philox key drawn from ``generator``; returns the final state and
-    the acceptance rate averaged over sweeps and particles."""
+    the state flattened to the kernels' ``[G, N, ...]`` layouts; returns
+    the final state and the acceptance rate averaged over sweeps and
+    particles. ``num_iters`` sweeps on one 64-bit Philox key drawn from
+    ``generator``, or with ``sqjumpdist_tol`` one sweep a call, each on a
+    key of its own, until ``early_stop_sweeps`` stops."""
+    if sqjumpdist_tol is None:
+        state, acc = _fused_sweeps(run, proposal, num_iters, generator, ctx,
+                                   counts, state)
+        return state, acc.mean(-1)
+
+    def sweep(_, st):
+        return _fused_sweeps(run, proposal, 1, generator, ctx, counts, st)
+
+    state, acc_rate, _ = early_stop_sweeps(sweep, state, num_iters,
+                                           sqjumpdist_tol)
+    return state, acc_rate
+
+
+def early_stop_sweeps(sweep, state: KernelState, num_iters: int, tol):
+    """Sweep until the batch-mean squared location jump of a sweep falls
+    below ``tol``, at most ``num_iters`` sweeps (the JAX package's
+    ``_run_sweeps_early_stop``: rejected proposals jump 0, so the statistic
+    is the accepted moves' mixing speed). ``sweep(i, state)`` runs sweep
+    ``i`` and returns ``(state, applied [..., N])``. The statistic is
+    formed on the tensors' device and read to the host once a sweep.
+    Returns the state, the applied fraction averaged over the sweeps run
+    and the particles (``[...]``), and the number of sweeps run."""
+    acc = torch.zeros(state.fluxes.shape[:-1], dtype=torch.float32,
+                      device=state.fluxes.device)
+    done = 0
+    while done < num_iters:
+        new, applied = sweep(done, state)
+        sqjd = ((new.locs - state.locs) ** 2).sum((-1, -2)).mean()
+        acc = acc + applied.to(torch.float32)
+        state, done = new, done + 1
+        if not float(sqjd) >= tol:  # a NaN statistic stops, as in JAX
+            break
+    return state, (acc / max(done, 1)).mean(-1), done
+
+
+def _fused_sweeps(run, proposal, num_iters, generator, ctx: TargetContext,
+                  counts, state: KernelState):
+    """``num_iters`` sweeps of ``run`` on one key drawn from
+    ``generator``; returns the final state and the applied fraction of
+    each particle (``counts``' shape)."""
     batch = counts.shape
     N = batch[-1]
     G = counts.numel() // N
@@ -311,7 +356,7 @@ def _run_fused(run, proposal, num_iters, generator, ctx: TargetContext,
         else child_out[0].reshape(state.child_rate.shape),
         child_ll=None if child is None else child_out[1].reshape(batch),
     )
-    return new_state, acc.reshape(batch).mean(-1)
+    return new_state, acc.reshape(batch)
 
 
 class SingleComponentMALA:
@@ -336,10 +381,6 @@ class SingleComponentMALA:
         if backend not in ("auto", "torch"):
             raise ValueError(f"backend must be 'auto' or 'torch', got "
                              f"{backend!r}")
-        if sqjumpdist_tol is not None:
-            raise NotImplementedError(
-                "sqjumpdist_tol early stopping is not ported yet"
-            )
 
         def t(v):
             return torch.as_tensor(v, dtype=torch.float32, device=device)
@@ -350,6 +391,9 @@ class SingleComponentMALA:
         self.fluxes_min = t(fluxes_min)
         self.fluxes_max = t(fluxes_max)
         self.backend = backend
+        # stop sweeping once a sweep's batch-mean squared location jump
+        # falls below this (None: always num_iters sweeps)
+        self.sqjumpdist_tol = sqjumpdist_tol
 
     def proposal(self, prior) -> MHProposal:
         """The step sizes and flux bounds, in the fields the kernels read
@@ -487,7 +531,8 @@ class SingleComponentMALA:
         run = (mala_sweep.mala_sweeps_reference if self.backend == "torch"
                else mala_sweep.mala_sweeps)
         return _run_fused(run, self.proposal(ctx.prior), self.num_iters,
-                          generator, ctx, counts, state)
+                          generator, ctx, counts, state,
+                          self.sqjumpdist_tol)
 
 
 def relocate_sweep(ctx: TargetContext, counts, state: KernelState, u_j,

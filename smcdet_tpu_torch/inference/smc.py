@@ -13,6 +13,10 @@
 - The mutation caches are re-rendered from the resampled particles every
   iteration (carrying them through resampling lets f32 drift loosen the
   tempering steps).
+- ``record_history`` keeps each iteration's temperature, per-stratum ESS
+  and acceptance in device buffers indexed by the host's iteration count,
+  so recording adds no host read; ``fixed_schedule`` replaces the ESS
+  bisection by a ladder of temperatures.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -72,6 +77,12 @@ class SMCConfig:
     # (kernels.pair_redistribute_sweeps): flux and separation move between
     # a nearby pair, the split mode single-star moves cannot leave
     pair_sweeps: int = 0
+    # keep the temperature, per-stratum ESS and acceptance of every
+    # iteration in SMCResult.history ([max_smc_iters, T(, C)] buffers)
+    record_history: bool = False
+    # a tempering ladder (ending at 1.0) in place of the adaptive ESS
+    # bisection: iteration i tempers to fixed_schedule[min(i, len - 1)]
+    fixed_schedule: Optional[tuple] = None
 
 
 class SMCState(NamedTuple):
@@ -86,6 +97,7 @@ class SMCState(NamedTuple):
     ess: torch.Tensor  # [T, C]
     acc_rate: torch.Tensor  # [T]
     iteration: int
+    history: Optional[dict] = None  # {temperature, ess, acc_rate} buffers
 
 
 class SMCResult(NamedTuple):
@@ -104,6 +116,8 @@ class SMCResult(NamedTuple):
     ess: torch.Tensor  # [T, C]
     num_iters: int
     acc_rate: torch.Tensor  # [T]
+    # [max_smc_iters, T], [max_smc_iters, T, C], [max_smc_iters, T]: row i
+    # holds iteration i + 1's values (zeros past the last iteration)
     history: Optional[dict] = None
 
 
@@ -119,13 +133,21 @@ def _counts(prior, T, N):
 
 
 def _temper_and_reweight(cfg, state: SMCState, loglik) -> SMCState:
-    """Adaptive tempering + incremental weight / logZ / ESS update, per
-    count stratum, with the tile's step the minimum over its strata."""
+    """Adaptive tempering (or the next rung of ``cfg.fixed_schedule``) +
+    incremental weight / logZ / ESS update, per count stratum, with the
+    tile's step the minimum over its strata."""
     T, C, N = loglik.shape
     done = state.temperature >= 1.0
-    delta_c = solve_tempering_step(loglik, state.temperature[:, None],
-                                   cfg.ess_threshold_prop * N)
-    delta = torch.where(done, 0.0, delta_c.min(-1).values)
+    if cfg.fixed_schedule is not None:
+        rung = min(state.iteration, len(cfg.fixed_schedule) - 1)
+        # the rung as the float32 the JAX package's schedule array holds
+        target = float(np.float32(cfg.fixed_schedule[rung]))
+        delta = torch.where(done, 0.0, torch.clamp(
+            target - state.temperature, 0.0, 1.0))
+    else:
+        delta_c = solve_tempering_step(loglik, state.temperature[:, None],
+                                       cfg.ess_threshold_prop * N)
+        delta = torch.where(done, 0.0, delta_c.min(-1).values)
     temperature = torch.clamp(state.temperature + delta, 0.0, 1.0)
 
     w_log = torch.nan_to_num(delta[:, None, None] * loglik, nan=-math.inf,
@@ -178,6 +200,11 @@ def csmc_init(generator, images, prior, model, cfg: SMCConfig) -> SMCState:
         ess=torch.full((T, C), float(N), device=dev),
         acc_rate=zeros_t,
         iteration=0,
+        history=None if not cfg.record_history else {
+            "temperature": torch.zeros((cfg.max_smc_iters, T), device=dev),
+            "ess": torch.zeros((cfg.max_smc_iters, T, C), device=dev),
+            "acc_rate": torch.zeros((cfg.max_smc_iters, T), device=dev),
+        },
     )
     ctx = _context(prior, model, images, state.temperature)
     kstate = init_kernel_state(ctx, _counts(prior, T, N), locs, fluxes)
@@ -232,7 +259,15 @@ def csmc_step(images, prior, model, kernel, cfg: SMCConfig,
     )
     loglik = torch.where(keep, state.loglik, kstate.parent_ll)
     with record_function("smc.temper"):
-        return _temper_and_reweight(cfg, state, loglik)
+        state = _temper_and_reweight(cfg, state, loglik)
+    if state.history is not None:
+        # written in place at the host's iteration count: no host read
+        i = state.iteration - 1
+        for name, value in (("temperature", state.temperature),
+                            ("ess", state.ess),
+                            ("acc_rate", state.acc_rate)):
+            state.history[name][i] = value
+    return state
 
 
 def csmc_finalize(prior, model, cfg: SMCConfig, state: SMCState) -> SMCResult:
@@ -269,6 +304,7 @@ def csmc_finalize(prior, model, cfg: SMCConfig, state: SMCState) -> SMCResult:
         ess=state.ess,
         num_iters=state.iteration,
         acc_rate=state.acc_rate,
+        history=state.history,
     )
 
 
@@ -350,7 +386,8 @@ def run_csmc_chunked(generator, images, prior, model, kernel,
     ``sort_tiles`` processes tiles in order of total image flux: every tile
     of a chunk runs to the chunk's longest tempering schedule, so grouping
     similar tiles wastes fewer iterations. Results come back in the
-    caller's tile order. ``num_iters`` is the largest over chunks.
+    caller's tile order. ``num_iters`` is the largest over chunks; a
+    recorded history is concatenated along its tile axis.
     """
     T = images.shape[0]
     if budget_bytes is None:
@@ -372,16 +409,23 @@ def run_csmc_chunked(generator, images, prior, model, kernel,
         mdl = model if bg is None else model.with_background(bg[i:i + size])
         parts.append(run_csmc(generator, images[i:i + size], prior, mdl,
                               kernel, cfg))
+    inv = None if order is None else torch.argsort(order)
+
+    def joined(vals, axis):
+        # the chunks' tensors along the tile axis, in the caller's order
+        v = torch.cat(vals, dim=axis)
+        return v if inv is None else v.index_select(axis, inv)
+
     out = {}
     for f in SMCResult._fields:
         vals = [getattr(p, f) for p in parts]
         if f == "num_iters":
             out[f] = max(vals)
         elif f == "history":
-            out[f] = None
+            out[f] = None if vals[0] is None else {
+                k: joined([v[k] for v in vals], 1) for k in vals[0]}
         else:
-            v = torch.cat(vals, dim=0)
-            out[f] = v if order is None else v[torch.argsort(order)]
+            out[f] = joined(vals, 0)
     return SMCResult(**out)
 
 

@@ -123,14 +123,17 @@ class ImageModel:
 
     # ------------------------------------------------------------------
     def sample(self, generator, locs, fluxes):
-        """Draw a noisy image given a catalog."""
+        """Draw a noisy image given a catalog. The noise is drawn on the
+        generator's device (a CPU generator gives the same image on every
+        machine) and the image lies on the catalog's."""
         rate = self.render(locs, fluxes)
+        gdev = generator.device
         if self.noise == "poisson":
-            return torch.poisson(rate, generator=generator)
+            return torch.poisson(rate.to(gdev),
+                                 generator=generator).to(rate.device)
         var = self.noise_additive + self.noise_multiplicative * rate
-        noise = torch.randn(rate.shape, generator=generator,
-                            device=rate.device)
-        return rate + torch.sqrt(var) * noise
+        noise = torch.randn(rate.shape, generator=generator, device=gdev)
+        return rate + torch.sqrt(var) * noise.to(rate.device)
 
 
 def M71ImageModel(image_height, image_width, background, adu_per_nmgy,

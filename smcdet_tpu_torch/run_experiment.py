@@ -12,7 +12,14 @@ naming the file in it (default ``config.yaml``); a relative ``data_path``
 that does not exist from the working directory is read from the suite
 directory (``experiments/m71/config.yaml`` reads
 ``experiments/m71/data/m71/tiles.npz``). ``--generate`` writes the
-simulated tiles to ``{output_dir}/{name}/tiles.npz`` instead of running.
+simulated tiles to ``{output_dir}/{name}/tiles.npz`` instead of running;
+for a suite with per-tile backgrounds and no tiles of its own (the
+m71semisynthetic configs) it renders the m71 fixture's ``--catalog`` stars
+on ``--device`` instead (``smcdet_tpu_torch/semisynthetic.py``):
+
+    python -m smcdet_tpu_torch.run_experiment experiments/m71semisynthetic \\
+        --config config_reach.yaml --generate --catalog reach
+
 ``--method mcmc`` runs the saturated MH chain baseline (one chain per tile,
 the config's ``mcmc`` settings) instead of CS-SMC.
 ``--device`` defaults to ``cuda`` and is never swapped for another device:
@@ -43,16 +50,24 @@ def _config_path(experiment: str, config: str | None) -> Path:
 
 def load_suite_config(experiment: str, config: str | None = None):
     """The config of a suite (a config file, or a suite directory and the
-    file in it), its relative ``data_path`` resolved against the suite
-    directory when it does not exist from the working directory (the JAX
-    experiment scripts run from there)."""
+    file in it), its relative ``data_path`` and ``params_path`` resolved
+    against the suite directory when they do not exist from the working
+    directory (the JAX experiment scripts run from there)."""
     path = _config_path(experiment, config)
     cfg = load_config(path)
-    if cfg.data_path is not None and not Path(cfg.data_path).exists():
-        local = path.parent / cfg.data_path
-        if local.exists():
-            cfg.data_path = str(local)
+    for name in ("data_path", "params_path"):
+        value = getattr(cfg, name)
+        if value is not None and not Path(value).exists():
+            local = path.parent / value
+            if local.exists():
+                setattr(cfg, name, str(local))
     return cfg
+
+
+def _check_device(device):
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA card is available "
+                         "(torch.cuda.is_available() is False)")
 
 
 def main(argv=None):
@@ -74,16 +89,33 @@ def main(argv=None):
     parser.add_argument("--method", default="smc", choices=("smc", "mcmc"),
                         help="CS-SMC (default) or the MH chain baseline")
     parser.add_argument("--generate", action="store_true",
-                        help="write the simulated tiles.npz and exit")
+                        help="write the simulated (or, for the "
+                             "m71semisynthetic suites, rendered) tiles.npz "
+                             "and exit")
+    parser.add_argument("--catalog", default=None,
+                        choices=("padded", "intile", "reach"),
+                        help="with --generate on an m71semisynthetic suite: "
+                             "the fixture catalog to render (default "
+                             "padded)")
     args = parser.parse_args(argv)
 
     cfg = load_suite_config(args.experiment, args.config)
     if args.num_images is not None:
         cfg.num_images = args.num_images
+    device = torch.device(args.device)
     if args.generate:
+        from smcdet_tpu_torch import semisynthetic
         from smcdet_tpu_torch.runner import simulate_tiles
 
-        tiles = simulate_tiles(cfg)
+        if semisynthetic.renders_fixture(cfg):
+            _check_device(device)
+            tiles = semisynthetic.render_tiles(
+                cfg, args.catalog or "padded", cfg.num_images, device)
+        elif args.catalog is not None:
+            raise SystemExit("--catalog applies to the m71semisynthetic "
+                             "suites only")
+        else:
+            tiles = simulate_tiles(cfg)
         out_dir = Path(cfg.output_dir) / cfg.name
         out_dir.mkdir(parents=True, exist_ok=True)
         path = out_dir / "tiles.npz"
@@ -91,10 +123,7 @@ def main(argv=None):
         print(f"saved {tiles['images'].shape[0]} tiles to {path}")
         return
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA card is available "
-                         "(torch.cuda.is_available() is False)")
+    _check_device(device)
     from smcdet_tpu_torch.runner import run_experiment
 
     out = run_experiment(cfg, method=args.method, job_index=args.job_index,

@@ -93,6 +93,12 @@ def _load_tiles(cfg: ExperimentConfig):
         raise FileNotFoundError(
             f"{path} not found: run the experiment's data-prep step first"
         )
+    if cfg.use_tile_backgrounds:
+        # a simulation has no background maps: the suite renders the m71
+        # fixture's catalogs (smcdet_tpu_torch/semisynthetic.py)
+        raise FileNotFoundError(
+            f"{path} not found: write it with python -m "
+            "smcdet_tpu_torch.run_experiment <suite> --generate")
     return simulate_tiles(cfg)
 
 

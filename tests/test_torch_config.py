@@ -162,9 +162,12 @@ def test_build_kernel_mala_names_missing_kernel():
     for name in ("locs_step", "fluxes_step", "fluxes_min", "fluxes_max"):
         assert float(getattr(tk, name)) == float(getattr(jk, name)), name
     assert tk.backend == "auto"
-    with pytest.raises(NotImplementedError, match="sqjumpdist"):
-        tcfg.build_kernel(tcfg.KernelConfig(sqjumpdist_tol=1e-3, **kc),
-                          device="cpu")
+    # the early stop is ported (tests/test_torch_early_stop.py)
+    kc_stop = dict(kc, sqjumpdist_tol=1e-3)
+    assert (tcfg.build_kernel(tcfg.KernelConfig(**kc_stop),
+                              device="cpu").sqjumpdist_tol
+            == jcfg.build_kernel(jcfg.KernelConfig(**kc_stop)).sqjumpdist_tol
+            == 1e-3)
     with pytest.raises(ValueError, match="kernel kind"):
         tcfg.build_kernel(tcfg.KernelConfig(kind="nope"))
 

@@ -954,3 +954,63 @@ def test_extractor_on_cuda_matches_the_cpu(dev):
         torch.testing.assert_close(b[2][same], a[2][same], rtol=1e-4,
                                    atol=1e-3)
         assert int(a[0].sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["mh", "mala"])
+def test_early_stop_launches_a_kernel_a_sweep(dev, kind):
+    """``sqjumpdist_tol`` on CUDA tensors: one launch of the target's
+    kernel a sweep, counted (K1 for the M71 target, K4 under MALA): a
+    tolerance of 0 runs every sweep, a huge one stops after one; the
+    result equals the one-sweep run on the same generator bit for bit."""
+    import copy
+
+    kernel, ctx, counts, locs, fluxes = _target(dev, N=256)
+    if kind == "mala":
+        kernel = SingleComponentMALA(20, 0.05, 2.0, 0.252, 1804.679,
+                                     device=dev)
+    counter = (mala_sweep.mala_sweeps, "launches") if kind == "mala" else (
+        mh_sweep.mh_sweeps, "launches")
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    for tol, sweeps in ((0.0, 7), (1e9, 1)):
+        k = copy.copy(kernel)
+        k.num_iters, k.sqjumpdist_tol = 7, tol
+        before = getattr(*counter)
+        st, acc = k.run_from_state(torch.Generator(device=dev).manual_seed(3),
+                                   ctx, counts, state)
+        torch.cuda.synchronize()
+        assert getattr(*counter) == before + sweeps
+        assert torch.isfinite(st.parent_ll).all()
+    one = copy.copy(kernel)
+    one.num_iters, one.sqjumpdist_tol = 1, None
+    want, acc_want = one.run_from_state(
+        torch.Generator(device=dev).manual_seed(3), ctx, counts, state)
+    assert torch.equal(st.locs, want.locs) and torch.equal(acc, acc_want)
+
+
+def test_early_stop_failed_launch_raises_and_never_falls_back(dev,
+                                                              monkeypatch):
+    """A launch that fails inside the early-stop loop raises out of the
+    mutation; the plain version is never run in its place."""
+    kernel, ctx, counts, locs, fluxes = _target(dev, N=256)
+    kernel.sqjumpdist_tol = 0.0
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+
+    def forbidden(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    calls = []
+    launch = mh_sweep.launch
+
+    def failing(*a, **k):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("K1 sweep kernel launch failed")
+        return launch(*a, **k)
+
+    monkeypatch.setattr(mh_sweep, "mh_sweeps_reference", forbidden)
+    monkeypatch.setattr(mh_sweep, "sweep_with_uniforms", forbidden)
+    monkeypatch.setattr(mh_sweep, "launch", failing)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel.run_from_state(torch.Generator(device=dev).manual_seed(0),
+                              ctx, counts, state)
+    assert len(calls) == 3

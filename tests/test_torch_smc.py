@@ -211,11 +211,24 @@ def test_smc_sampler_end_to_end():
 
 def test_unported_options_raise():
     # relocate_sweeps and pair_sweeps are ported (tests/test_torch_relocate.py,
-    # tests/test_torch_pair.py)
+    # tests/test_torch_pair.py), and so are sqjumpdist_tol, record_history
+    # and fixed_schedule (tests/test_torch_early_stop.py,
+    # tests/test_torch_history.py)
     assert tsmc.SMCConfig(num_catalogs=8, relocate_sweeps=4).relocate_sweeps
     assert tsmc.SMCConfig(num_catalogs=8, pair_sweeps=4).pair_sweeps == 4
-    with pytest.raises(NotImplementedError):
-        SingleComponentMH(num_iters=10, sqjumpdist_tol=1e-2)
+    assert SingleComponentMH(num_iters=10, sqjumpdist_tol=1e-2,
+                             device="cpu").sqjumpdist_tol == 1e-2
+    cfg = tsmc.SMCConfig(num_catalogs=8, record_history=True,
+                         fixed_schedule=(0.5, 1.0))
+    assert cfg.record_history and cfg.fixed_schedule == (0.5, 1.0)
+    # the streaming tile pool is not ported
+    from smcdet_tpu_torch.config import ExperimentConfig
+    from smcdet_tpu_torch.runner import run_experiment
+
+    stream = ExperimentConfig()
+    stream.sampler.streaming = True
+    with pytest.raises(NotImplementedError, match="streaming"):
+        run_experiment(stream, device="cpu")
 
 
 def test_smc_sampler_takes_the_jax_signature(capsys):

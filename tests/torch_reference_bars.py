@@ -4,8 +4,11 @@
 share the JAX reference (``smcdet_tpu.runner.run_experiment``) reaches on
 the CPU on the same tiles. This script computes those bars: it simulates the
 suite's first ``--num-images`` tiles with the port's ``simulate_tiles`` (the
-suite's own seed), stages them as the JAX runner's ``tiles.npz`` and runs the
-JAX runner on them once per ``--seeds`` value, with the overrides given.
+suite's own seed), or for an m71semisynthetic suite renders them with the
+port's generate step on the CPU (``semisynthetic.render_tiles``, the
+padded catalogs; the same tiles the card renders), stages them as the
+JAX runner's ``tiles.npz`` and runs the JAX runner on them once per
+``--seeds`` value, with the overrides given.
 
     JAX_PLATFORMS=cpu python tests/torch_reference_bars.py \\
         experiments/basic/config.yaml --num-images 20 --seeds 0 1 \\
@@ -65,12 +68,17 @@ def main():
     from smcdet_tpu import config as jcfg
     from smcdet_tpu import runner as jrunner
     from smcdet_tpu.inference.aggregate import Aggregate
-    from smcdet_tpu_torch import config as tcfg
+    from smcdet_tpu_torch import semisynthetic
+    from smcdet_tpu_torch.run_experiment import load_suite_config
     from smcdet_tpu_torch.runner import simulate_tiles
 
-    pcfg = tcfg.load_config(args.config)
+    pcfg = load_suite_config(args.config)
     pcfg.num_images = args.num_images
-    tiles = simulate_tiles(pcfg)
+    if semisynthetic.renders_fixture(pcfg):
+        tiles = semisynthetic.render_tiles(pcfg, "padded", args.num_images,
+                                           device="cpu")
+    else:
+        tiles = simulate_tiles(pcfg)
     truth = tiles["true_counts"]
     print(f"true pruned counts {truth.tolist()}", flush=True)
 
