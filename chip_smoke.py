@@ -4,8 +4,9 @@
 
 Phases (a failing phase raises; there is no CPU fallback):
 
-1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc and
-   scipy versions; exits non-zero without a CUDA card;
+1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc,
+   scipy, triton and matplotlib versions ("absent" where not installed);
+   exits non-zero without a CUDA card;
 2. build: compiles the kernels from ``smcdet_tpu_torch/csrc`` (one nvcc
    per source, in parallel) into ``build/``;
 3. K5: the dependent FP32 / SFU chains against their plain version at
@@ -134,7 +135,25 @@ Phases (a failing phase raises; there is no CPU fallback):
 24. m71ss: the m71semisynthetic generate step on all 688 fixture tiles in
     each catalog mode, then an 8-tile cut through ``run_experiment`` at 10
     sampler seeds, its tile-runs within +-1 held to the JAX runner's on
-    the same tiles and seeds (``binomial_floor``).
+    the same tiles and seeds (``binomial_floor``);
+25. bench: K1 at the bench's launch shapes (a 14-tile chunk and the
+    28-slot pool at N = 4096, the quick cell) against its plain version
+    (``launch_agreement``) and its bound; then the headline workload
+    through ``smcdet_tpu_torch.bench``'s sorted-chunk main on the quick
+    cell and the 332-tile frame (``bench.py``'s own tiles: every tile at
+    temperature 1, every mutate call a K1 launch and no other kernel, peak
+    memory under one chunk's estimate, the quick tiles' +-1 share at or
+    above the JAX runner's), and the frame at chunks of 28, 56 and the
+    memory model's largest, printed for information;
+26. stream: the bench's ``--streaming`` main (the tile pool,
+    ``inference/streaming.py``) on the quick cell and the frame at 28
+    slots, held as ``[bench]`` with the peak under the pool's estimate
+    plus its results, tiles/s and iterations a tile beside the sorted
+    chunks'; then ``torch.profiler`` over a streaming run of 56 tiles: the
+    device's idle share, the host's time a step and the scheduler's
+    ``stream.*`` ranges; then the pool through ``run_experiment`` (one
+    basic batch with ``sampler.streaming``, K2) and
+    ``SMCSampler.run(streaming=True)`` (K1).
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -162,6 +181,13 @@ import torch
 # (smcdet_tpu run_csmc_chunked, sort_tiles=True) run on CPU on the same
 # tiles with the same configuration: 16/16 with seeds 0 and 1 (PERF.md).
 REFERENCE_COUNT_SHARE = 1.0
+
+# The same share on the bench's own 16 quick tiles (``bench.py``'s draw,
+# ``smcdet_tpu_torch/bench_tiles.npz``) at the same configuration, for the
+# JAX package's bench problem (``tests/torch_reference_bars.py bench
+# --num-images 16``, CPU): 15/16 with seed 1 (PERF.md). Held by
+# ``[bench]`` and ``[stream]``.
+BENCH_REFERENCE_COUNT_SHARE = 15 / 16
 
 # The basic suite's first batch (``run_experiment`` with num_images = 20:
 # the port's simulated tiles, seed 0): its true pruned counts, and the share
@@ -367,43 +393,14 @@ MALA_UPDATE_OPS = (190, 21)
 MALA_PARETO_OPS = (6, 4)
 
 
-def build_problem(device, num_tiles=16, num_catalogs=2048, mh_steps=100,
-                  max_smc_iters=100):
-    """The bench's M71 quick cell. Tiles are simulated on a CPU generator
-    (the same on every machine) and returned on the CPU."""
-    from smcdet_tpu_torch.inference.kernels import SingleComponentMH
-    from smcdet_tpu_torch.inference.smc import SMCConfig
-    from smcdet_tpu_torch.models.imaging import M71ImageModel
-    from smcdet_tpu_torch.models.priors import M71Prior
-    from smcdet_tpu_torch.models.simulate import generate_images
+def build_problem(device, **kwargs):
+    """The bench's M71 problem (``smcdet_tpu_torch.bench.build_problem``) on
+    the port's own simulated tiles (a CPU generator seeded 7, the same on
+    every machine), on which ``[main]``'s bar was taken; the tiles are
+    returned on the CPU."""
+    from smcdet_tpu_torch.bench import build_problem as bench_problem
 
-    def prior_on(dev):
-        return M71Prior(min_objects=0, max_objects=6, counts_rate=0.03,
-                        image_height=TILE, image_width=TILE,
-                        flux_alpha=0.214, flux_lower=0.252,
-                        flux_upper=1804.679, pad=1.0, device=dev)
-
-    def model_on(dev):
-        return M71ImageModel(
-            image_height=TILE, image_width=TILE, background=179.0,
-            adu_per_nmgy=155.0,
-            psf_params=(1.33, 4.82, 3.15, 3.0, 0.06, 0.002), psf_radius=8,
-            noise_additive=0.0, noise_multiplicative=1.94, device=dev,
-        )
-
-    sim = generate_images(torch.Generator().manual_seed(7), prior_on("cpu"),
-                          model_on("cpu"), flux_threshold=0.7,
-                          loc_threshold_lower=0.0,
-                          loc_threshold_upper=float(TILE),
-                          num_images=num_tiles)
-    kernel = SingleComponentMH(num_iters=mh_steps, locs_stdev=0.25,
-                               fluxes_stdev=5.0, fluxes_min=0.252,
-                               fluxes_max=1804.679, device=device)
-    cfg = SMCConfig(num_catalogs=num_catalogs, ess_threshold_prop=0.5,
-                    resample_method="systematic",
-                    max_smc_iters=max_smc_iters,
-                    flux_detection_threshold=0.7)
-    return sim, prior_on(device), model_on(device), kernel, cfg
+    return bench_problem(device, tiles="simulate", **kwargs)
 
 
 def suite_problem(device, suite):
@@ -470,17 +467,26 @@ def phase_device():
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     nvcc = _run([_build.nvcc_path(), "--version"]).splitlines()
-    try:
-        import scipy  # the analyzer's SBC test (validation.py) needs it
-
-        scipy_version = scipy.__version__
-    except ImportError:
-        scipy_version = "not installed"
+    # scipy: the analyzer's SBC test (validation.py); triton and matplotlib:
+    # nothing in the port needs them yet
+    versions = {name: _version(name)
+                for name in ("scipy", "triton", "matplotlib")}
     print(smi)  # the card's name and power limit, as nvidia-smi prints them
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"nvcc: {nvcc[-1] if nvcc else 'unknown'}, scipy {scipy_version}, "
-          f"{torch.cuda.device_count()} card(s)")
+          f"nvcc: {nvcc[-1] if nvcc else 'unknown'}, "
+          + ", ".join(f"{k} {v}" for k, v in versions.items())
+          + f", {torch.cuda.device_count()} card(s)")
     return smi
+
+
+def _version(module):
+    """An installed module's version, or "absent"."""
+    import importlib
+
+    try:
+        return importlib.import_module(module).__version__
+    except ImportError:
+        return "absent"
 
 
 def _kernel_label(mangled):
@@ -524,14 +530,17 @@ def launch_geometry(fn):
     ``per_sm`` the blocks one SM holds at once by the kernel's registers,
     shared memory and block size (whole warps' registers in units of 256,
     1 KiB of shared memory reserved per block), ``waves`` the blocks over
-    all SMs' room, and ``device_ms`` the kernel's time in the trace. Empty
-    where the trace does not give the grid."""
+    all SMs' room, and ``device_ms`` the kernel's time in the trace. ``fn``
+    runs once untraced before each of up to three traces. Only
+    ``device_ms`` where the trace does not give the grid; empty where no
+    trace holds the kernel."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
 
     found = []
     for _ in range(3):  # a trace now and then lacks the kernel: try again
+        fn()  # warm: the traced launch is never a first one
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -542,30 +551,31 @@ def launch_geometry(fn):
             with open(path) as f:
                 events = json.load(f).get("traceEvents", [])
         found = [e for e in events if e.get("cat") == "kernel"
-                 and kernel_id(e.get("name", ""))]
+                 and kernel_id(e.get("name", "")) and "dur" in e]
         if found:
             break
+    if not found:
+        return {}
+    out = {"device_ms": float(found[-1]["dur"]) / 1e3}
     try:
         args = found[-1].get("args", {})
-        device_ms = float(found[-1]["dur"]) / 1e3
         blocks = int(np.prod(args["grid"]))
         threads = int(np.prod(args["block"]))
         regs = int(args["registers per thread"])
         smem = int(args["shared memory"])
-    except (IndexError, KeyError, TypeError, ValueError):
-        return {}
+    except (KeyError, TypeError, ValueError):
+        return out
     props = torch.cuda.get_device_properties(0)
     warps = -(-threads // 32)
     warp_regs = -(-regs * 32 // 256) * 256
     per_sm = min(2048 // threads, 32, 65536 // (warp_regs * warps),
                  233472 // (smem + 1024))
-    return {"blocks": blocks, "per_sm": per_sm,
-            "waves": blocks / (props.multi_processor_count * per_sm),
-            "device_ms": device_ms}
+    return {**out, "blocks": blocks, "per_sm": per_sm,
+            "waves": blocks / (props.multi_processor_count * per_sm)}
 
 
 def _geometry_text(geo):
-    if not geo:
+    if "blocks" not in geo:
         return "blocks not measured"
     return (f"{geo['blocks']} blocks, {geo['per_sm']} per SM, "
             f"{geo['waves']:.2f} waves")
@@ -1484,6 +1494,45 @@ def phase_mala_kernel(dev, bridge_levels, peaks):
     return records
 
 
+def time_launch(path, name, args, peaks, child=None, label="shapes"):
+    """Sweep kernel ``name`` (K1, K2 or K4; the router must name it) at the
+    launch ``args`` of ``path``: CUDA-event time of 5 launches, the plain
+    version's of one, the grid (``launch_geometry``), ``launch_agreement``
+    with the plain version, and the bound at the data sheet's peaks and at
+    K5's ``peaks``. Prints one ``[label]`` line; returns the record."""
+    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
+
+    prior, model, sweeps = args[2], args[3], args[12]
+    M = args[8].shape[-1]
+    mala = name == "K4"
+    if mala:
+        assert mala_sweep.mala_kernel(prior, model, M,
+                                      child=child is not None) == name
+        run, plain = mala_sweep.mala_sweeps, mala_sweep.mala_sweeps_reference
+    else:
+        assert mh_sweep.sweep_kernel(prior, model, M) == name
+        run, plain = mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference
+    ms = _time_ms(lambda: run(*args, child=child), reps=5)
+    plain_ms = _time_ms(lambda: plain(*args, child=child), reps=1)
+    geo = launch_geometry(lambda: run(*args, child=child))
+    share = launch_agreement(run, plain, args, child)
+    bound = [sweep_bound(prior, model, args[6], args[9], M, sweeps,
+                         child=child is not None, mala=mala, peaks=p)
+             for p in ((PEAK_FP32, PEAK_SFU), peaks)]
+    G, N = args[6].shape
+    shape = (f"{G} groups x {N}, {model.height}x{model.width}, M={M}, "
+             f"{sweeps} sweeps")
+    print(f"[{label}] {name} {path} ({shape}): kernel {ms:.3f} ms "
+          f"({_geometry_text(geo)}), plain {plain_ms:.3f} ms, bound "
+          f"{bound[0][0]:.4f} ms ({bound[0][1]}; at K5's measured rates "
+          f"{bound[1][0]:.4f} ms); zero-count particles pass through "
+          f"bit-exactly, {share:.6f} of particles agree after 20 "
+          f"same-stream sweeps")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0][0],
+            "bound_by": bound[0][1], "measured_bound_ms": bound[1][0],
+            "shape": shape, "geometry": geo, "agreement": share}
+
+
 def phase_launch_shapes(dev, levels, peaks):
     """The sweep kernels timed at the launch shapes of the paths whose
     launches ``main`` counts but whose shapes no phase above times: K1 at
@@ -1498,43 +1547,12 @@ def phase_launch_shapes(dev, levels, peaks):
     version's time, and held against the plain version at that shape by
     ``launch_agreement``.
     Returns ``{"<path> <kernel>": record}``."""
-    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
-
     key = torch.tensor([12345, 67890], dtype=torch.int64, device=dev)
     records = {}
 
     def timed(path, name, args, child=None):
-        prior, model, sweeps = args[2], args[3], args[12]
-        M = args[8].shape[-1]
-        mala = name == "K4"
-        if mala:
-            assert mala_sweep.mala_kernel(prior, model, M,
-                                          child=child is not None) == name
-            run, plain = mala_sweep.mala_sweeps, \
-                mala_sweep.mala_sweeps_reference
-        else:
-            assert mh_sweep.sweep_kernel(prior, model, M) == name
-            run, plain = mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference
-        ms = _time_ms(lambda: run(*args, child=child), reps=5)
-        plain_ms = _time_ms(lambda: plain(*args, child=child), reps=1)
-        geo = launch_geometry(lambda: run(*args, child=child))
-        share = launch_agreement(run, plain, args, child)
-        bound = [sweep_bound(prior, model, args[6], args[9], M, sweeps,
-                             child=child is not None, mala=mala, peaks=p)
-                 for p in ((PEAK_FP32, PEAK_SFU), peaks)]
-        G, N = args[6].shape
-        shape = (f"{G} groups x {N}, {model.height}x{model.width}, M={M}, "
-                 f"{sweeps} sweeps")
-        print(f"[shapes] {name} {path} ({shape}): kernel {ms:.3f} ms "
-              f"({_geometry_text(geo)}), plain {plain_ms:.3f} ms, bound "
-              f"{bound[0][0]:.4f} ms ({bound[0][1]}; at K5's measured rates "
-              f"{bound[1][0]:.4f} ms); zero-count particles pass through "
-              f"bit-exactly, {share:.6f} of particles agree after 20 "
-              f"same-stream sweeps")
-        records[f"{path} {name}"] = {"ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound[0][0], "bound_by": bound[0][1],
-                         "measured_bound_ms": bound[1][0], "shape": shape,
-                         "geometry": geo}
+        records[f"{path} {name}"] = time_launch(path, name, args, peaks,
+                                                child)
 
     _, tprior, tmodel, mh, _ = _dnc_problem(dev)
     problem = _kernel_inputs(dev, tprior, tmodel, 4, 512, 0)
@@ -2605,8 +2623,10 @@ def chain_vs_plain(dev, label, kid, suite, kind, peaks):
             sweeps / min(sweeps, 20))
         geo = launch_geometry(lambda: run(*args))
         # a block launch is shorter than the host's work between two: its
-        # time is the profiler's, the events' is the host's a launch
-        ms = geo.get("device_ms", wall_ms)
+        # time is the profiler's, the events' is the host's a launch. A
+        # trace that missed the kernel leaves the record unranked: the
+        # host's wall is never a kernel's time
+        ms = geo.get("device_ms")
         bound = [sweep_bound(prior, model, args[6], args[9], M, sweeps,
                              mala=mala, peaks=p)
                  for p in ((PEAK_FP32, PEAK_SFU), peaks)]
@@ -2615,8 +2635,10 @@ def chain_vs_plain(dev, label, kid, suite, kind, peaks):
                "bound_by": bound[0][1], "measured_bound_ms": bound[1][0],
                "shape": f"{T} groups x 1, {model.height}x{model.width}, "
                         f"M={M}, {sweeps} sweeps", "geometry": geo}
+        kernel_text = ("unranked: the trace missed the kernel" if ms is None
+                       else f"{ms:.4f} ms in the trace")
         print(f"[shapes] {kid} {label} MCMC {name} ({rec['shape']}): kernel "
-              f"{ms:.4f} ms in the trace, {wall_ms:.4f} ms a launch back to "
+              f"{kernel_text}, {wall_ms:.4f} ms a launch back to "
               f"back ({_geometry_text(geo)}), plain {plain_ms:.3f} "
               f"ms (timed at {min(sweeps, 20)} sweeps), bound "
               f"{bound[0][0]:.3e} ms ({bound[0][1]}; at K5's measured rates "
@@ -3348,6 +3370,278 @@ def phase_m71ss(dev):
     return launches
 
 
+# ``[bench]``: the sorted-chunk runs of ``smcdet_tpu_torch.bench`` (label,
+# tiles, N, chunk); then, for information, the full frame at these chunks
+# and at the memory model's largest (``max_tiles_per_chunk``)
+BENCH_RUNS = (("quick", 16, 2048, 16), ("full frame", 332, 4096, 14))
+BENCH_INFO_CHUNKS = (28, 56)
+# ``[stream]``: the streaming pool's runs (label, tiles, N, pool), and the
+# profiled run's tiles (the frame's first ones) at the frame's pool
+STREAM_RUNS = (("quick", 16, 2048, 16), ("full frame", 332, 4096, 28))
+STREAM_PROFILE_TILES = 56
+
+
+def phase_bench_shapes(dev, peaks):
+    """K1 at the bench's launch shapes, each timed beside its bound and its
+    plain version and held to it by ``launch_agreement`` (``time_launch``):
+    a 14-tile chunk at N = 4096 (98 groups), the 28-slot pool at N = 4096
+    (196 groups) and the quick cell (112 groups x 2048), 100 sweeps.
+    Returns the records by path."""
+    from smcdet_tpu_torch import bench
+
+    key = torch.tensor([24680, 13579], dtype=torch.int64, device=dev)
+    records = {}
+    for path, tiles, N in (("chunk 14", 14, 4096), ("pool 28", 28, 4096),
+                           ("quick", 16, 2048)):
+        _, prior, model, kernel, _ = bench.build_problem(dev)
+        records[path] = time_launch(
+            f"bench {path}", "K1",
+            _sweep_args(key, kernel, *_kernel_inputs(dev, prior, model, tiles,
+                                                     N, 0), kernel.num_iters),
+            peaks, label="bench")
+    return records
+
+
+def _bench_run(dev, fn, *args, **kwargs):
+    """``fn(dev, *args, **kwargs)`` (``bench.sorted_chunks`` or
+    ``bench.streaming``) with the launch counts set to 0 just before and
+    read just after, every mutate call counted: every one a K1 launch, no
+    other kernel launched.
+    Returns the bench's record and info, K1's launches and the peak memory
+    above the allocation before the run."""
+    with _Calls() as calls:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        _reset_launches()
+        record, info = fn(dev, *args, **kwargs)
+        launches = _launches()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    assert calls.tile["mh"] == launches["K1"] > 0, (calls.tile, launches)
+    assert sum(launches.values()) == launches["K1"], launches
+    return record, info, launches["K1"], peak
+
+
+def _bench_share(info):
+    """The share of tiles whose posterior-mean pruned count lies within
+    +-1 of the truth, and the count of them."""
+    within = (info["mean_count"] - info["truth"].float()).abs() <= 1.0
+    return float(within.float().mean()), int(within.sum())
+
+
+def phase_bench(dev):
+    """``[bench]``: the bench module's sorted-chunk main (``BENCH_RUNS``)
+    through ``_bench_run``: every tile at temperature 1 with finite log Z
+    and weights summing to 1 (the bench checks), peak memory under
+    ``run_csmc_chunked``'s estimate for one chunk, the quick tiles' +-1
+    share at or above the JAX runner's (``BENCH_REFERENCE_COUNT_SHARE``);
+    the frame's share, chunks, iterations per chunk and peak printed with
+    the JSON line. Then the full frame at ``BENCH_INFO_CHUNKS`` and at the
+    memory model's largest chunk, printed for information (not in
+    ``[paths]``). Returns K1's launches by run and the runs' infos."""
+    from smcdet_tpu_torch import bench
+    from smcdet_tpu_torch.inference.smc import (
+        default_budget_bytes,
+        max_tiles_per_chunk,
+    )
+
+    prior = bench.build_problem("cpu")[1]
+    launches, infos = {}, {}
+    largest = max_tiles_per_chunk(prior, 4096, TILE * TILE,
+                                  default_budget_bytes(dev))
+    runs = list(BENCH_RUNS) + [(f"full frame chunk {c}", 332, 4096, c)
+                               for c in BENCH_INFO_CHUNKS + (largest,)]
+    for label, T, N, chunk in runs:
+        record, info, n, peak = _bench_run(
+            dev, bench.sorted_chunks, T, N, 100, chunk,
+            label=None if chunk == 14 or T <= 16
+            else f"M71 full frame, chunks of {chunk}")
+        launches[label], infos[label] = n, info
+        share, within = _bench_share(info)
+        print(f"[bench] {label}: {T} tiles, N={N}, chunk {chunk}: "
+              f"{info['chunks']} chunks, SMC iterations per chunk "
+              f"{info['num_iters']}, {info['elapsed']:.3f} s, {within}/{T} "
+              f"tiles within +-1 ({share:.4f}), peak {peak} B "
+              f"({peak / 2**30:.3f} GiB), K1 launches {n}")
+        _check_chunk_budget("bench", label, prior, N, TILE * TILE,
+                            min(chunk, T), peak)
+        print(f"[bench] {label}: {json.dumps(record)}")
+        if label == "quick":
+            assert share >= BENCH_REFERENCE_COUNT_SHARE - 1e-9, (
+                share, BENCH_REFERENCE_COUNT_SHARE)
+    return launches, infos
+
+
+def _result_bytes_per_tile(dev, prior, model, cfg):
+    """Device bytes of one tile's ``SMCResult`` (``csmc_finalize`` of a
+    fresh one-tile state)."""
+    from smcdet_tpu_torch.inference.smc import csmc_finalize, csmc_init
+
+    state = csmc_init(torch.Generator(device=dev).manual_seed(0),
+                      torch.full((1, TILE, TILE), 179.0, device=dev), prior,
+                      model, cfg)
+    res = csmc_finalize(prior, model, cfg, state)
+    return sum(v.numel() * v.element_size() for v in res
+               if isinstance(v, torch.Tensor))
+
+
+def phase_stream(dev, chunked):
+    """``[stream]``: the bench module's ``--streaming`` main (``STREAM_RUNS``)
+    through ``_bench_run``, held as ``[bench]``'s runs, its peak held to
+    the memory model's estimate for the pool plus twice the results it
+    returns (the finalized tiles and their stacking); tiles/s beside the
+    sorted-chunk run on the same tiles (``chunked``: ``[bench]``'s infos)
+    and the mean SMC iterations a tile against the chunks' (every tile of a
+    chunk runs its chunk's longest). Then ``torch.profiler`` over a warm
+    streaming run of the frame's first ``STREAM_PROFILE_TILES`` tiles at
+    the frame's pool: the device's idle share, the host's time a step and
+    the ``stream.*`` ranges' host time. Returns K1's launches by run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smcdet_tpu_torch import bench
+    from smcdet_tpu_torch.inference import smc
+    from smcdet_tpu_torch.inference.streaming import run_csmc_streaming
+
+    launches = {}
+    for label, T, N, pool in STREAM_RUNS:
+        record, info, n, peak = _bench_run(dev, bench.streaming, T, N, 100,
+                                           pool)
+        launches[label] = n
+        share, within = _bench_share(info)
+        _, prior, model, _, cfg = bench.build_problem(dev, T, N)
+        per_tile = smc.chunk_bytes_per_tile(prior, N, TILE * TILE)
+        results = _result_bytes_per_tile(dev, prior, model, cfg)
+        limit = pool * per_tile + 2 * T * results
+        base = chunked[label]
+        real = [min(base["chunk"], T - c * base["chunk"])
+                for c in range(base["chunks"])]
+        chunk_iters = sum(r * i for r, i in zip(real, base["num_iters"])) / T
+        print(f"[stream] {label}: {T} tiles, N={N}, pool {info['pool']}: "
+              f"{info['steps']} steps, {info['elapsed']:.3f} s, "
+              f"{T / info['elapsed']:.4f} tiles/s against the sorted "
+              f"chunks' {T / base['elapsed']:.4f}; mean iterations a tile "
+              f"{record['mean_tile_iters']:.3f} against the chunks' "
+              f"{chunk_iters:.3f} (slot-steps {record['slot_steps']}); "
+              f"{within}/{T} tiles within +-1 ({share:.4f}); K1 launches {n}")
+        print(f"[stream] {label}: peak {peak} B ({peak / 2**30:.3f} GiB) "
+              f"against the pool's estimate {pool * per_tile} B + 2 x "
+              f"{T} x {results} B of results = {limit} B (ratio "
+              f"{peak / limit:.3f})")
+        print(f"[stream] {label}: {json.dumps(record)}")
+        assert peak <= limit, (peak, limit)
+        if label == "quick":
+            assert share >= BENCH_REFERENCE_COUNT_SHARE - 1e-9, (
+                share, BENCH_REFERENCE_COUNT_SHARE)
+
+    label, T, N, pool = STREAM_RUNS[-1]
+    tiles, prior, model, kernel, cfg = bench.build_problem(
+        dev, STREAM_PROFILE_TILES, N)
+    images = tiles.images.to(dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        _, info = run_csmc_streaming(
+            torch.Generator(device=dev).manual_seed(2), images, prior, model,
+            kernel, cfg, pool=pool, return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    # a range's device-side twin spans the gaps between its kernels: only
+    # the kernels are summed
+    kernel_ms, k1_ms, ranges = 0.0, 0.0, {}
+    for e in prof.events():
+        in_range = e.name.startswith(("stream.", "smc."))
+        if e.device_type == DeviceType.CUDA and not in_range:
+            kernel_ms += e.device_time_total / 1e3
+            if kernel_id(e.name) == "K1":
+                k1_ms += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CPU and e.name.startswith(
+                "stream."):
+            n, ms = ranges.get(e.name, (0, 0.0))
+            ranges[e.name] = (n + 1, ms + e.cpu_time_total / 1e3)
+    steps = info["steps"]
+    print(f"[stream] profile: {STREAM_PROFILE_TILES} tiles at pool {pool}, "
+          f"N={N}: {steps} steps, wall {wall * 1e3:.1f} ms, kernels "
+          f"{kernel_ms:.1f} ms (K1 {k1_ms:.1f}), device idle "
+          f"{1 - kernel_ms / (wall * 1e3):.3f}; host {wall * 1e3 / steps:.2f} "
+          f"ms a step")
+    for name in sorted(ranges, key=lambda k: -ranges[k][1]):
+        n, ms = ranges[name]
+        print(f"[stream] profile: {name}: {n} calls, host {ms:.1f} ms "
+              f"({ms / n:.3f} ms a call)")
+    return launches
+
+
+def phase_stream_entry(dev):
+    """The pool through the entry points a user calls: ``run_experiment`` on
+    one batch of ``experiments/basic/config.yaml`` with ``sampler.streaming``
+    (the memory model's pool: all 20 tiles, K2 at basic's batch shape), and
+    ``SMCSampler.run(streaming=True)`` on a 32x32 image tiled from the
+    bench's 16 quick tiles (K1 at the quick cell's shape). Each run's
+    launches counted from 0 and every tile at temperature 1 with finite
+    log Z; the basic batch's +-1 share printed (one draw, not held).
+    Returns the launches by path."""
+    from smcdet_tpu_torch import bench
+    from smcdet_tpu_torch.inference.smc import SMCSampler
+    from smcdet_tpu_torch.runner import load_results, run_experiment
+
+    out = {}
+    cfg = _suite_config("basic")
+    cfg.num_images = cfg.batch_size
+    cfg.sampler.streaming = True
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.output_dir = tmp
+        with _Calls() as calls:
+            _reset_launches()
+            start = time.perf_counter()
+            res = load_results(run_experiment(cfg, device=dev,
+                                              verbose=False))
+            wall = time.perf_counter() - start
+            launches = _launches()
+        truth = _write_tiles(cfg, tmp)["true_counts"]
+    assert launches["K2"] == calls.tile["mh"] > 0, (launches, calls.tile)
+    assert sum(launches.values()) == launches["K2"], launches
+    assert np.all(res["temperature"] == 1.0), res["temperature"]
+    assert np.isfinite(res["log_normalizing_constant"]).all()
+    np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
+    mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+    within = int((np.abs(mean - truth) <= 1.0).sum())
+    out["basic"] = launches["K2"]
+    print(f"[stream] run_experiment basic with sampler.streaming: "
+          f"{cfg.batch_size} tiles, {launches['K2']} K2 launches, "
+          f"{float(res['runtime'][0]):.3f} s batch ({wall:.3f} s with the "
+          f"simulation), {within}/{cfg.batch_size} tiles within +-1 (one "
+          f"draw; the chunked batch's bar {BASIC_REFERENCE_COUNT_SHARE})")
+
+    tiles, prior, model, kernel, cfg = bench.build_problem(dev)
+    image = tiles.images.reshape(4, 4, TILE, TILE).permute(0, 2, 1, 3)
+    sampler = SMCSampler(image.reshape(4 * TILE, 4 * TILE), TILE, prior,
+                         model, kernel, cfg.num_catalogs,
+                         ess_threshold_prop=cfg.ess_threshold_prop,
+                         resample_method=cfg.resample_method,
+                         flux_detection_threshold=0.7)
+    with _Calls() as calls:
+        _reset_launches()
+        start = time.perf_counter()
+        r = sampler.run(torch.Generator(device=dev).manual_seed(1),
+                        streaming=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = _launches()
+    assert launches["K1"] == calls.tile["mh"] > 0, (launches, calls.tile)
+    assert sum(launches.values()) == launches["K1"], launches
+    assert torch.all(r.temperature == 1.0), r.temperature
+    assert torch.isfinite(r.log_normalizing_constant).all()
+    assert torch.equal(sampler.tiled_image.cpu(), tiles.images)
+    out["sampler"] = launches["K1"]
+    print(f"[stream] SMCSampler.run(streaming=True) on the 16 quick tiles "
+          f"as a 32x32 image: {launches['K1']} K1 launches, {wall:.3f} s; "
+          f"posterior mean counts "
+          f"{[round(float(x), 3) for x in sampler.posterior_mean_count()]}")
+    return out
+
+
 def print_paths(paths):
     """``paths``: ``(kernel, path, launches, record)``. Per path, the
     kernel's launches in this run, its launch shape, its time and bound
@@ -3355,6 +3649,11 @@ def print_paths(paths):
     of that over their paths."""
     totals = {}
     for kid, path, n, rec in paths:
+        if rec["ms"] is None:
+            print(f"[paths] {kid} {path}: {n} launches at {rec['shape']}: "
+                  f"unranked (the trace missed the kernel), bound "
+                  f"{rec['bound_ms']:.4g} ms")
+            continue
         gap = n * (rec["ms"] - rec["bound_ms"]) / 1e3
         totals[kid] = totals.get(kid, 0.0) + gap
         print(f"[paths] {kid} {path}: {n} launches at {rec['shape']}: "
@@ -3450,7 +3749,19 @@ def main():
     m71ss = phase_m71ss(dev)
     launches["K2"] += m71ss["K2"]
     print(f"[time] m71ss in {time.perf_counter() - mark:.1f} s")
-    print(f"[done] phases 2-24 in {time.perf_counter() - start:.1f} s on "
+    mark = time.perf_counter()
+    bench_shapes = phase_bench_shapes(dev, peaks)
+    bench, chunked = phase_bench(dev)
+    launches["K1"] += sum(bench.values())
+    print(f"[time] bench in {time.perf_counter() - mark:.1f} s")
+    mark = time.perf_counter()
+    stream = phase_stream(dev, chunked)
+    launches["K1"] += sum(stream.values())
+    stream_entry = phase_stream_entry(dev)
+    launches["K1"] += stream_entry["sampler"]
+    launches["K2"] += stream_entry["basic"]
+    print(f"[time] stream in {time.perf_counter() - mark:.1f} s")
+    print(f"[done] phases 2-26 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
@@ -3490,7 +3801,26 @@ def main():
           for rec in (sqjd_records[label],)],
         ("K1", "quick cell on the ladder", history, records["K1"]),
         ("K2", "m71semisynthetic cut", m71ss["K2"], shapes["m71 tile K2"]),
+        ("K1", "bench quick", bench["quick"], bench_shapes["quick"]),
+        ("K1", "bench full frame (chunk 14)", bench["full frame"],
+         bench_shapes["chunk 14"]),
+        ("K1", "bench full frame (chunk 28, information)",
+         bench["full frame chunk 28"], bench_shapes["pool 28"]),
+        ("K1", "stream quick (pool 16)", stream["quick"],
+         bench_shapes["quick"]),
+        ("K1", "stream full frame (pool 28)", stream["full frame"],
+         bench_shapes["pool 28"]),
+        ("K2", "basic with sampler.streaming", stream_entry["basic"],
+         records["K2 basic"]),
+        ("K1", "SMCSampler.run(streaming=True)", stream_entry["sampler"],
+         bench_shapes["quick"]),
     ])
+    print("[paths] not ranked: the full frame at chunk 56 and at the memory "
+          "model's largest chunk ("
+          + ", ".join(f"{k}: {v} K1 launches" for k, v in bench.items()
+                      if k not in ("quick", "full frame",
+                                   "full frame chunk 28"))
+          + "), launch shapes not timed")
     print("[done] the kernels line: K2's record at the cells shapes, K3's "
           "at one divideandconquer image's level-0 launch, K4's at the basic "
           "shapes")

@@ -98,7 +98,8 @@ class SamplerConfig:
     replicates: int = 1
     # process tiles in total-flux order so chunks temper alike (exact)
     sort_tiles: bool = True
-    # streaming tile pool instead of fixed chunks (not ported)
+    # streaming tile pool instead of fixed chunks (inference/streaming.py;
+    # streaming_pool 0: the memory model's pool size)
     streaming: bool = False
     streaming_pool: int = 0
 

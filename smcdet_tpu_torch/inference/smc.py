@@ -468,13 +468,28 @@ class SMCSampler:
         )
         self.result: SMCResult | None = None
 
-    def run(self, generator=None) -> SMCResult:
+    def run(self, generator=None, streaming=False) -> SMCResult:
+        """Run the sampler over difficulty-sorted chunks of tiles or, with
+        ``streaming=True``, through the swap-on-converge tile pool
+        (``inference/streaming.py``). The memory budget is
+        ``memory_budget_bytes`` where the sampler has it, else
+        ``budget_bytes``."""
         if generator is None:
             generator = torch.Generator(device=self.image.device)
             generator.manual_seed(0)
+        budget = getattr(self, "memory_budget_bytes", self.budget_bytes)
+        if streaming:
+            from smcdet_tpu_torch.inference.streaming import (
+                run_csmc_streaming,
+            )
+
+            self.result = run_csmc_streaming(
+                generator, self.tiled_image, self.prior, self.image_model,
+                self.kernel, self.config, budget_bytes=budget)
+            return self.result
         self.result = run_csmc_chunked(
             generator, self.tiled_image, self.prior, self.image_model,
-            self.kernel, self.config, budget_bytes=self.budget_bytes,
+            self.kernel, self.config, budget_bytes=budget,
             sort_tiles=True,
         )
         return self.result

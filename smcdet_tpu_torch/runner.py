@@ -10,10 +10,11 @@ job skips batches whose file exists (resume) and takes every
 Two pipelines for ``method="smc"``: chunked CS-SMC over the batch's
 tiles, or, with ``aggregation.enabled``, the per-image pipeline (tile the
 image, CS-SMC on its tiles, divide-and-conquer aggregation), which also
-takes per-tile background maps (``use_tile_backgrounds``). The streaming
-pool is not ported yet and raises. ``method="mcmc"`` runs the saturated MH
-chain baseline (``inference/mcmc.py:run_mh``, one chain per tile, per-tile
-backgrounds whatever ``aggregation`` says) and writes
+takes per-tile background maps (``use_tile_backgrounds``); with
+``sampler.streaming`` a batch's tiles run through the swap-on-converge tile
+pool (``inference/streaming.py``) instead. ``method="mcmc"`` runs the
+saturated MH chain baseline (``inference/mcmc.py:run_mh``, one chain per
+tile, per-tile backgrounds whatever ``aggregation`` says) and writes
 ``mcmc_batch{b:04d}.npz``.
 """
 
@@ -33,6 +34,7 @@ from smcdet_tpu_torch.config import (
     build_prior,
 )
 from smcdet_tpu_torch.inference.smc import SMCConfig, run_csmc_chunked
+from smcdet_tpu_torch.inference.streaming import run_csmc_streaming
 from smcdet_tpu_torch.models.simulate import generate_images
 
 __all__ = ["batch_generator", "simulate_tiles", "mcmc_chain",
@@ -107,10 +109,6 @@ def _check_supported(cfg: ExperimentConfig, method: str):
         raise ValueError(f"unknown method {method!r}")
     if method == "mcmc" or cfg.aggregation.enabled:
         return
-    if cfg.sampler.streaming:
-        raise NotImplementedError(
-            "the streaming tile pool is not ported yet (ROADMAP queue 1 "
-            "item 5)")
     if cfg.use_tile_backgrounds:
         raise ValueError(
             "per-tile backgrounds require the per-image pipeline "
@@ -313,9 +311,14 @@ def run_experiment(cfg: ExperimentConfig, method: str = "smc",
         run = _aggregate_runner(cfg, prior, model, kernel, smc_cfg, device)
     else:
         def run(batch, imgs, bkgs=None):
-            res = run_csmc_chunked(batch_generator(cfg.seed, batch, device),
-                                   imgs, prior, model, kernel, smc_cfg,
-                                   sort_tiles=s.sort_tiles)
+            gen = batch_generator(cfg.seed, batch, device)
+            if s.streaming:
+                res = run_csmc_streaming(gen, imgs, prior, model, kernel,
+                                         smc_cfg,
+                                         pool=s.streaming_pool or None)
+            else:
+                res = run_csmc_chunked(gen, imgs, prior, model, kernel,
+                                       smc_cfg, sort_tiles=s.sort_tiles)
             return {f: _to_numpy(getattr(res, f)) for f in res._fields
                     if getattr(res, f) is not None}
     if device.type == "cuda":

@@ -120,15 +120,27 @@ def test_runner_resumes_and_shards_reproducibly(tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("change,match", [
-    (lambda c: setattr(c.sampler, "streaming", True), "queue 1 item 5"),
-])
-def test_runner_rejects_unported_paths(tmp_path, change, match):
-    cfg = _tiny_basic(tmp_path)
-    change(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        trunner.run_experiment(cfg, device="cpu")
-    # method "mcmc" is ported (test_torch_mcmc.py); an unknown one raises
+def test_runner_rejects_unported_paths(tmp_path):
+    """``sampler.streaming`` is ported (the streaming pool: the JAX
+    runner's ``tests/test_runner.py`` streaming case): the streaming
+    runner's outputs have the chunked runner's files, keys and shapes.
+    Method "mcmc" is ported too (test_torch_mcmc.py); an unknown method
+    raises."""
+    chunked = trunner.load_results(trunner.run_experiment(
+        _tiny_basic(tmp_path), device="cpu", verbose=False))
+    cfg = _tiny_basic(tmp_path, out="out_stream")
+    cfg.sampler.streaming = True
+    cfg.sampler.streaming_pool = 1
+    out = trunner.run_experiment(cfg, device="cpu", verbose=False)
+    assert sorted(p.name for p in out.glob("smc_batch*.npz")) == [
+        "smc_batch0000.npz", "smc_batch0001.npz"]
+    stream = trunner.load_results(out)
+    assert sorted(stream) == sorted(chunked)
+    for k in chunked:
+        assert stream[k].shape == chunked[k].shape, k
+        assert stream[k].dtype == chunked[k].dtype, k
+    assert np.isfinite(stream["log_normalizing_constant"]).all()
+    np.testing.assert_allclose(stream["weights"].sum(-1), 1.0, rtol=1e-5)
     with pytest.raises(ValueError, match="unknown method 'sampler'"):
         trunner.run_experiment(_tiny_basic(tmp_path), method="sampler",
                                device="cpu")

@@ -221,14 +221,20 @@ def test_unported_options_raise():
     cfg = tsmc.SMCConfig(num_catalogs=8, record_history=True,
                          fixed_schedule=(0.5, 1.0))
     assert cfg.record_history and cfg.fixed_schedule == (0.5, 1.0)
-    # the streaming tile pool is not ported
-    from smcdet_tpu_torch.config import ExperimentConfig
-    from smcdet_tpu_torch.runner import run_experiment
-
-    stream = ExperimentConfig()
-    stream.sampler.streaming = True
-    with pytest.raises(NotImplementedError, match="streaming"):
-        run_experiment(stream, device="cpu")
+    # the streaming tile pool is ported (tests/test_torch_streaming.py):
+    # SMCSampler.run(streaming=True) runs it, at the budget of
+    # memory_budget_bytes where the sampler has it (one tile a slot here)
+    prior, model, kernel, images = _slice_problem()
+    s = tsmc.SMCSampler(np.concatenate(np.asarray(images), axis=1), 8,
+                        port_prior(prior), port_model(model),
+                        port_kernel(kernel.replace(num_iters=5)),
+                        num_catalogs=32, resample_method="systematic",
+                        flux_detection_threshold=0.7)
+    s.memory_budget_bytes = tsmc.chunk_bytes_per_tile(s.prior, 32, 64)
+    r = s.run(torch.Generator().manual_seed(0), streaming=True)
+    assert s.result is r and torch.all(r.temperature == 1.0)
+    assert r.locs.shape == (2, 4 * 32, 3, 2)
+    assert torch.isfinite(r.log_normalizing_constant).all()
 
 
 def test_smc_sampler_takes_the_jax_signature(capsys):

@@ -337,6 +337,21 @@ def test_print_paths_ranks_kernels_by_launches_times_gap(capsys):
                        "K1 0.045 s, K2 0.040 s")
 
 
+def test_print_paths_leaves_a_missed_trace_unranked(capsys):
+    """A record whose trace missed the kernel (``ms`` None) is printed as
+    unranked and adds nothing to its kernel's sum: the host's wall a launch
+    is never ranked as the kernel's time."""
+    chip_smoke.print_paths([
+        ("K4", "blocks", 10000, {"ms": None, "bound_ms": 1e-5,
+                                 "measured_bound_ms": 1e-5, "shape": "s"}),
+        ("K4", "tiles", 10, {"ms": 3.0, "bound_ms": 1.0,
+                             "measured_bound_ms": 1.0, "shape": "s"})])
+    out = capsys.readouterr().out.splitlines()
+    assert "unranked (the trace missed the kernel)" in out[0]
+    assert out[-1] == ("[paths] kernels by launches x (time - bound): "
+                       "K4 0.020 s")
+
+
 def test_binomial_floor_is_the_lower_tail_at_the_reference_rate():
     # every one of 40 image-runs within +-1, and 32 of 40
     assert chip_smoke.binomial_floor(40, 40) == 37

@@ -15,6 +15,16 @@ JAX runner's ``tiles.npz`` and runs the JAX runner on them once per
         --set kernel.kind=mala kernel.locs_stdev=0.05 \\
         kernel.fluxes_stdev=20.0
 
+With the config ``bench`` it runs the JAX package's own bench instead:
+``bench.py``'s ``build_problem`` (its tiles, ``generate_images`` with key 7)
+through ``run_csmc`` on the tiles sorted by summed pixel value, in chunks of
+``BENCH_CHUNK`` (the last one padded with the last tile), with
+``jax.random.key(seed + c)`` for chunk c (the bar of ``chip_smoke.py
+[bench]``):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_bars.py bench \
+        --num-images 16 --seeds 1 2
+
 For each seed it prints the share of images whose posterior-mean pruned
 count lies within +-1 of the true pruned count, the mean acceptance rate
 (``acc_rate``) and the SMC iterations of each batch (``num_iters``) and, for
@@ -53,6 +63,60 @@ def _override(cfg, assignment: str):
     setattr(obj, leaf, value)
 
 
+# tiles a run_csmc call, as bench.py's --quick
+BENCH_CHUNK = 16
+
+
+def bench_bars(args):
+    """The JAX package's bench problem at ``--num-images`` tiles, sorted by
+    summed pixel value and run in chunks of ``BENCH_CHUNK`` (padded with
+    the last tile), once per seed."""
+    import jax
+    import jax.numpy as jnp
+
+    import bench
+    from smcdet_tpu.inference.smc import run_csmc
+    from smcdet_tpu.models.simulate import generate_images
+
+    n = args.num_images
+    images, prior, model, kernel, cfg = bench.build_problem(num_tiles=n)
+    truth = np.asarray(generate_images(
+        jax.random.key(7), prior, model, flux_threshold=0.7,
+        loc_threshold_lower=0.0, loc_threshold_upper=float(model.width),
+        num_images=n).pruned_counts)
+    print(f"true pruned counts {truth.tolist()}", flush=True)
+    order = np.argsort(np.asarray(jnp.sum(images, axis=(1, 2))),
+                       kind="stable")
+    chunk = BENCH_CHUNK
+    n_chunks = -(-n // chunk)
+    padded = np.concatenate([order, np.full(n_chunks * chunk - n,
+                                            order[-1])])
+    run = jax.jit(run_csmc)
+    report = {}
+    for seed in args.seeds:
+        start = time.perf_counter()
+        mean, iters = np.zeros(n), []
+        for c in range(n_chunks):
+            idx = padded[c * chunk:(c + 1) * chunk]
+            res = run(jax.random.key(seed + c), images[idx], prior, model,
+                      kernel, cfg)
+            m = np.asarray((res.weights * res.pruned_counts).sum(-1))
+            assert np.all(np.asarray(res.temperature) == 1.0)
+            real = min(chunk, n - c * chunk)
+            mean[idx[:real]] = m[:real]
+            iters.append(int(res.num_iters))
+        within = np.abs(mean - truth) <= 1.0
+        entry = {"count_share": float(within.mean()),
+                 "within": int(within.sum()),
+                 "mean": [round(float(x), 3) for x in mean],
+                 "num_iters": iters,
+                 "wall_s": round(time.perf_counter() - start, 1)}
+        report[seed] = entry
+        print(f"seed {seed}: {json.dumps(entry)}", flush=True)
+    print(json.dumps({"config": "bench", "num_images": n, "chunk": chunk,
+                      "truth": truth.tolist(), "seeds": report}))
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("config")
@@ -65,6 +129,9 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.config == "bench":
+        bench_bars(args)
+        return
     from smcdet_tpu import config as jcfg
     from smcdet_tpu import runner as jrunner
     from smcdet_tpu.inference.aggregate import Aggregate
