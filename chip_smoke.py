@@ -153,7 +153,17 @@ Phases (a failing phase raises; there is no CPU fallback):
     device's idle share, the host's time a step and the scheduler's
     ``stream.*`` ranges; then the pool through ``run_experiment`` (one
     basic batch with ``sampler.streaming``, K2) and
-    ``SMCSampler.run(streaming=True)`` (K1).
+    ``SMCSampler.run(streaming=True)`` (K1);
+27. studies: the study modules (``smcdet_tpu_torch/studies``) on the JAX
+    package's tiles of the suites (``tests/data``): compare_kernels on 20
+    basic images (K2 against K4); K2 at the single-tile run's 16x16 M71
+    launch shape (4 images x 9 strata x 2048, 50 sweeps) and at
+    compare_pooled's single-tile arm's (2 images) against its plain
+    version (``launch_agreement``) and its bound, then that run
+    through ``run_experiment`` on 4 divideandconquer images; compare_pooled
+    at 2 images x 2 reps with its dump (K2 single-tile arm, K1 tiles and
+    K3 bridges), then the numpy-only ``attribute_pooled.py`` and
+    ``truth_score_pooled.py`` on the dump, each exiting 0.
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -167,6 +177,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3642,6 +3653,168 @@ def phase_stream_entry(dev):
     return out
 
 
+# ``[studies]``: the studies' cuts (compare_kernels' basic images, the
+# single-tile run's divideandconquer images, compare_pooled's images and
+# reps), on the JAX package's tiles of the suites (tests/data)
+STUDIES_KERNELS_IMAGES = 20
+STUDIES_SINGLETILE_IMAGES = 4
+STUDIES_POOLED = (2, 2)
+
+
+def _stage_suite_tiles(out, suite):
+    """The JAX package's tiles of ``suite`` (``tests/data``) as
+    ``out/<suite>/tiles.npz``, where the studies read them."""
+    dst = Path(out) / suite / "tiles.npz"
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(f"tests/data/{suite}_tiles.npz", dst)
+    return dst
+
+
+def _studies_singletile(dev, peaks, out, tmp):
+    """K2 at the single-tile run's launch (``config_singletile.yaml``: 4
+    16x16 images x 9 strata x 2048, the M71 model's Gaussian noise and
+    beta = 3 wing, Pareto flux, M = 8, 50 sweeps) and at compare_pooled's
+    single-tile arm's (``STUDIES_POOLED`` images) against its plain version
+    and its bound (``time_launch``), then that run through
+    ``run_experiment`` on the first 4 divideandconquer images, every mutate
+    call a K2 launch. Returns the two records by path and K2's launches."""
+    from smcdet_tpu_torch.config import (
+        build_image_model,
+        build_kernel,
+        build_prior,
+        load_config,
+    )
+    from smcdet_tpu_torch.runner import load_results, run_experiment
+
+    cfg = load_config("experiments/divideandconquer/config_singletile.yaml")
+    key = torch.tensor([97531, 86420], dtype=torch.int64, device=dev)
+    n = STUDIES_SINGLETILE_IMAGES
+    prior = build_prior(cfg.prior, dev)
+    model = build_image_model(cfg.image_model, dev)
+    kernel = build_kernel(cfg.kernel, dev)
+    records = {path: time_launch(
+        path, "K2",
+        _sweep_args(key, kernel, *_kernel_inputs(
+            dev, prior, model, images, cfg.sampler.num_catalogs, 0),
+            kernel.num_iters), peaks, label="studies")
+        for path, images in (("single-tile", n),
+                             ("pooled single-tile", STUDIES_POOLED[0]))}
+    cfg.num_images = cfg.batch_size = n
+    cfg.data_path = str(out / "divideandconquer" / "tiles.npz")
+    cfg.output_dir = tmp
+    with _Calls() as calls:
+        _reset_launches()
+        start = time.perf_counter()
+        res = load_results(run_experiment(cfg, device=dev, verbose=False))
+        wall = time.perf_counter() - start
+        launches = _launches()
+    assert launches["K2"] == calls.tile["mh"] > 0, (launches, calls.tile)
+    assert sum(launches.values()) == launches["K2"], launches
+    assert np.isfinite(res["log_normalizing_constant"].max(-1)).all()
+    np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
+    truth = np.load(cfg.data_path)["true_counts"][:n]
+    mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+    print(f"[studies] single-tile run: {n} 16x16 images, "
+          f"{int(res['num_iters'][0])} SMC iterations, batch "
+          f"{float(res['runtime'][0]):.3f} s ({wall:.3f} s with loading), "
+          f"K2 launches {launches['K2']}; temperatures "
+          f"{res['temperature'].tolist()}; posterior mean pruned count "
+          f"{[round(float(x), 3) for x in mean]} against truth "
+          f"{truth.tolist()}")
+    return records, launches["K2"]
+
+
+def phase_studies(dev, peaks):
+    """``[studies]``: the three study modules on the card, on the JAX
+    package's tiles (``tests/data``). compare_kernels on the first
+    ``STUDIES_KERNELS_IMAGES`` basic images (K2 against K4, a warm and a
+    timed run each); the single-tile path on the first
+    ``STUDIES_SINGLETILE_IMAGES`` divideandconquer images
+    (``_studies_singletile``: K2 at its new 16x16 M71 launch shape);
+    compare_pooled at ``STUDIES_POOLED`` images x reps with the dump
+    (single-tile arm K2, divide-and-conquer arm K1 tiles and K3 bridges),
+    then the numpy-only ``attribute_pooled.py`` and
+    ``truth_score_pooled.py`` on the dump (exit 0). Each study's launches
+    counted from 0. Returns K2's records at the single-tile run's and the
+    pooled arm's launch, and the launches by path."""
+    from smcdet_tpu_torch.studies import compare_kernels, compare_pooled
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "output"
+        _stage_suite_tiles(out, "basic")
+        _stage_suite_tiles(out, "divideandconquer")
+
+        with _Calls() as calls:
+            _reset_launches()
+            report = compare_kernels.main([
+                "--num-images", str(STUDIES_KERNELS_IMAGES), "--output-dir",
+                str(out), "--device", "cuda"])
+            run = _launches()
+        assert run["K2"] == calls.tile["mh"] > 0, (run, calls.tile)
+        assert run["K4 tile"] == calls.tile["mala"] > 0, (run, calls.tile)
+        assert run["K1"] == run["K3"] == run["K4 bridge"] == 0, run
+        launches["compare_kernels MH"] = run["K2"]
+        launches["compare_kernels MALA"] = run["K4 tile"]
+        k = report["kernels"]
+        print(f"[studies] compare_kernels on {report['images']} basic "
+              f"images: MH {k['mh']['smc_iterations']} SMC iterations, "
+              f"acceptance {k['mh']['acceptance_rate_mean']}, wall "
+              f"{k['mh']['wall_s']} s; MALA "
+              f"{k['mala']['smc_iterations']} iterations, acceptance "
+              f"{k['mala']['acceptance_rate_mean']}, wall "
+              f"{k['mala']['wall_s']} s; count-pmf TVD "
+              f"{report['count_pmf_tvd']}; K2 launches {run['K2']}, K4 "
+              f"{run['K4 tile']}")
+        for entry in k.values():
+            assert 0 < entry["acceptance_rate_mean"] < 1, entry
+        assert 0 <= report["count_pmf_tvd"]["mean"] <= 1
+
+        records, launches["single-tile"] = _studies_singletile(dev, peaks,
+                                                               out, tmp)
+
+        images, reps = STUDIES_POOLED
+        with _Calls() as calls:
+            _reset_launches()
+            start = time.perf_counter()
+            report = compare_pooled.main([
+                "--num-images", str(images), "--reps", str(reps), "--dump",
+                "--suffix", "_dump", "--output-dir", str(out), "--device",
+                "cuda"])
+            wall = time.perf_counter() - start
+            run = _launches()
+        per_level = [sum(lv[k][0] for lv in calls.levels if len(lv) > k)
+                     for k in range(max(len(lv) for lv in calls.levels))]
+        assert run["K2"] > 0 and run["K1"] > 0 and run["K3"] > 0, run
+        assert run["K4 tile"] == run["K4 bridge"] == 0, run
+        assert sum(per_level) == run["K3"] == calls.bridge["mh"], (
+            per_level, run)
+        assert run["K1"] + run["K2"] == calls.tile["mh"], (run, calls.tile)
+        launches["pooled single-tile"] = run["K2"]
+        launches["pooled D&C tiles"] = run["K1"]
+        launches["pooled D&C bridge levels"] = per_level
+        print(f"[studies] compare_pooled {images} images x {reps} reps in "
+              f"{wall:.3f} s: launches {run}, bridge launches by level "
+              f"{per_level}; {json.dumps(report)}")
+        for key, stats in report.items():
+            if key.startswith("tvd"):
+                assert all(0.0 <= v <= 1.0 for v in stats.values()), key
+        for script, name in (("attribute_pooled.py",
+                              "pooled_attribution_dump.json"),
+                             ("truth_score_pooled.py",
+                              "truth_score_dump.json")):
+            proc = subprocess.run(
+                [sys.executable, str(Path.cwd() / "experiments"
+                                     / "divideandconquer" / script)],
+                cwd=tmp, capture_output=True, text=True, timeout=120)
+            assert proc.returncode == 0, proc.stderr
+            result = json.loads((out / "divideandconquer" / name)
+                                .read_text())
+            print(f"[studies] {script} on the port's dump: exit 0, "
+                  f"{json.dumps(result)[:400]}")
+    return records, launches
+
+
 def print_paths(paths):
     """``paths``: ``(kernel, path, launches, record)``. Per path, the
     kernel's launches in this run, its launch shape, its time and bound
@@ -3761,7 +3934,15 @@ def main():
     launches["K1"] += stream_entry["sampler"]
     launches["K2"] += stream_entry["basic"]
     print(f"[time] stream in {time.perf_counter() - mark:.1f} s")
-    print(f"[done] phases 2-26 in {time.perf_counter() - start:.1f} s on "
+    mark = time.perf_counter()
+    singletile, studies = phase_studies(dev, peaks)
+    launches["K1"] += studies["pooled D&C tiles"]
+    launches["K2"] += (studies["compare_kernels MH"] + studies["single-tile"]
+                       + studies["pooled single-tile"])
+    launches["K3"] += sum(studies["pooled D&C bridge levels"])
+    launches["K4"] += studies["compare_kernels MALA"]
+    print(f"[time] studies in {time.perf_counter() - mark:.1f} s")
+    print(f"[done] phases 2-27 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
@@ -3814,6 +3995,18 @@ def main():
          records["K2 basic"]),
         ("K1", "SMCSampler.run(streaming=True)", stream_entry["sampler"],
          bench_shapes["quick"]),
+        ("K2", "compare_kernels MH", studies["compare_kernels MH"],
+         records["K2 basic"]),
+        ("K4", "compare_kernels MALA", studies["compare_kernels MALA"],
+         k4["basic"]),
+        ("K2", "single-tile run", studies["single-tile"],
+         singletile["single-tile"]),
+        ("K2", "compare_pooled single-tile", studies["pooled single-tile"],
+         singletile["pooled single-tile"]),
+        ("K1", "compare_pooled D&C tiles", studies["pooled D&C tiles"],
+         shapes["dnc tile K1"]),
+        *[("K3", f"compare_pooled D&C bridge level {i}", n, k3_levels[i])
+          for i, n in enumerate(studies["pooled D&C bridge levels"])],
     ])
     print("[paths] not ranked: the full frame at chunk 56 and at the memory "
           "model's largest chunk ("

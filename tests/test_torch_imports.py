@@ -1,5 +1,6 @@
 """The port runs on a machine without JAX: no module of
-``smcdet_tpu_torch`` and no line of ``chip_smoke.py`` imports ``jax``,
+``smcdet_tpu_torch`` (``studies/`` included) and no line of ``chip_smoke.py``
+or ``tests/torch_synthetic_suites.py`` imports ``jax``,
 ``flax``, ``optax`` or the JAX package ``smcdet_tpu``, at any depth of the
 file (functions included)."""
 
@@ -10,8 +11,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smcdet_tpu")
+# the port, its smoke run and the suite runners that run on the card
 FILES = sorted((REPO / "smcdet_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_synthetic_suites.py"]
 
 
 def imported_modules(source: str):

@@ -6,9 +6,11 @@ suite score and the JAX package's committed one the port's, or the tiles'?
         [--config experiments/cells/config.yaml] [--num-images 200] \\
         [--set sampler.num_catalogs=256 kernel.num_iters=50] \\
         [--out DIR] [--only jax|torch] [--device cpu|cuda] [--plain]
+        [--tiles PATH]
 
 It simulates the suite's first ``--num-images`` tiles with the port's
-``simulate_tiles`` (the tiles the port's suite run scores), runs the JAX
+``simulate_tiles`` (the tiles the port's suite run scores), or takes them
+from ``--tiles`` (e.g. the JAX package's draw in ``tests/data``), runs the JAX
 runner (``smcdet_tpu.runner.run_experiment``, on the CPU) and the port's
 (``smcdet_tpu_torch.runner.run_experiment`` on ``--device``: ``cpu`` runs
 the kernels' plain versions) on them with the overrides given, and prints
@@ -71,8 +73,10 @@ def score(res, tiles):
                          for k, c in zip(COVERAGE_LEVELS, cov)},
             "sbc_total_flux_ks_pvalue": round(sbc_uniformity_pvalue(
                 sbc_ranks(tf, ef, weights=w)), 5),
-            "num_iters": np.asarray(res["num_iters"]).ravel().tolist(),
-            "acc_rate_mean": float(np.mean(res["acc_rate"]))}
+            # the per-image pipeline's results carry neither
+            **({"num_iters": np.asarray(res["num_iters"]).ravel().tolist(),
+                "acc_rate_mean": float(np.mean(res["acc_rate"]))}
+               if "num_iters" in res else {})}
 
 
 def main():
@@ -88,6 +92,9 @@ def main():
                         help="the port's device (default cpu)")
     parser.add_argument("--plain", action="store_true",
                         help="the port's plain MH sweep, not the kernel")
+    parser.add_argument("--tiles", default=None,
+                        help="run on these tiles instead of the port's "
+                             "simulation")
     args = parser.parse_args()
 
     from smcdet_tpu_torch import config as tcfg
@@ -117,7 +124,11 @@ def main():
     pcfg.num_images = args.num_images
     out.mkdir(parents=True, exist_ok=True)
     tiles_path = out / "tiles.npz"
-    if not tiles_path.exists():
+    if args.tiles is not None:
+        with np.load(args.tiles) as t:
+            np.savez(tiles_path, **{k: t[k][:args.num_images]
+                                    for k in t.files})
+    elif not tiles_path.exists():
         np.savez(tiles_path, **trunner.simulate_tiles(pcfg))
     tiles = dict(np.load(tiles_path))
 
@@ -148,7 +159,7 @@ def main():
                  mean_total_flux=(res["weights"]
                                   * res["pruned_fluxes"].sum(-1)).sum(1),
                  log_z=res["log_normalizing_constant"],
-                 acc_rate=res["acc_rate"])
+                 **{k: res[k] for k in ("acc_rate",) if k in res})
         print(f"[{name}] {json.dumps(report[name])}", flush=True)
     print(json.dumps(report))
 
