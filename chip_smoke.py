@@ -5,7 +5,7 @@
 Phases (a failing phase raises; there is no CPU fallback):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc,
-   scipy, triton and matplotlib versions ("absent" where not installed);
+   scipy, triton and matplotlib versions (or that one does not import);
    exits non-zero without a CUDA card;
 2. build: compiles the kernels from ``smcdet_tpu_torch/csrc`` (one nvcc
    per source, in parallel) into ``build/``;
@@ -163,7 +163,20 @@ Phases (a failing phase raises; there is no CPU fallback):
     through ``run_experiment`` on 4 divideandconquer images; compare_pooled
     at 2 images x 2 reps with its dump (K2 single-tile arm, K1 tiles and
     K3 bridges), then the numpy-only ``attribute_pooled.py`` and
-    ``truth_score_pooled.py`` on the dump, each exiting 0.
+    ``truth_score_pooled.py`` on the dump, each exiting 0;
+28. m71studies: the seven M71 study modules at cuts (``phase_m71studies``):
+    the crowded-tile budget probe's three arms on 8 crowded tiles (K2),
+    the oracle run on 4 fixture tiles (K1) and its analysis, the m71,
+    m71_nogiants, m71_mis and m71_vary suites on 4 tiles each (K2) with
+    compare_nogiants (the whole fixture's giant geometry equal to the
+    committed one) and misspec_study, simulator_checks (K2), repeated_runs
+    at 8 runs, N 512 and 2048, 10 and 100 sweeps (K1) and split_mode_study
+    at 8 chains x 1,000 sweeps (K1 at N = 1, the reversible-jump anchors
+    plain), every tile-level SMC run at temperature 1 with a finite log Z
+    and weights summing to 1; then K1 and K2 at the launch shapes the
+    studies add at their committed sizes, on the studies' own tiles
+    (``launch_agreement``, the bound; the crowded arms' and the oracle's
+    single-sweep disagreements classified).
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -491,13 +504,14 @@ def phase_device():
 
 
 def _version(module):
-    """An installed module's version, or "absent"."""
+    """Whether ``module`` imports: "imports, <its version>", or "does not
+    import" with the error's type."""
     import importlib
 
     try:
-        return importlib.import_module(module).__version__
-    except ImportError:
-        return "absent"
+        return f"imports, {importlib.import_module(module).__version__}"
+    except Exception as exc:  # noqa: BLE001  (printed, nothing depends on it)
+        return f"does not import ({type(exc).__name__})"
 
 
 def _kernel_label(mangled):
@@ -3815,6 +3829,342 @@ def phase_studies(dev, peaks):
     return records, launches
 
 
+# ``[m71studies]``: the M71 studies' cuts (the crowded probe's tiles, the
+# scoring studies' one-batch runs a suite, repeated_runs' reps, N and
+# sweeps, split_mode's chains and sweeps), sized to keep the phase near 90
+# s on an H100 (its three crowded arms take about 1.2 s a tile, the plain
+# reversible-jump anchors 8-17 ms a sweep)
+M71STUDIES_CROWDED_TILES = 8
+M71STUDIES_SUITE_TILES = 4
+M71STUDIES_REPEATED = (8, (512, 2048), (10, 100))
+M71STUDIES_SPLIT = (8, 1000)
+# repeated_runs at its committed size: runs a setting, particles per
+# stratum (K1 is timed at each N's call shape, at the grid's 10 sweeps)
+M71STUDIES_REPEATED_FULL = (100, (512, 2048, 8192))
+M71STUDIES_SUITES = {"m71": "config.yaml", "m71_nogiants":
+                     "config_nogiants.yaml", "m71_mis": "config_mis.yaml",
+                     "m71_vary": "config_vary.yaml"}
+
+
+class _SMCResults:
+    """Keeps every tile-level ``SMCResult`` (``inference.smc.run_csmc``'s,
+    which ``run_csmc_chunked``, ``SMCSampler`` and the per-image pipeline
+    call) while the ``with`` block runs."""
+
+    def __enter__(self):
+        from smcdet_tpu_torch.inference import smc
+
+        self.results = []
+        self._saved = smc.run_csmc
+
+        def kept(*args, **kwargs):
+            res = self._saved(*args, **kwargs)
+            self.results.append(res)
+            return res
+
+        smc.run_csmc = kept
+        return self
+
+    def __exit__(self, *exc):
+        from smcdet_tpu_torch.inference import smc
+
+        smc.run_csmc = self._saved
+
+    def check(self, label):
+        """Every tile of every run at temperature 1, a finite log Z in its
+        best stratum and flat weights summing to 1. Returns the runs and
+        tiles checked."""
+        assert self.results, label
+        tiles = 0
+        for res in self.results:
+            assert bool((res.temperature == 1.0).all()), (
+                label, res.temperature.min())
+            assert bool(torch.isfinite(
+                res.log_normalizing_constant.max(-1).values).all()), label
+            torch.testing.assert_close(
+                res.weights.sum(-1), torch.ones_like(res.weights[:, 0]),
+                atol=1e-5, rtol=0)
+            tiles += res.temperature.numel()
+        return len(self.results), tiles
+
+
+def _m71_studies_run(label, fn, smc=True):
+    """``fn()`` with the launches counted from 0 and, with ``smc``, every
+    SMC result held to the limits. Returns its value and the launches."""
+    with _SMCResults() as kept:
+        _reset_launches()
+        start = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - start
+        launches = _launches()
+    held = ""
+    if smc:
+        runs, tiles = kept.check(label)
+        held = (f", {runs} SMC runs over {tiles} tiles, every tile at "
+                f"temperature 1, finite log Z, weights summing to 1")
+    print(f"[m71studies] {label} in {wall:.3f} s: launches "
+          f"{ {k: v for k, v in launches.items() if v} }{held}", flush=True)
+    return out, launches
+
+
+def _study_inputs(dev, prior, model, images, backgrounds, N, seed):
+    """``_kernel_inputs`` on a study's own tiles: ``images [T, h, w]`` (and
+    their ``backgrounds``, or the model's), prior catalogs, temperature
+    0.8."""
+    from smcdet_tpu_torch.inference.kernels import (
+        TargetContext,
+        init_kernel_state,
+    )
+
+    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    T = images.shape[0]
+    if backgrounds is not None:
+        model = model.with_background(torch.as_tensor(
+            backgrounds, dtype=torch.float32, device=dev)[:, None, None])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    strata, locs, fluxes = prior.sample_stratified(g, N, (T,))
+    counts = strata[None, :, None].expand(T, prior.num_counts,
+                                          N).contiguous()
+    ctx = TargetContext(prior, model, images[:, None, None],
+                        torch.full((T, 1, 1), 0.8, device=dev))
+    return ctx, counts, init_kernel_state(ctx, counts, locs, fluxes)
+
+
+def _m71_study_shapes(dev, peaks):
+    """K1 and K2 at the launch shapes the M71 studies add, on the studies'
+    own tiles, each against its plain version (``launch_agreement``) and
+    its bound (``time_launch``): the crowded probe's hiN arm (its first
+    tile x 11 strata x 8192, 100 sweeps) and hiS arm (x 2048, 200 sweeps)
+    on the seed-6839 fit (K2), the oracle run's tile (the m71 fixture's
+    first, x 2048, 100 sweeps, the literal beta = 3 wing: K1),
+    simulator_checks' one tile (the fitted m71 model on fixture tile 585, x
+    2048: K2), repeated_runs' calls on its s = 3 image at the committed
+    size (100 runs x 7 strata at N = 512, 2048 and the largest call at
+    8192, 10 sweeps: K1) and at ``[m71studies]``' cut (8 runs x 7 x 2048,
+    100 sweeps). The crowded arms' and the oracle's disagreements after
+    single sweeps are also classified (``_single_sweep_steps``)."""
+    from smcdet_tpu_torch.config import build_prior
+    from smcdet_tpu_torch.inference.smc import default_budget_bytes
+    from smcdet_tpu_torch.run_experiment import load_suite_config
+    from smcdet_tpu_torch.studies import repeated_runs, run_smc_oracle
+
+    key = torch.tensor([24680, 13579], dtype=torch.int64, device=dev)
+    records = {}
+
+    def timed(path, name, cfg, tiles, N, sweeps, steps=False):
+        images, backgrounds = tiles
+        prior, model, kernel = _built(cfg, dev)
+        problem = _study_inputs(dev, prior, model, images, backgrounds, N, 0)
+        records[path] = time_launch(
+            path, name, _sweep_args(key, kernel, *problem, sweeps), peaks,
+            label="m71studies")
+        if steps:
+            _print_steps(f"m71studies {path}", problem[1],
+                         _single_sweep_steps(dev, kernel, *problem))
+
+    def fixture(path, idx):
+        with np.load(path) as t:
+            return t["images"][idx], t["background"][idx]
+
+    crowded = fixture("experiments/m71/data_seed2/m71/tiles_crowded.npz",
+                      [0])
+    for arm in ("hiN", "hiS"):
+        cfg = load_suite_config("experiments/m71",
+                                f"config_seed2_crowded_{arm}.yaml")
+        timed(f"crowded {arm} arm", "K2", cfg, crowded,
+              cfg.sampler.num_catalogs, cfg.kernel.num_iters, steps=True)
+    cfg = run_smc_oracle.oracle_config()
+    timed("oracle tile", "K1", cfg, fixture(cfg.data_path, [0]),
+          cfg.sampler.num_catalogs, cfg.kernel.num_iters, steps=True)
+    cfg = load_suite_config("experiments/m71")
+    timed("simulator_checks tile", "K2", cfg, fixture(cfg.data_path, [585]),
+          2048, cfg.kernel.num_iters)
+    cfg = load_suite_config("experiments/m71synthetic")
+    prior = build_prior(cfg.prior, dev)
+    with np.load("tests/data/m71synthetic_tiles.npz") as t:
+        image = t["images"][190]
+    reps, Ns = M71STUDIES_REPEATED_FULL
+    for N in Ns:
+        rpc = repeated_runs.reps_per_call(prior, N, reps, 64,
+                                          default_budget_bytes(dev))
+        timed(f"repeated_runs N={N}", "K1", cfg,
+              (np.repeat(image[None], rpc, 0), None), N, 10)
+    cut_reps, cut_Ns, cut_steps = M71STUDIES_REPEATED
+    timed("repeated_runs cut", "K1", cfg,
+          (np.repeat(image[None], cut_reps, 0), None), max(cut_Ns),
+          max(cut_steps))
+    return records
+
+
+def phase_m71studies(dev, peaks):
+    """``[m71studies]``: the seven M71 study modules on the card at cuts,
+    in a temporary output directory, each run with the launches counted
+    from 0 and every tile-level SMC run held to temperature 1, a finite
+    log Z and weights summing to 1 (``_SMCResults``):
+
+    - the crowded probe's three arms on the first
+      ``M71STUDIES_CROWDED_TILES`` crowded tiles (the base arm on the
+      crowded subset itself), scored (``crowded_budget_probe``);
+    - the oracle run on ``M71STUDIES_SUITE_TILES`` fixture tiles (K1) and
+      its analysis;
+    - the m71, m71_nogiants, m71_mis and m71_vary suites on their first
+      ``M71STUDIES_SUITE_TILES`` tiles (one batch each, K2), then
+      ``compare_nogiants`` (its geometry equal to the committed one) and
+      ``misspec_study`` on them;
+    - ``simulator_checks`` (688 simulated tiles, one N = 2048 run: K2);
+    - ``repeated_runs`` on the committed s = 3 image at
+      ``M71STUDIES_REPEATED`` (K1);
+    - ``split_mode_study`` at ``M71STUDIES_SPLIT`` chains x sweeps (K1 at
+      N = 1, the two reversible-jump anchors plain).
+
+    Then K1 and K2 at the launch shapes the studies add at their committed
+    sizes (``_m71_study_shapes``). Returns those records and the launches
+    by path."""
+    from smcdet_tpu_torch import analyze
+    from smcdet_tpu_torch.ops import mh_sweep
+    from smcdet_tpu_torch.run_experiment import load_suite_config
+    from smcdet_tpu_torch.runner import run_experiment
+    from smcdet_tpu_torch.studies import (
+        compare_nogiants,
+        crowded_budget_probe,
+        m71_fixture,
+        misspec_study,
+        repeated_runs,
+        run_smc_oracle,
+        simulator_checks,
+        split_mode_study,
+    )
+
+    launches = {}
+    n_suite = M71STUDIES_SUITE_TILES
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "output"
+        assert all(crowded_budget_probe.subsets_match().values())
+        n = M71STUDIES_CROWDED_TILES
+        for arm in crowded_budget_probe.ARMS:
+            _, run = _m71_studies_run(
+                f"crowded probe {arm}, {n} tiles",
+                lambda: crowded_budget_probe.run_arms(
+                    out, "cuda", n, arms=[arm], verbose=False))
+            assert run["K2"] > 0 and sum(run.values()) == run["K2"], run
+            launches[f"crowded {arm}"] = run["K2"]
+        report = crowded_budget_probe.compare(out, num_tiles=n)
+        print(f"[m71studies] crowded probe, {n} tiles: "
+              f"{json.dumps(report)}")
+        for arm, entry in report["arms"].items():
+            assert isinstance(entry, dict), (arm, entry)
+            assert 0.0 <= entry["mean_sbc_rank"] <= 1.0, entry
+
+        cfg = run_smc_oracle.oracle_config(n_suite, out)
+        cfg.batch_size = n_suite
+        assert mh_sweep.sweep_kernel(
+            *_built(cfg, dev)[:2], cfg.prior.max_objects) == "K1"
+        oracle_dir, run = _m71_studies_run(
+            "oracle run", lambda: run_experiment(cfg, device=dev,
+                                                 verbose=False))
+        assert run["K1"] > 0 and sum(run.values()) == run["K1"], run
+        launches["oracle"] = run["K1"]
+        _quiet(analyze.main, [str(oracle_dir), "--tiles", cfg.data_path,
+                              "--bootstrap", "50", "--device", "cuda"])
+        got = json.loads((oracle_dir / "smc_analysis.json").read_text())
+        print(f"[m71studies] oracle analysis, {got['images']} tiles: count "
+              f"accuracy {got['count_accuracy']}, coverage 0.95 "
+              f"{got['total_flux_coverage']['0.95']}, F1 by bin "
+              f"{got['detection']['f1_by_bin']['point']}")
+
+        def suites():
+            for name, config in M71STUDIES_SUITES.items():
+                c = load_suite_config("experiments/m71", config)
+                c.output_dir = str(out)
+                c.num_images = c.batch_size = n_suite
+                run_experiment(c, device=dev, verbose=False)
+
+        _, run = _m71_studies_run(
+            f"m71, m71_nogiants, m71_mis, m71_vary on {n_suite} tiles each",
+            suites)
+        assert run["K2"] > 0 and sum(run.values()) == run["K2"], run
+        launches["suites"] = run["K2"]
+        report = _quiet(compare_nogiants.main, [
+            "--base", str(out / "m71"), "--ablat", str(out / "m71_nogiants"),
+            "--out", str(out / "nogiants_comparison.json")])
+        assert report["geometry"]["num_giants"] == 4, report
+        assert report["geometry"]["kept_tiles_within_render_reach"] == 0
+        # over every kept tile of the fixture, the committed geometry
+        with np.load("experiments/m71/data/m71/tiles.npz") as t:
+            geometry = compare_nogiants.geometry(
+                m71_fixture.default_truth_stars(), t["tile_index"])
+        committed = json.loads(Path(
+            "docs/results/m71/nogiants_comparison.json").read_text())
+        assert geometry == committed["geometry"], geometry
+        print(f"[m71studies] compare_nogiants: {json.dumps(report)}; the "
+              f"whole fixture's geometry {geometry}, the committed one")
+        report = _quiet(misspec_study.main, ["--output-dir", str(out)])
+        assert all(isinstance(v, dict)
+                   for v in report["variants"].values()), report
+        print(f"[m71studies] misspec_study: {json.dumps(report)}")
+
+        report, run = _m71_studies_run(
+            "simulator_checks", lambda: _quiet(simulator_checks.main, [
+                "--output-dir", str(out), "--device", "cuda"]))
+        assert run["K2"] > 0 and sum(run.values()) == run["K2"], run
+        launches["simulator"] = run["K2"]
+        print(f"[m71studies] simulator_checks: {json.dumps(report)}")
+
+        _stage_suite_tiles(out, "m71synthetic")
+        reps, Ns, steps = M71STUDIES_REPEATED
+        report, run = _m71_studies_run(
+            "repeated_runs", lambda: _quiet(repeated_runs.main, [
+                "--true-count", "3", "--image-index", "190", "--reps",
+                str(reps), "--num-catalogs", *map(str, Ns), "--mh-steps",
+                *map(str, steps), "--output-dir", str(out), "--device",
+                "cuda"]))
+        assert run["K1"] > 0 and sum(run.values()) == run["K1"], run
+        launches["repeated"] = run["K1"]
+        grid = np.load(out / "m71synthetic" / "repeatedruns_s3.npz")
+        assert np.isfinite(grid["logpx"]).all()
+        np.testing.assert_allclose(grid["count_pmf"].sum(-1), 1.0,
+                                   atol=1e-9)
+        print(f"[m71studies] repeated_runs: {json.dumps(report)}")
+
+        chains, sweeps = M71STUDIES_SPLIT
+        report, run = _m71_studies_run(
+            f"split_mode_study, {chains} chains x {sweeps} sweeps",
+            lambda: _quiet(split_mode_study.main, [
+                "--chains", str(chains), "--num-samples", str(sweeps),
+                "--burnin", str(sweeps // 2), "--output-dir", str(out),
+                "--device", "cuda"]), smc=False)
+        assert run["K1"] > 0 and sum(run.values()) == run["K1"], run
+        launches["split MH"] = run["K1"]
+        for name, entry in report["anchors"].items():
+            assert 0.0 <= entry["acc_rate_mean"] <= 1.0, (name, entry)
+            assert abs(sum(entry["pooled_count_pmf"]) - 1.0) < 1e-3
+        print(f"[m71studies] split_mode_study: {json.dumps(report)}")
+    return _m71_study_shapes(dev, peaks), launches
+
+
+def _quiet(main, argv):
+    """A study's ``main(argv)`` with its printed report swallowed (the
+    phase prints its own line); returns what ``main`` returns."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def _built(cfg, dev):
+    """The prior, image model and mutation kernel of config ``cfg``."""
+    from smcdet_tpu_torch.config import (
+        build_image_model,
+        build_kernel,
+        build_prior,
+    )
+
+    return (build_prior(cfg.prior, dev), build_image_model(cfg.image_model,
+                                                           dev),
+            build_kernel(cfg.kernel, dev))
+
+
 def print_paths(paths):
     """``paths``: ``(kernel, path, launches, record)``. Per path, the
     kernel's launches in this run, its launch shape, its time and bound
@@ -3942,7 +4292,14 @@ def main():
     launches["K3"] += sum(studies["pooled D&C bridge levels"])
     launches["K4"] += studies["compare_kernels MALA"]
     print(f"[time] studies in {time.perf_counter() - mark:.1f} s")
-    print(f"[done] phases 2-27 in {time.perf_counter() - start:.1f} s on "
+    mark = time.perf_counter()
+    m71_shapes, m71s = phase_m71studies(dev, peaks)
+    launches["K1"] += m71s["oracle"] + m71s["repeated"] + m71s["split MH"]
+    launches["K2"] += (sum(v for k, v in m71s.items()
+                           if k.startswith("crowded"))
+                       + m71s["suites"] + m71s["simulator"])
+    print(f"[time] m71studies in {time.perf_counter() - mark:.1f} s")
+    print(f"[done] phases 2-28 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
@@ -4007,13 +4364,32 @@ def main():
          shapes["dnc tile K1"]),
         *[("K3", f"compare_pooled D&C bridge level {i}", n, k3_levels[i])
           for i, n in enumerate(studies["pooled D&C bridge levels"])],
+        ("K2", "m71studies crowded base arm",
+         m71s["crowded base_n2048_s100"], shapes["m71 tile K2"]),
+        ("K2", "m71studies crowded hiN arm", m71s["crowded hiN_n8192_s100"],
+         m71_shapes["crowded hiN arm"]),
+        ("K2", "m71studies crowded hiS arm", m71s["crowded hiS_n2048_s200"],
+         m71_shapes["crowded hiS arm"]),
+        ("K1", "m71studies oracle run", m71s["oracle"],
+         m71_shapes["oracle tile"]),
+        ("K2", "m71studies scored suites", m71s["suites"],
+         shapes["m71 tile K2"]),
+        ("K2", "m71studies simulator_checks", m71s["simulator"],
+         m71_shapes["simulator_checks tile"]),
+        ("K1", "m71studies repeated_runs cut", m71s["repeated"],
+         m71_shapes["repeated_runs cut"]),
+        ("K1", "m71studies split_mode MH burn-in", 1,
+         mcmc_records["m71synthetic"]["burn-in"]),
+        ("K1", "m71studies split_mode MH blocks", m71s["split MH"] - 1,
+         mcmc_records["m71synthetic"]["block"]),
     ])
     print("[paths] not ranked: the full frame at chunk 56 and at the memory "
           "model's largest chunk ("
           + ", ".join(f"{k}: {v} K1 launches" for k, v in bench.items()
                       if k not in ("quick", "full frame",
                                    "full frame chunk 28"))
-          + "), launch shapes not timed")
+          + "), launch shapes not timed; repeated_runs at its committed "
+          "size (timed in [m71studies], not run here)")
     print("[done] the kernels line: K2's record at the cells shapes, K3's "
           "at one divideandconquer image's level-0 launch, K4's at the basic "
           "shapes")

@@ -1,7 +1,11 @@
-"""The repository's comparison studies on the port (the scripts
+"""The repository's studies on the port, without JAX, and the count-pmf
+helpers they share: the comparison studies of
 ``experiments/basic/compare_kernels.py`` and
-``experiments/divideandconquer/compare_{singletile,pooled}.py``, without
-JAX), and the count-pmf helpers they share.
+``experiments/divideandconquer/compare_{singletile,pooled}.py``, and the M71
+studies of ``experiments/m71/{crowded_budget_probe,run_smc_oracle,
+compare_nogiants,misspec_study,simulator_checks}.py`` and
+``experiments/m71synthetic/{repeated_runs,split_mode_study}.py``
+(``m71_fixture`` holds what they need of the fixture scripts).
 
 Each study reads its suite's config from the checkout this package sits in
 (``REPO / experiments/<suite>``) and its tiles and results under the

@@ -1,8 +1,10 @@
 """The port runs on a machine without JAX: no module of
 ``smcdet_tpu_torch`` (``studies/`` included) and no line of ``chip_smoke.py``
-or ``tests/torch_synthetic_suites.py`` imports ``jax``,
-``flax``, ``optax`` or the JAX package ``smcdet_tpu``, at any depth of the
-file (functions included)."""
+or the card runners ``tests/torch_synthetic_suites.py`` and
+``tests/torch_m71_studies.py`` imports ``jax``, ``flax``, ``optax``, the JAX
+package ``smcdet_tpu`` or its ``experiments`` scripts (``make_fixture``
+among them, which reaches ``smcdet_tpu.ingest``), at any depth of the file
+(functions included)."""
 
 import ast
 from pathlib import Path
@@ -10,10 +12,12 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smcdet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smcdet_tpu", "experiments",
+             "make_fixture")
 # the port, its smoke run and the suite runners that run on the card
 FILES = sorted((REPO / "smcdet_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "torch_synthetic_suites.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_synthetic_suites.py",
+    REPO / "tests" / "torch_m71_studies.py"]
 
 
 def imported_modules(source: str):
@@ -31,9 +35,12 @@ def imported_modules(source: str):
 def test_the_check_sees_nested_and_from_imports():
     src = ("import os\nfrom smcdet_tpu_torch import runner\n"
            "def f():\n    from smcdet_tpu.models import priors\n"
-           "    import jax.numpy as jnp\n")
+           "    import jax.numpy as jnp\n"
+           "    from experiments.m71 import make_fixture\n"
+           "    from make_fixture import FLUX_UPPER\n")
     found = imported_modules(src)
-    assert [n for n in found if n in FORBIDDEN] == ["smcdet_tpu", "jax"]
+    assert [n for n in found if n in FORBIDDEN] == [
+        "smcdet_tpu", "jax", "experiments", "make_fixture"]
     assert "smcdet_tpu_torch" in found
 
 

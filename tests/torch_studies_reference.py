@@ -24,6 +24,14 @@ JAX). ``--dump F.npz`` keeps each seed's per-image count pmfs per kernel;
 TVD between runs within each dump and across the two (which kernel's
 posterior differs between two runners).
 
+``simulator-ks [--seeds 0 1 2 3]``: ``experiments/m71/simulator_checks.py``'s
+prior-predictive simulation (its lines 93-135: the m71 config with the
+fitted overlay, ``max_objects`` 64, the fixture's per-tile backgrounds) for
+each JAX key in ``--seeds``, and the KS statistic of each log-intensity
+quantile against the fixture's tiles; prints one JSON line per seed, then
+each statistic's range over the seeds (the band of
+``tests/torch_m71_studies.py``).
+
 ``singletile --dc A --st B``: compare_singletile's report (count-pmf TVD
 and mean-count difference per image) from two
 ``tests/torch_cells_localise.py`` summaries (``<runner>_summary.npz``, the
@@ -217,10 +225,52 @@ def pmf_spread(args):
     print(json.dumps(out))
 
 
+def simulator_ks(args):
+    import jax
+    import jax.numpy as jnp
+
+    from smcdet_tpu.config import build_image_model, load_config
+    from smcdet_tpu.models.priors import M71Prior
+    from smcdet_tpu.models.simulate import generate_images
+    from smcdet_tpu_torch.studies.simulator_checks import quantile_checks
+
+    here = REPO / "experiments" / "m71"
+    cfg = load_config(here / "config.yaml")
+    with np.load(here / cfg.data_path) as tiles:
+        real = np.asarray(tiles["images"], dtype=np.float64)
+        backgrounds = np.asarray(tiles["background"], dtype=np.float32)
+    p = cfg.prior
+    prior = M71Prior(
+        min_objects=0, max_objects=64, image_height=p.image_height,
+        image_width=p.image_width, pad=p.pad, counts_rate=p.counts_rate,
+        flux_alpha=p.flux_alpha,
+        flux_lower=max(p.flux_lower, cfg.sampler.flux_detection_threshold),
+        flux_upper=p.flux_upper)
+    model = build_image_model(cfg.image_model).replace(
+        background=jnp.asarray(backgrounds))
+    per_seed = {}
+    for seed in args.seeds:
+        sim = generate_images(
+            jax.random.key(seed), prior, model,
+            flux_threshold=cfg.sampler.flux_detection_threshold,
+            loc_threshold_lower=0.0,
+            loc_threshold_upper=float(p.image_height),
+            num_images=real.shape[0])
+        checks = quantile_checks(np.asarray(sim.images, np.float64), real)
+        per_seed[seed] = {q: c["ks_statistic"] for q, c in checks.items()}
+        print(json.dumps({"seed": seed, "ks_statistic": per_seed[seed]}),
+              flush=True)
+    print(json.dumps({"range": {
+        q: [min(v[q] for v in per_seed.values()),
+            max(v[q] for v in per_seed.values())]
+        for q in next(iter(per_seed.values()))}}))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("study", choices=("kernels", "kernels-port",
-                                          "singletile", "pmf-spread"))
+                                          "singletile", "pmf-spread",
+                                          "simulator-ks"))
     parser.add_argument("--dump", default=None,
                         help="kernels, kernels-port: save each seed's count "
                              "pmfs per kernel to this .npz")
@@ -233,7 +283,8 @@ def main():
     parser.add_argument("--st", help="singletile: the single-tile summary")
     args = parser.parse_args()
     {"kernels": kernels, "kernels-port": kernels_port,
-     "singletile": singletile, "pmf-spread": pmf_spread}[args.study](args)
+     "singletile": singletile, "pmf-spread": pmf_spread,
+     "simulator-ks": simulator_ks}[args.study](args)
 
 
 if __name__ == "__main__":
