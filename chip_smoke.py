@@ -176,7 +176,18 @@ Phases (a failing phase raises; there is no CPU fallback):
     and weights summing to 1; then K1 and K2 at the launch shapes the
     studies add at their committed sizes, on the studies' own tiles
     (``launch_agreement``, the bound; the crowded arms' and the oracle's
-    single-sweep disagreements classified).
+    single-sweep disagreements classified);
+29. ingest: the M71 data front (``phase_ingest``) in a temporary
+    directory: ``data_prep.make_fixture`` (the default seed, the star
+    render on the card), ``prepare_data --no-download`` with the L-BFGS
+    image-model fit on the card, its tiles, catalogs and closed-form
+    parameters held to ``experiments/m71/data/m71`` (images to one float32
+    ulp) and its fit to the committed one where the likelihood pins it
+    (``data_prep.compare``); ``sky_exactness`` and ``psf_comparison`` on
+    the regenerated files held to their committed JSONs; the five-band
+    frame aligned to the r band on the card against the CPU; then the
+    m71 cut of ``[m71]`` (8 tiles, one batch, K2) on the port's own tiles
+    and fitted ``params.yaml``.
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -2252,6 +2263,7 @@ def phase_aggregation(dev):
         print(f"[m71] count share {share} (JAX reference "
               f"{M71_REFERENCE_COUNT_SHARE})")
         assert share >= M71_REFERENCE_COUNT_SHARE - 1e-9
+        m71_share = share
         # the chunk estimate on one image, whose one tile is its chunk (a
         # batch of images also keeps the earlier images' results)
         cfg.num_images = cfg.batch_size = 1
@@ -2262,7 +2274,7 @@ def phase_aggregation(dev):
                             cfg.sampler.num_catalogs,
                             cfg.image_model.image_height
                             * cfg.image_model.image_width, 1, peak)
-    return dnc, m71
+    return dnc, m71, m71_share
 
 
 def phase_mala_dnc(dev):
@@ -3288,8 +3300,12 @@ def phase_fit(dev):
     started 10% off on the PSF and 5% off on the calibration: the
     recovered parameters beside the truth, the steps and the wall. Held:
     a finite loss no higher than the truth's (to 1e-4 relative: the fit is
-    the maximum of the likelihood), the calibration within 1% and the PSF
-    core width within 5% of the truth."""
+    the maximum of the likelihood), the calibration as it reaches the
+    pixels (``fitting.in_window_calibration``) within 1% and the PSF core
+    width within 5% of the truth. ``adu_per_nmgy`` alone is printed: it
+    trades with the wing's mass outside the render window, which this
+    patch barely constrains (the JAX package's fit of it ends 8.5% above
+    the truth, its float64 optimum 35% above)."""
     from smcdet_tpu_torch import convert, fitting
 
     image, locs, fluxes, sky, p = fit_problem(dev)
@@ -3319,10 +3335,17 @@ def phase_fit(dev):
         print(f"[fit] {name}: {getattr(fit, name):.6g} (truth {p[name]:.6g})")
     print(f"[fit] background (the sky map's mean, held): "
           f"{fit.background:.4f}")
+    calibration = (
+        fitting.in_window_calibration(fit.adu_per_nmgy, fit.psf_params,
+                                      p["psf_radius"]),
+        fitting.in_window_calibration(p["adu_per_nmgy"], p["psf_params"],
+                                      p["psf_radius"]))
+    print(f"[fit] in-window calibration: {calibration[0]:.6g} (truth "
+          f"{calibration[1]:.6g})")
     assert np.isfinite(fit.final_loss)
     assert fit.final_loss <= truth_loss * (1 + 1e-4), (fit.final_loss,
                                                        truth_loss)
-    assert abs(fit.adu_per_nmgy / p["adu_per_nmgy"] - 1) < 0.01
+    assert abs(calibration[0] / calibration[1] - 1) < 0.01, calibration
     assert abs(fit.psf_params[0] / p["psf_params"][0] - 1) < 0.05
     return wall
 
@@ -4142,6 +4165,143 @@ def phase_m71studies(dev, peaks):
     return _m71_study_shapes(dev, peaks), launches
 
 
+ALIGN_REL_TOL = 1e-5  # card against CPU, of the frame's peak
+# the joint footprint's edge: the fixture's bands share one WCS, so a
+# pixel's source coordinate on the sampling window's edge (rows and
+# columns 1 and size - 2) is an integer up to float64 rounding, which
+# decides on either device whether it lies inside
+ALIGN_EDGE_PX = 2
+
+
+def _ingest_align(dev, data_dir):
+    """``SurveyPredictIterator`` with ``align_to_band = r`` over the whole
+    five-band frame on the card against the same on the CPU: within
+    ``ALIGN_REL_TOL`` of the peak where both footprints hold the pixel,
+    the footprints differing only within ``ALIGN_EDGE_PX`` of the frame's
+    edge; the align's CUDA-event time, after one untimed call."""
+    from smcdet_tpu_torch.data_prep import prepare_data as P
+    from smcdet_tpu_torch.ingest import (
+        SloanDigitalSkySurvey,
+        SurveyPredictIterator,
+        align,
+    )
+
+    survey = SloanDigitalSkySurvey(
+        [{"run": P.RUN, "camcol": P.CAMCOL, "fields": [P.FIELD]}],
+        f"{data_dir}/sdss", load_image_data=True, align_to_band=P.RBAND)
+    survey.prepare_data(download=False)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    card = SurveyPredictIterator(survey, dev)[0]["images"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    start = time.perf_counter()
+    cpu = SurveyPredictIterator(survey, "cpu")[0]["images"]
+    cpu_s = time.perf_counter() - start
+    card = card.cpu()
+    both = (card != 0) & (cpu != 0)
+    err = float((card - cpu)[both].abs().max() / cpu.abs().max())
+    _, rows, cols = torch.nonzero((card == 0) != (cpu == 0), as_tuple=True)
+    H, W = cpu.shape[1:]
+    e = ALIGN_EDGE_PX
+    off_edge = int(((rows > e) & (rows < H - 1 - e) & (cols > e)
+                    & (cols < W - 1 - e)).sum())
+    item = survey[0]
+    images = torch.as_tensor(
+        (item["image"] - item["background"])
+        / item["flux_calibration"][:, None, :], device=dev)
+    ms = _time_ms(lambda: align(images, item["wcs"], P.RBAND, device=dev), 3)
+    print(f"[ingest] (e) SurveyPredictIterator, align_to_band r, "
+          f"{tuple(images.shape)} float64 -> {tuple(card.shape)}: card "
+          f"{wall:.3f} s (first call), CPU {cpu_s:.3f} s; max |card - "
+          f"CPU| / peak {err:.3g} (tolerance {ALIGN_REL_TOL}) where both "
+          f"footprints hold the pixel; the footprints differ on "
+          f"{len(rows)} pixels, {off_edge} of them more than "
+          f"{ALIGN_EDGE_PX} px from the edge; the align alone {ms:.3f} ms "
+          "on the card (CUDA events, 3 calls)")
+    assert err <= ALIGN_REL_TOL and off_edge == 0, (err, off_edge)
+    return ms
+
+
+def phase_ingest(dev, m71_share):
+    """The M71 data front from the survey's bytes to a posterior, in a
+    temporary directory: (a) ``make_fixture`` (default seed), (b)
+    ``prepare_data --no-download`` with the fit on the card, held to the
+    committed fixture by ``data_prep.compare``, (c) ``sky_exactness`` and
+    (d) ``psf_comparison`` (m71, the regenerated psField and tiles, the
+    committed ``params.yaml``) held to their committed JSONs, (e) the
+    align, (f) ``[m71]``'s cut on the port's tiles and fitted parameters:
+    K2 and no K1 or K3 in the counters, the count share at least
+    ``M71_REFERENCE_COUNT_SHARE``. Returns the launches of (f) and the
+    align's time."""
+    import yaml
+
+    from smcdet_tpu_torch.config import load_config
+    from smcdet_tpu_torch.data_prep import compare, make_fixture, prepare_data
+    from smcdet_tpu_torch.studies import psf_comparison, sky_exactness_probe
+
+    committed = Path("experiments/m71/data/m71")
+    results = Path("docs/results/m71")
+    fails = []
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        fx = make_fixture.make_fixture(tmp, device=dev)
+        print(f"[ingest] (a) make_fixture: {fx['stars']} stars, the render "
+              f"{fx['render_s']:.3f} s on the card, {fx['wall_s']:.3f} s "
+              f"of wall with the frames")
+        info = prepare_data.prepare(tmp, download=False, device=dev)
+        fit = info["fit"]
+        print(f"[ingest] (b) prepare_data: {info['wall_s']:.3f} s of wall; "
+              f"the fit on {dev}: {info['fit_steps']} L-BFGS steps in "
+              f"{info['fit_s']:.3f} s, loss {fit.final_loss:.6f}; "
+              f"{info['kept']} tiles kept")
+        got = Path(tmp) / "m71"
+        fails += compare.hold_npz(got / "tiles.npz", committed / "tiles.npz",
+                                  "tiles.npz", exact_images=False)
+        zpt = (got / "hubble_ngc6838.zpt").read_bytes() == (
+            committed / "hubble_ngc6838.zpt").read_bytes()
+        print(f"[ingest] hubble_ngc6838.zpt byte-equal: {zpt}")
+        fails += [] if zpt else ["hubble_ngc6838.zpt differs"]
+        want = yaml.safe_load((committed / "params.yaml").read_text())
+        fails += compare.hold_params(
+            info["params"], want, fit.final_loss,
+            compare.patch_loss(tmp, want, dev), "params.yaml")
+        sky = sky_exactness_probe.sky_exactness(tmp)
+        same = json.dumps(sky, indent=2) + "\n" == (
+            results / "sky_exactness.json").read_text()
+        print(f"[ingest] (c) sky_exactness equal to the committed JSON: "
+              f"{same} (max abs err {sky['max_abs_err_electrons']:.6g} e-)")
+        fails += [] if same else ["sky_exactness.json differs"]
+        _, report = psf_comparison.psf_comparison("config.yaml", tmp, dev)
+        print("[ingest] (d) psf_comparison m71:")
+        fails += compare.hold_psf_comparison(
+            report, json.loads((results / "psf_comparison.json")
+                               .read_text()), "m71")
+        align_ms = _ingest_align(dev, tmp)
+        print(f"[time] ingest (a)-(e) in {time.perf_counter() - start:.1f} s")
+
+        raw = yaml.safe_load(Path("experiments/m71/config.yaml").read_text())
+        raw.update(data_path=str(got / "tiles.npz"),
+                   params_path=str(got / "params.yaml"),
+                   num_images=8, batch_size=8, output_dir=f"{tmp}/out")
+        (Path(tmp) / "config.yaml").write_text(yaml.safe_dump(raw))
+        cfg = load_config(Path(tmp) / "config.yaml")
+        assert cfg.image_model.psf_params == tuple(
+            info["params"]["psf_params"]), cfg.image_model
+        launches, res, levels, _ = _aggregation_batch(dev, cfg,
+                                                      "ingest m71")
+        assert launches["K2"] > 0 and launches["K1"] == launches["K3"] == 0, (
+            launches)
+        truth = np.load(got / "tiles.npz")["true_counts"][:8]
+        share = _count_share("ingest m71", res, truth)
+        print(f"[ingest] (f) the m71 cut on the port's tiles and fit: count "
+              f"share {share} ([m71] on the committed parameters "
+              f"{m71_share}; JAX reference {M71_REFERENCE_COUNT_SHARE})")
+        assert share >= M71_REFERENCE_COUNT_SHARE - 1e-9
+    assert not fails, fails
+    return launches, align_ms
+
+
 def _quiet(main, argv):
     """A study's ``main(argv)`` with its printed report swallowed (the
     phase prints its own line); returns what ``main`` returns."""
@@ -4230,7 +4390,7 @@ def main():
                                                scored["cells"])
     k2_entry.update(k2_pair)
     launches["K4"] = mala_basic = phase_mala_entry(dev, mh_basic)
-    dnc, m71 = phase_aggregation(dev)
+    dnc, m71, m71_share = phase_aggregation(dev)
     launches["K1"] += dnc["K1"] + m71["K1"]
     launches["K2"] = sum(k2_entry.values()) + dnc["K2"] + m71["K2"]
     launches["K3"] = dnc["K3"] + m71["K3"]
@@ -4299,7 +4459,11 @@ def main():
                            if k.startswith("crowded"))
                        + m71s["suites"] + m71s["simulator"])
     print(f"[time] m71studies in {time.perf_counter() - mark:.1f} s")
-    print(f"[done] phases 2-28 in {time.perf_counter() - start:.1f} s on "
+    mark = time.perf_counter()
+    ingest, _ = phase_ingest(dev, m71_share)
+    launches["K2"] += ingest["K2"]
+    print(f"[time] ingest in {time.perf_counter() - mark:.1f} s")
+    print(f"[done] phases 2-29 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
@@ -4382,6 +4546,8 @@ def main():
          mcmc_records["m71synthetic"]["burn-in"]),
         ("K1", "m71studies split_mode MH blocks", m71s["split MH"] - 1,
          mcmc_records["m71synthetic"]["block"]),
+        ("K2", "ingest m71 cut (the port's tiles and fit)", ingest["K2"],
+         shapes["m71 tile K2"]),
     ])
     print("[paths] not ranked: the full frame at chunk 56 and at the memory "
           "model's largest chunk ("

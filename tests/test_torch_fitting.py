@@ -1,11 +1,12 @@
 """The port's hyperparameter fitting (smcdet_tpu_torch/fitting.py) against
-the JAX package's (smcdet_tpu/fitting.py): the scipy fits equal, and the
-image-model MLE (torch L-BFGS where JAX runs optax's) reaching the same
-optimum on one synthetic patch."""
+the JAX package's (smcdet_tpu/fitting.py): the scipy fits equal, the
+port's L-BFGS taking optax.lbfgs's steps, and the image-model MLE reaching
+the same optimum on one synthetic patch."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from torch_parity import one_torch_thread  # noqa: F401  (autouse)
@@ -54,6 +55,74 @@ def test_poisson_rate_equals_jax():
     counts = np.random.default_rng(0).poisson(4.32, size=5000)
     assert (tfit.fit_poisson_rate(counts, area=144.0)
             == jfit.fit_poisson_rate(counts, area=144.0))
+
+
+def _optax_steps(f, x0, steps):
+    """``steps`` iterations of ``optax.lbfgs()`` from ``x0`` (float32)."""
+    opt = optax.lbfgs()
+    value_and_grad = optax.value_and_grad_from_state(f)
+    x = jnp.asarray(x0)
+    state = opt.init(x)
+    for _ in range(steps):
+        value, grad = value_and_grad(x, state=state)
+        updates, state = opt.update(grad, state, x, value=value, grad=grad,
+                                    value_fn=f)
+        x = optax.apply_updates(x, updates)
+    return np.asarray(x)
+
+
+def _port_steps(f, x0, steps):
+    def value_and_grad(x):
+        x = x.detach().requires_grad_(True)
+        loss = f(x)
+        return loss.detach(), torch.autograd.grad(loss, x)[0]
+
+    return tfit._lbfgs(value_and_grad, torch.tensor(x0), steps)[0].numpy()
+
+
+def _rosenbrock(x):
+    return (100 * (x[1:] - x[:-1] ** 2) ** 2 + (1 - x[:-1]) ** 2).sum()
+
+
+@pytest.mark.parametrize("steps", [1, 3, 10])
+def test_lbfgs_takes_optax_steps(steps):
+    """The port's L-BFGS (optax.lbfgs's memory and scaling, its zoom line
+    search) against optax's from the same start on a float32 Rosenbrock
+    valley, where every step's line search brackets, zooms and takes the
+    curvature condition: the iterates agree to float32 rounding (the two
+    drift apart by it only over tens of steps)."""
+    x0 = np.array([-1.2, 1.0, -0.5, 0.8], np.float32)
+    np.testing.assert_allclose(_port_steps(_rosenbrock, x0, steps),
+                               _optax_steps(_rosenbrock, x0, steps),
+                               atol=1e-5)
+
+
+def test_line_search_moves_where_float32_cannot_resolve_the_decrease():
+    """On 1000 + 1e-4 |x - 3|^2 from 2.9 every float32 loss on the way to
+    the minimum rounds to 1000, so Armijo's decrease never holds; the zoom
+    line search accepts on the slope (the approximate decrease) as
+    optax's does and reaches the minimum, where ``torch.optim.LBFGS``'s
+    strong-Wolfe search does not move."""
+    x0 = np.full(4, 2.9, np.float32)
+    got = _port_steps(lambda x: 1000.0 + 1e-4 * ((x - 3.0) ** 2).sum(), x0,
+                      5)
+    want = _optax_steps(lambda x: 1000.0 + 1e-4 * jnp.sum((x - 3.0) ** 2),
+                        x0, 5)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(got, 3.0, atol=1e-4)
+    x = torch.tensor(x0, requires_grad=True)
+    stalled = torch.optim.LBFGS([x], max_iter=1,
+                                line_search_fn="strong_wolfe")
+
+    def closure():
+        stalled.zero_grad()
+        loss = 1000.0 + 1e-4 * ((x - 3.0) ** 2).sum()
+        loss.backward()
+        return loss
+
+    for _ in range(5):
+        stalled.step(closure)
+    np.testing.assert_array_equal(x.detach().numpy(), x0)
 
 
 def _patch(size=32, stars=12, seed=0):
@@ -124,6 +193,19 @@ def test_fitted_model_beats_the_start(fits):
           for m in (fitted, start)]
     assert ll[0] > ll[1]
     np.testing.assert_allclose(-ll[0] / 1024, got.final_loss, rtol=1e-3)
+
+
+@pytest.mark.parametrize("psf", [TRUE_PSF, (1.29, 4.14, 3.93, 1.54, 0.089,
+                                         2.7e-4)])
+def test_in_window_calibration_is_the_rendered_flux(psf):
+    """One nmgy at a pixel corner, rendered by the port's M71 model: its
+    pixels sum to ``in_window_calibration`` (a narrow and a heavy wing)."""
+    model = convert.m71_model_from_fit(
+        tfit.FittedImageModel(psf, 0.0, 850.0, 0.0, 1.0, 0.0), 40, 40,
+        background=0.0, device="cpu")
+    image = model.render(torch.tensor([[20.0, 20.0]]), torch.tensor([1.0]))
+    assert float(image.sum()) == pytest.approx(
+        tfit.in_window_calibration(850.0, psf, 8), rel=1e-5)
 
 
 def test_divergence_raises():

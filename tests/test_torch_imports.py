@@ -1,12 +1,16 @@
 """The port runs on a machine without JAX: no module of
 ``smcdet_tpu_torch`` (``studies/`` included) and no line of ``chip_smoke.py``
-or the card runners ``tests/torch_synthetic_suites.py`` and
-``tests/torch_m71_studies.py`` imports ``jax``, ``flax``, ``optax``, the JAX
-package ``smcdet_tpu`` or its ``experiments`` scripts (``make_fixture``
-among them, which reaches ``smcdet_tpu.ingest``), at any depth of the file
-(functions included)."""
+or the card runners ``tests/torch_synthetic_suites.py``,
+``tests/torch_m71_studies.py`` and ``tests/torch_m71_fixtures.py`` imports
+``jax``, ``flax``, ``optax``, the JAX package ``smcdet_tpu`` or its
+``experiments`` scripts (``make_fixture`` among them, which reaches
+``smcdet_tpu.ingest``), at any depth of the file
+(functions included). And the port's data prep, run without
+``--no-download`` on a directory without the survey's files, names the
+first missing file and its archive URL, and opens no socket."""
 
 import ast
+import socket
 from pathlib import Path
 
 import pytest
@@ -17,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smcdet_tpu", "experiments",
 # the port, its smoke run and the suite runners that run on the card
 FILES = sorted((REPO / "smcdet_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "torch_synthetic_suites.py",
-    REPO / "tests" / "torch_m71_studies.py"]
+    REPO / "tests" / "torch_m71_studies.py",
+    REPO / "tests" / "torch_m71_fixtures.py"]
 
 
 def imported_modules(source: str):
@@ -49,3 +54,26 @@ def test_the_check_sees_nested_and_from_imports():
 def test_no_jax_import(path):
     bad = [n for n in imported_modules(path.read_text()) if n in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_prepare_data_without_files_raises_and_opens_no_socket(tmp_path,
+                                                               monkeypatch):
+    from smcdet_tpu_torch.data_prep import prepare_data
+
+    opened = []
+
+    class NoSocket(socket.socket):
+        def __init__(self, *args, **kwargs):
+            opened.append(args)
+            raise AssertionError("a socket was opened")
+
+    monkeypatch.setattr(socket, "socket", NoSocket)
+    monkeypatch.setattr(socket, "create_connection",
+                        lambda *a, **k: opened.append(a))
+    with pytest.raises(FileNotFoundError) as e:
+        prepare_data.main(["--data-dir", str(tmp_path), "--device", "cpu"])
+    assert str(tmp_path / "sdss" / "6895" / "3"
+               / "photoField-006895-3.fits") in str(e.value)
+    assert ("https://data.sdss.org/sas/dr12/boss/photoObj/301/6895/"
+            "photoField-006895-3.fits") in str(e.value)
+    assert opened == []
