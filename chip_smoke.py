@@ -2,6 +2,11 @@
 
     python3 chip_smoke.py
 
+``SEED_WORKERS`` worker processes of this script start with it and run the
+seeds after the first of the divideandconquer (MH and MALA) and
+m71semisynthetic batches while the first runs here; the script ends them
+before it exits.
+
 Phases (a failing phase raises; there is no CPU fallback):
 
 1. device: the card's name and power limit (nvidia-smi), CUDA, nvcc,
@@ -106,7 +111,9 @@ Phases (a failing phase raises; there is no CPU fallback):
     one batch each through ``run_experiment(method="mcmc")`` at the
     configs' chain lengths (50,000 sweeps, 30,000 burn-in, thinning 2: one
     burn-in launch and 10,000 block launches), every launch counted, with
-    the later chains cut when the batches would exceed ``MCMC_BUDGET_S``;
+    the later chains cut when the batches would exceed ``MCMC_BUDGET_S``
+    (15 s: the chains after the m71 fixture's keep a share of their
+    samples);
     then ``torch.profiler`` over an m71 batch cut to 1,000 blocks: device
     time, idle share and host time per block;
 18. rjmh: the reversible-jump chain (birth, death, split, merge) on
@@ -119,7 +126,8 @@ Phases (a failing phase raises; there is no CPU fallback):
     the CPU (counts equal on >= 99% of tiles, locations and fluxes within
     ``SEP_LOC_ATOL`` / ``SEP_FLUX_RTOL``);
 21. sqjd: the ``sqjumpdist_tol`` early stop at the jsm2024 value 1e-2 on
-    the quick cell (K1), one basic batch (K2), the basic batch under MALA
+    ``SQJD_QUICK_TILES`` of the quick cell's tiles (K1), one basic batch
+    (K2), the basic batch under MALA
     (K4) and one divideandconquer image (K1 tiles, K3 bridges): one counted
     launch a sweep, tolerance 0 running exactly ``num_iters`` launches a
     mutation, the plain version on the same Philox keys stopping at the
@@ -143,8 +151,8 @@ Phases (a failing phase raises; there is no CPU fallback):
     cell and the 332-tile frame (``bench.py``'s own tiles: every tile at
     temperature 1, every mutate call a K1 launch and no other kernel, peak
     memory under one chunk's estimate, the quick tiles' +-1 share at or
-    above the JAX runner's), and the frame at chunks of 28, 56 and the
-    memory model's largest, printed for information;
+    above the JAX runner's), and the frame at the memory model's largest
+    chunk, printed for information;
 26. stream: the bench's ``--streaming`` main (the tile pool,
     ``inference/streaming.py``) on the quick cell and the frame at 28
     slots, held as ``[bench]`` with the peak under the pool's estimate
@@ -165,13 +173,13 @@ Phases (a failing phase raises; there is no CPU fallback):
     K3 bridges), then the numpy-only ``attribute_pooled.py`` and
     ``truth_score_pooled.py`` on the dump, each exiting 0;
 28. m71studies: the seven M71 study modules at cuts (``phase_m71studies``):
-    the crowded-tile budget probe's three arms on 8 crowded tiles (K2),
+    the crowded-tile budget probe's three arms on 4 crowded tiles (K2),
     the oracle run on 4 fixture tiles (K1) and its analysis, the m71,
     m71_nogiants, m71_mis and m71_vary suites on 4 tiles each (K2) with
     compare_nogiants (the whole fixture's giant geometry equal to the
     committed one) and misspec_study, simulator_checks (K2), repeated_runs
     at 8 runs, N 512 and 2048, 10 and 100 sweeps (K1) and split_mode_study
-    at 8 chains x 1,000 sweeps (K1 at N = 1, the reversible-jump anchors
+    at 8 chains x 300 sweeps (K1 at N = 1, the reversible-jump anchors
     plain), every tile-level SMC run at temperature 1 with a finite log Z
     and weights summing to 1; then K1 and K2 at the launch shapes the
     studies add at their committed sizes, on the studies' own tiles
@@ -187,7 +195,26 @@ Phases (a failing phase raises; there is no CPU fallback):
     the regenerated files held to their committed JSONs; the five-band
     frame aligned to the r band on the card against the CPU; then the
     m71 cut of ``[m71]`` (8 tiles, one batch, K2) on the port's own tiles
-    and fitted ``params.yaml``.
+    and fitted ``params.yaml``;
+30. anchor: the SMC-versus-MCMC anchor (``studies/compare_mcmc``) at a cut,
+    ``ANCHOR_CUT`` (16 m71synthetic images x 2 reps on the tile axis, 2,000
+    sweeps, 1,000 burn-in, thin 2), after the port's CS-SMC on those
+    images: K1 once for the burn-in and once a kept sample, the RJ sweep
+    plain, every chain finite, the acceptances in [0, 1], its report
+    printed beside the committed one (not held); K1 at the CS-SMC's launch
+    shape, at the cut's 32 x 1 and at the committed anchor's 800 x 1 (its
+    30,000-sweep burn-in and a 2-sweep block) against its plain version
+    (``launch_agreement`` pooled over keys) and its bound; the RJ sweep's
+    wall a sweep at 32 and 800 chains;
+31. parallel: divideandconquer cut to 4 images at batch size 1 through
+    ``run_experiment`` in this process (every tile and bridge level at
+    temperature 1), then through two job processes of ``python -m
+    smcdet_tpu_torch.run_experiment --distributed`` (gloo over localhost,
+    both on ``cuda:0``): disjoint batch files whose union is the
+    single-process run's, each finite with weights summing to 1 and equal
+    to the single-process run's, a failing process failing the phase;
+    ``SMCSampler.run(devices=[cuda:0])`` bit-equal to ``devices=None``;
+    ``select_device()`` the card; ``describe_devices()``.
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -295,6 +322,8 @@ M71SS_RUNS = 10
 M71SS_JAX_WITHIN = 66
 # the jsm2024 early-stop tolerance (sqjumpdist_tol) that [sqjd] runs
 SQJD_TOL = 1e-2
+# the early stop's quick-cell path runs this many of the quick cell's tiles
+SQJD_QUICK_TILES = 4
 # [history]: a ladder of dyadic temperatures, exact in float32, so the
 # recorded temperatures equal it bit for bit
 HISTORY_LADDER = (0.0625, 0.125, 0.25, 0.5, 1.0)
@@ -1941,7 +1970,8 @@ def phase_score(dev, dirs, tiles):
             return drawn[seed]
 
         reports = {d: analyze(path, device=d, tiles=tiles[name],
-                              draw=draw, **kw) for d in ("cuda", "cpu")}
+                              draw=draw, figures=False, **kw)
+                   for d in ("cuda", "cpu")}
         # the analyzer's first matching again, on either device with the
         # catalogs it drew
         res = load_results(path)
@@ -2138,7 +2168,11 @@ def _aggregation_batch(dev, cfg, label):
 
 
 def _count_share(label, res, truth):
-    mean = (res["weights"] * res["pruned_counts"]).sum(-1)
+    return _share_of_means(label, (res["weights"] * res["pruned_counts"]
+                                   ).sum(-1), truth)
+
+
+def _share_of_means(label, mean, truth):
     within = np.abs(mean - truth) <= 1.0
     print(f"[{label}] posterior mean pruned count within +-1 of truth on "
           f"{int(within.sum())}/{len(within)} images")
@@ -2147,10 +2181,149 @@ def _count_share(label, res, truth):
     return float(within.mean())
 
 
-def dnc_runs(dev, cfg, label, seeds):
+def _stage_runs(cfg, tiles, seeds, label, workers):
+    """Stage ``tiles`` as the batch of one run per sampler seed, each in a
+    directory of its own under ``cfg.output_dir`` (``run_experiment`` skips
+    a batch it finds done), and hand every seed but the first to
+    ``workers`` (``_SeedWorkers``; none: every run in this process).
+    Returns ``{seed: job}``."""
+    from smcdet_tpu_torch.config import save_config
+
+    out_dir, jobs = cfg.output_dir, {}
+    for run_seed in seeds:
+        cfg.seed, cfg.output_dir = run_seed, f"{out_dir}/seed{run_seed}"
+        staged = Path(cfg.output_dir) / cfg.name / "tiles.npz"
+        staged.parent.mkdir(parents=True)
+        np.savez_compressed(staged, **tiles)
+        if workers is not None and run_seed != seeds[0]:
+            save_config(cfg, Path(cfg.output_dir) / "config.yaml")
+            jobs[run_seed] = workers.submit(
+                Path(cfg.output_dir) / "config.yaml",
+                f"{label} seed {run_seed}")
+    cfg.output_dir = out_dir
+    return jobs
+
+
+# The seeds after the first of the [dnc], [mala dnc] and [m71ss] batches
+# run in SEED_WORKERS processes of this script (``--worker``), started
+# with the script and idle until then, while the first seed runs here:
+# the runs are host-bound (one divideandconquer image leaves the card
+# about 87% idle), so they overlap on one card. A run's draws depend only
+# on its config and seed, so a worker's run is the one this process would
+# make.
+SEED_WORKERS = 3
+
+
+class _SeedWorkers:
+    """``SEED_WORKERS`` worker processes (``_worker``), each taking the
+    jobs ``submit`` hands it in turn; ``result`` prints a job's lines and
+    returns its ``_aggregation_batch`` launches, levels and posterior
+    means, and raises if the job or its worker failed. ``close`` ends
+    them."""
+
+    def __init__(self, n):
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--worker"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            for _ in range(n)]
+        self.jobs, self.done = 0, {}
+
+    def submit(self, config, label):
+        job, proc = self.jobs, self.procs[self.jobs % len(self.procs)]
+        self.jobs += 1
+        proc.stdin.write(json.dumps({"id": job, "config": str(config),
+                                     "label": label}) + "\n")
+        proc.stdin.flush()
+        return job
+
+    def result(self, job):
+        proc = self.procs[job % len(self.procs)]
+        while job not in self.done:
+            line = proc.stdout.readline()
+            if not line:
+                raise RuntimeError(f"seed worker {job % len(self.procs)} "
+                                   f"exited with {proc.wait()}")
+            out = json.loads(line)
+            self.done[out["id"]] = out
+        out = self.done.pop(job)
+        print(out["log"], end="")
+        if "error" in out:
+            raise RuntimeError(f"seed worker job {job}: {out['error']}")
+        return out
+
+    def close(self):
+        for proc in self.procs:
+            try:
+                proc.stdin.close()
+            except OSError:
+                pass
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def _worker():
+    """``--worker``: ``_aggregation_batch`` on the card for each job read
+    from standard input (a config file and a label, one JSON line), and
+    one JSON line of its result on standard output: the launches, the
+    levels, each image's posterior mean pruned count, and the lines the
+    run printed (``"log"``), or the traceback (``"error"``)."""
+    import contextlib
+    import io
+    import traceback
+
+    from smcdet_tpu_torch.config import load_config
+
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev)
+    for line in sys.stdin:
+        job = json.loads(line)
+        out, log = {"id": job["id"]}, io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                launches, res, levels, _ = _aggregation_batch(
+                    dev, load_config(job["config"]), job["label"])
+            out.update(launches=launches, levels=[
+                [(int(it), t, acc) for it, t, acc in lv] for lv in levels],
+                means=(res["weights"] * res["pruned_counts"]).sum(-1)
+                .tolist())
+        except Exception:
+            out["error"] = traceback.format_exc()
+        out["log"] = log.getvalue()
+        print(json.dumps(out), flush=True)
+
+
+def _seed_runs(dev, cfg, tiles, seeds, label, workers):
+    """``_aggregation_batch`` on the staged batch once per sampler seed in
+    ``seeds``: the first in this process, the others in ``workers`` while
+    it runs. Returns, per seed in order, ``(launches, levels, means)``:
+    the run's launches, per-image level diagnostics and each image's
+    posterior mean pruned count."""
+    seed, out_dir = cfg.seed, cfg.output_dir
+    jobs = _stage_runs(cfg, tiles, seeds, label, workers)
+    runs = []
+    for run_seed in seeds:
+        if run_seed in jobs:
+            out = workers.result(jobs[run_seed])
+            runs.append((out["launches"], out["levels"],
+                         np.asarray(out["means"])))
+            continue
+        cfg.seed, cfg.output_dir = run_seed, f"{out_dir}/seed{run_seed}"
+        launches, res, levels, _ = _aggregation_batch(
+            dev, cfg, f"{label} seed {run_seed}")
+        runs.append((launches, levels,
+                     (res["weights"] * res["pruned_counts"]).sum(-1)))
+    cfg.seed, cfg.output_dir = seed, out_dir
+    return runs
+
+
+def dnc_runs(dev, cfg, label, seeds, workers=None):
     """The batch of 4 divideandconquer images through ``run_experiment``
-    once per sampler seed in ``seeds``, each run in a directory of its own
-    under ``cfg.output_dir``; the images stay those of ``cfg.seed`` (staged
+    once per sampler seed in ``seeds`` (``_seed_runs``; the seeds after the
+    first in ``workers``); the images stay those of ``cfg.seed`` (staged
     as each run's ``tiles.npz``). Returns the true
     pruned counts and, per run, ``(launches, levels, converged, means)``:
     ``_aggregation_batch``'s launches and per-image level diagnostics, each
@@ -2161,20 +2334,12 @@ def dnc_runs(dev, cfg, label, seeds):
     cfg.num_images = cfg.batch_size = 4
     tiles = simulate_tiles(cfg)
     cap = cfg.aggregation.max_smc_iters
-    seed, out_dir, runs = cfg.seed, cfg.output_dir, []
-    for run_seed in seeds:
-        # a directory per run: run_experiment skips a batch it finds done
-        cfg.seed, cfg.output_dir = run_seed, f"{out_dir}/seed{run_seed}"
-        staged = Path(cfg.output_dir) / cfg.name / "tiles.npz"
-        staged.parent.mkdir(parents=True)
-        np.savez_compressed(staged, **tiles)
-        launches, res, levels, _ = _aggregation_batch(
-            dev, cfg, f"{label} seed {run_seed}")
+    runs = []
+    for launches, levels, means in _seed_runs(dev, cfg, tiles, seeds, label,
+                                              workers):
         converged = [all(it < cap and np.all(np.asarray(t) == 1.0)
                          for it, t, _ in lv) for lv in levels]
-        means = (res["weights"] * res["pruned_counts"]).sum(-1)
         runs.append((launches, levels, converged, means))
-    cfg.seed, cfg.output_dir = seed, out_dir
     return tiles["true_counts"], runs
 
 
@@ -2190,7 +2355,8 @@ def binomial_floor(n, hits, alpha=DNC_ALPHA):
     return n
 
 
-def _dnc_batch(dev, cfg, label, converged_bar, count_bar, reference_within):
+def _dnc_batch(dev, cfg, label, converged_bar, count_bar, reference_within,
+               workers=None):
     """``dnc_runs`` with the sampler seeded by the config's seed and the
     ``DNC_RUNS - 1`` next ones: the first run's bridge iterations and
     temperatures per level, every run held to the JAX runner's convergence
@@ -2201,7 +2367,7 @@ def _dnc_batch(dev, cfg, label, converged_bar, count_bar, reference_within):
     launches, with the bridge launches of each level under ``"bridge
     levels"`` (one launch per bridge iteration)."""
     truth, runs = dnc_runs(dev, cfg, label,
-                           range(cfg.seed, cfg.seed + DNC_RUNS))
+                           range(cfg.seed, cfg.seed + DNC_RUNS), workers)
     assert truth.tolist() == DNC_TRUE_COUNTS, truth.tolist()
     launches, levels = runs[0][:2]
     for i, lv in enumerate(levels):
@@ -2236,7 +2402,7 @@ def _dnc_batch(dev, cfg, label, converged_bar, count_bar, reference_within):
     return dict(launches, **{"bridge levels": per_level})
 
 
-def phase_aggregation(dev):
+def phase_aggregation(dev, workers=None):
     """The aggregation entry point: ``run_experiment`` on one batch of
     divideandconquer (4 16x16 images, shipped N, M, sweeps, ESS and bridge
     settings: tile stage K1, bridges K3) and on the first 8 tiles of the
@@ -2248,7 +2414,8 @@ def phase_aggregation(dev):
         cfg = _suite_config("divideandconquer")
         cfg.output_dir = tmp
         dnc = _dnc_batch(dev, cfg, "dnc", DNC_REFERENCE_CONVERGED_SHARE,
-                         DNC_REFERENCE_COUNT_SHARE, DNC_JAX_WITHIN["MH"])
+                         DNC_REFERENCE_COUNT_SHARE, DNC_JAX_WITHIN["MH"],
+                         workers)
         assert dnc["K1"] > 0 and dnc["K3"] > 0 and dnc["K2"] == 0, dnc
 
         cfg = _suite_config("m71")
@@ -2277,7 +2444,7 @@ def phase_aggregation(dev):
     return dnc, m71, m71_share
 
 
-def phase_mala_dnc(dev):
+def phase_mala_dnc(dev, workers=None):
     """``run_experiment`` on one batch of 4 divideandconquer images with
     ``kernel.kind: mala``: K4 on the tile stage and on both bridge levels,
     every mutate call a K4 launch, held to the JAX runner's shares under
@@ -2288,7 +2455,7 @@ def phase_mala_dnc(dev):
         launches = _dnc_batch(dev, cfg, "mala dnc",
                               DNC_MALA_REFERENCE_CONVERGED_SHARE,
                               DNC_MALA_REFERENCE_COUNT_SHARE,
-                              DNC_JAX_WITHIN["MALA"])
+                              DNC_JAX_WITHIN["MALA"], workers)
     assert launches["K4 tile"] > 0 and launches["K4 bridge"] > 0, launches
     assert all(launches[k] == 0 for k in ("K1", "K2", "K3")), launches
     return launches
@@ -2514,7 +2681,7 @@ MCMC_CHAINS = (("m71 fixture", "m71", "mh", "K2"),
                ("basic under MALA", "basic", "mala", "K4"))
 # the [mcmc] batches' budget: past it, the chains after the m71 fixture's
 # keep fewer samples (the burn-in stays whole)
-MCMC_BUDGET_S = 120.0
+MCMC_BUDGET_S = 10.0
 # the plain chain's drift check: tiles and sweeps
 MCMC_PLAIN_DRIFT = (2, 1000)
 # the equilibrium check's chains (copies of one tile)
@@ -2650,6 +2817,41 @@ def chain_vs_plain(dev, label, kid, suite, kind, peaks):
           f"lowest {min(a for _, a in shares):.6f})")
     assert agree >= 0.99, shares
 
+    records = _chain_launch_records(kid, label, run, plain, chain, ctx,
+                                    counts, state, nb, k, mala, peaks)
+
+    # the rate cache's f32 drift over a whole burn-in launch
+    ctx, counts, state = init_chain(gen, imgs, prior, model, chain)
+    burnt, _ = with_iters(chain, nb).run_from_state(gen, ctx, counts, state)
+    rate, ll_rel, ll_abs = _cache_drift(ctx, counts, burnt)
+    print(f"[mcmc {label}] after a {nb}-sweep burn-in launch on the card: "
+          f"rate cache vs fresh render max rel {rate:.3e}; cached vs "
+          f"recomputed log-likelihood max rel {ll_rel:.3e} (abs "
+          f"{ll_abs:.3e})")
+    assert rate < 1e-2 and ll_rel < 1e-2, (rate, ll_rel)
+    if label == "m71 fixture":
+        n, sweeps = MCMC_PLAIN_DRIFT
+        sub = init_chain(gen, imgs[:n], prior, _first_tiles(model, n),
+                         chain)
+        plain_chain = with_iters(chain, sweeps)
+        plain_chain.backend = "torch"
+        burnt, _ = plain_chain.run_from_state(gen, *sub)
+        rate, ll_rel, ll_abs = _cache_drift(sub[0], sub[1], burnt)
+        print(f"[mcmc {label}] the plain version, {n} tiles x {sweeps} "
+              f"sweeps: rate drift max rel {rate:.3e}; log-likelihood max "
+              f"rel {ll_rel:.3e} (abs {ll_abs:.3e})")
+    return records
+
+
+def _chain_launch_records(kid, label, run, plain, chain, ctx, counts, state,
+                          nb, k, mala, peaks):
+    """The chain kernel's burn-in launch (``nb`` sweeps) and block launch
+    (``k`` sweeps) at the chains ``counts [T, 1]``, each timed beside its
+    bound and its plain version. Returns ``{"burn-in": rec, "block":
+    rec}``."""
+    prior, model = ctx.prior, ctx.model
+    M, T = prior.max_objects, counts.shape[0]
+    key = torch.tensor([4242, 2424], dtype=torch.int64, device=counts.device)
     records = {}
     for name, sweeps, reps in (("burn-in", nb, 1), ("block", k, 200)):
         args = _chain_args(key, chain, ctx, counts, state, sweeps)
@@ -2681,27 +2883,6 @@ def chain_vs_plain(dev, label, kid, suite, kind, peaks):
               f"{bound[0][0]:.3e} ms ({bound[0][1]}; at K5's measured rates "
               f"{bound[1][0]:.3e} ms)")
         records[name] = rec
-
-    # the rate cache's f32 drift over a whole burn-in launch
-    ctx, counts, state = init_chain(gen, imgs, prior, model, chain)
-    burnt, _ = with_iters(chain, nb).run_from_state(gen, ctx, counts, state)
-    rate, ll_rel, ll_abs = _cache_drift(ctx, counts, burnt)
-    print(f"[mcmc {label}] after a {nb}-sweep burn-in launch on the card: "
-          f"rate cache vs fresh render max rel {rate:.3e}; cached vs "
-          f"recomputed log-likelihood max rel {ll_rel:.3e} (abs "
-          f"{ll_abs:.3e})")
-    assert rate < 1e-2 and ll_rel < 1e-2, (rate, ll_rel)
-    if label == "m71 fixture":
-        n, sweeps = MCMC_PLAIN_DRIFT
-        sub = init_chain(gen, imgs[:n], prior, _first_tiles(model, n),
-                         chain)
-        plain_chain = with_iters(chain, sweeps)
-        plain_chain.backend = "torch"
-        burnt, _ = plain_chain.run_from_state(gen, *sub)
-        rate, ll_rel, ll_abs = _cache_drift(sub[0], sub[1], burnt)
-        print(f"[mcmc {label}] the plain version, {n} tiles x {sweeps} "
-              f"sweeps: rate drift max rel {rate:.3e}; log-likelihood max "
-              f"rel {ll_rel:.3e} (abs {ll_abs:.3e})")
     return records
 
 
@@ -3102,7 +3283,8 @@ def phase_sqjd(dev, peaks):
     records = {}
     with tempfile.TemporaryDirectory() as tmp:
         def quick(tol):
-            sim, prior, model, kernel, cfg = build_problem(dev)
+            sim, prior, model, kernel, cfg = build_problem(
+                dev, num_tiles=SQJD_QUICK_TILES)
             kernel.sqjumpdist_tol = tol
             res = run_csmc_chunked(torch.Generator(device=dev).manual_seed(1),
                                    sim.images.to(dev), prior, model, kernel,
@@ -3185,9 +3367,11 @@ def phase_sqjd(dev, peaks):
                               "sweeps_mean": float(np.mean(sweeps)),
                               "host_ms_per_sweep": host_ms, "wall_s": wall,
                               "launches": n}
-    sim, prior, model, kernel, _ = build_problem(dev)
+    sim, prior, model, kernel, _ = build_problem(
+        dev, num_tiles=SQJD_QUICK_TILES)
     one = {"quick cell": _one_sweep_record(dev, "quick cell", "K1", prior,
-                                           model, kernel, 16, 2048, peaks)}
+                                           model, kernel, SQJD_QUICK_TILES,
+                                           2048, peaks)}
     prior, model, kernel, _ = suite_problem(dev, "basic")
     one["basic"] = _one_sweep_record(dev, "basic", "K2", prior, model,
                                      kernel, 20, 512, peaks)
@@ -3350,7 +3534,7 @@ def phase_fit(dev):
     return wall
 
 
-def phase_m71ss(dev):
+def phase_m71ss(dev, workers=None):
     """The m71semisynthetic generate step on the card: all 688 fixture
     tiles in each ``--catalog`` mode (timed; the rate on the card, the
     noise from the config's CPU generator, so the tiles equal a CPU
@@ -3391,20 +3575,18 @@ def phase_m71ss(dev):
     seed, runs = cfg.seed, []
     launches = dict.fromkeys(("K1", "K2", "K3"), 0)
     with tempfile.TemporaryDirectory() as tmp:
-        for run_seed in range(seed, seed + M71SS_RUNS):
-            # the tiles stay the config seed's render; the seed drives the
-            # sampler (a directory per run: a finished batch is skipped)
-            cfg.seed, cfg.output_dir = run_seed, f"{tmp}/seed{run_seed}"
-            staged = Path(cfg.output_dir) / cfg.name / "tiles.npz"
-            staged.parent.mkdir(parents=True)
-            np.savez_compressed(staged, **tiles)
-            run, res, levels, _ = _aggregation_batch(
-                dev, cfg, f"m71ss seed {run_seed}")
+        # the tiles stay the config seed's render; the seed drives the
+        # sampler
+        cfg.output_dir = tmp
+        seeds = range(seed, seed + M71SS_RUNS)
+        for run_seed, (run, levels, means) in zip(seeds, _seed_runs(
+                dev, cfg, tiles, seeds, "m71ss", workers)):
             assert run["K2"] > 0 and run["K1"] == run["K3"] == 0, run
             assert all(lv == [] for lv in levels)  # one tile: no level
             for k in launches:
                 launches[k] += run[k]
-            runs.append(_count_share(f"m71ss seed {run_seed}", res, truth))
+            runs.append(_share_of_means(f"m71ss seed {run_seed}", means,
+                                        truth))
     within = [round(r * len(truth)) for r in runs]
     n, hits = len(truth) * len(runs), sum(within)
     floor = binomial_floor(n, M71SS_JAX_WITHIN)
@@ -3419,10 +3601,9 @@ def phase_m71ss(dev):
 
 
 # ``[bench]``: the sorted-chunk runs of ``smcdet_tpu_torch.bench`` (label,
-# tiles, N, chunk); then, for information, the full frame at these chunks
-# and at the memory model's largest (``max_tiles_per_chunk``)
+# tiles, N, chunk); then, for information, the full frame at the memory
+# model's largest chunk (``max_tiles_per_chunk``)
 BENCH_RUNS = (("quick", 16, 2048, 16), ("full frame", 332, 4096, 14))
-BENCH_INFO_CHUNKS = (28, 56)
 # ``[stream]``: the streaming pool's runs (label, tiles, N, pool), and the
 # profiled run's tiles (the frame's first ones) at the frame's pool
 STREAM_RUNS = (("quick", 16, 2048, 16), ("full frame", 332, 4096, 28))
@@ -3484,9 +3665,8 @@ def phase_bench(dev):
     ``run_csmc_chunked``'s estimate for one chunk, the quick tiles' +-1
     share at or above the JAX runner's (``BENCH_REFERENCE_COUNT_SHARE``);
     the frame's share, chunks, iterations per chunk and peak printed with
-    the JSON line. Then the full frame at ``BENCH_INFO_CHUNKS`` and at the
-    memory model's largest chunk, printed for information (not in
-    ``[paths]``). Returns K1's launches by run and the runs' infos."""
+    the JSON line. Then the full frame at the memory model's largest
+    chunk, printed for information (not in ``[paths]``). Returns K1's launches by run and the runs' infos."""
     from smcdet_tpu_torch import bench
     from smcdet_tpu_torch.inference.smc import (
         default_budget_bytes,
@@ -3497,8 +3677,8 @@ def phase_bench(dev):
     launches, infos = {}, {}
     largest = max_tiles_per_chunk(prior, 4096, TILE * TILE,
                                   default_budget_bytes(dev))
-    runs = list(BENCH_RUNS) + [(f"full frame chunk {c}", 332, 4096, c)
-                               for c in BENCH_INFO_CHUNKS + (largest,)]
+    runs = list(BENCH_RUNS) + [(f"full frame chunk {largest}", 332, 4096,
+                                largest)]
     for label, T, N, chunk in runs:
         record, info, n, peak = _bench_run(
             dev, bench.sorted_chunks, T, N, 100, chunk,
@@ -3854,13 +4034,13 @@ def phase_studies(dev, peaks):
 
 # ``[m71studies]``: the M71 studies' cuts (the crowded probe's tiles, the
 # scoring studies' one-batch runs a suite, repeated_runs' reps, N and
-# sweeps, split_mode's chains and sweeps), sized to keep the phase near 90
+# sweeps, split_mode's chains and sweeps), sized to keep the phase near 75
 # s on an H100 (its three crowded arms take about 1.2 s a tile, the plain
 # reversible-jump anchors 8-17 ms a sweep)
-M71STUDIES_CROWDED_TILES = 8
+M71STUDIES_CROWDED_TILES = 4
 M71STUDIES_SUITE_TILES = 4
 M71STUDIES_REPEATED = (8, (512, 2048), (10, 100))
-M71STUDIES_SPLIT = (8, 1000)
+M71STUDIES_SPLIT = (8, 300)
 # repeated_runs at its committed size: runs a setting, particles per
 # stratum (K1 is timed at each N's call shape, at the grid's 10 sweeps)
 M71STUDIES_REPEATED_FULL = (100, (512, 2048, 8192))
@@ -3911,9 +4091,10 @@ class _SMCResults:
         return len(self.results), tiles
 
 
-def _m71_studies_run(label, fn, smc=True):
+def _m71_studies_run(label, fn, smc=True, tag="m71studies"):
     """``fn()`` with the launches counted from 0 and, with ``smc``, every
-    SMC result held to the limits. Returns its value and the launches."""
+    SMC result held to the limits; its line tagged ``[tag]``. Returns its
+    value and the launches."""
     with _SMCResults() as kept:
         _reset_launches()
         start = time.perf_counter()
@@ -3925,7 +4106,7 @@ def _m71_studies_run(label, fn, smc=True):
         runs, tiles = kept.check(label)
         held = (f", {runs} SMC runs over {tiles} tiles, every tile at "
                 f"temperature 1, finite log Z, weights summing to 1")
-    print(f"[m71studies] {label} in {wall:.3f} s: launches "
+    print(f"[{tag}] {label} in {wall:.3f} s: launches "
           f"{ {k: v for k, v in launches.items() if v} }{held}", flush=True)
     return out, launches
 
@@ -4088,7 +4269,8 @@ def phase_m71studies(dev, peaks):
         assert run["K1"] > 0 and sum(run.values()) == run["K1"], run
         launches["oracle"] = run["K1"]
         _quiet(analyze.main, [str(oracle_dir), "--tiles", cfg.data_path,
-                              "--bootstrap", "50", "--device", "cuda"])
+                              "--bootstrap", "50", "--device", "cuda",
+                              "--no-figures"])
         got = json.loads((oracle_dir / "smc_analysis.json").read_text())
         print(f"[m71studies] oracle analysis, {got['images']} tiles: count "
               f"accuracy {got['count_accuracy']}, coverage 0.95 "
@@ -4302,6 +4484,342 @@ def phase_ingest(dev, m71_share):
     return launches, align_ms
 
 
+# ----------------------------------------------------------------------
+# [anchor]: the SMC-versus-MCMC anchor (studies/compare_mcmc.py) at a cut
+# ----------------------------------------------------------------------
+# images, reps, sweeps, burn-in, thin: printed beside the committed
+# figures, not held to them
+ANCHOR_CUT = (16, 2, 2000, 1000, 2)
+# the committed anchor's images and reps (K1's 800 x 1 launch), burn-in
+# and thin
+ANCHOR_FULL = (200, 4, 30000, 2)
+# the RJ sweep's wall a sweep is read at these chain counts
+ANCHOR_RJ_CHAINS = (32, 800)
+ANCHOR_RJ_SWEEPS = 50
+
+
+def _anchor_chain_shape(dev, label, imgs, prior, model, chain, nb, k, peaks):
+    """K1 at the anchor's launch shape (one chain a tile of ``imgs``, N =
+    1) from the empty start moved 200 sweeps: ``launch_agreement`` with
+    the plain version pooled over ``MCMC_AGREEMENT_KEYS`` keys (each
+    launch's zero-count passthrough held, the pool >= 0.99), then the
+    burn-in (``nb`` sweeps) and block (``k``) launches timed beside their
+    bounds. Returns the two launch records."""
+    from smcdet_tpu_torch.inference.mcmc import init_chain, with_iters
+    from smcdet_tpu_torch.ops import mh_sweep
+
+    assert mh_sweep.sweep_kernel(prior, model, prior.max_objects) == "K1"
+    run, plain = mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ctx, counts, state = init_chain(gen, imgs, prior, model, chain)
+    state, _ = with_iters(chain, 200).run_from_state(gen, ctx, counts, state)
+    block = _chain_args(None, chain, ctx, counts, state, k)
+    shares = [launch_agreement(run, plain, [torch.tensor(
+        [4242 + i, 2424], dtype=torch.int64, device=dev)] + block[1:],
+        bar=0.0) for i in range(MCMC_AGREEMENT_KEYS)]
+    agree = float(np.mean(shares))
+    print(f"[anchor] K1 at {label} ({counts.shape[0]} chains x 1): zero-count "
+          f"passthrough bit-exact; launch_agreement over "
+          f"{MCMC_AGREEMENT_KEYS} keys {agree:.6f} (lowest "
+          f"{min(shares):.6f})")
+    assert agree >= 0.99, shares
+    return _chain_launch_records("K1", f"anchor {label}", run, plain, chain,
+                                 ctx, counts, state, nb, k, False, peaks)
+
+
+def phase_anchor(dev, peaks):
+    """``[anchor]``: ``studies/compare_mcmc`` at the cut ``ANCHOR_CUT`` on
+    the JAX package's m71synthetic tiles, after the port's CS-SMC on those
+    images (every tile-level run at temperature 1): its launches counted
+    from 0 (K1 once for the burn-in and once a kept sample, the RJ sweep
+    plain), every chain finite and in its support, the acceptances in
+    [0, 1], its report printed beside the committed figures (not held);
+    K1 at the CS-SMC's launch shape and at the anchor's (the cut's chains,
+    and the committed anchor's 800 x 1 with its 30,000-sweep burn-in)
+    against its plain version and its bound; the RJ sweep's wall a sweep at
+    ``ANCHOR_RJ_CHAINS``. Returns (the K1 launches of the CS-SMC and of the
+    anchor, the launch records)."""
+    from smcdet_tpu_torch.inference.mcmc import MCMCConfig, num_kept
+    from smcdet_tpu_torch.run_experiment import load_suite_config
+    from smcdet_tpu_torch.runner import mcmc_chain, run_experiment
+    from smcdet_tpu_torch.studies import compare_mcmc
+
+    n, reps, total, burnin, thin = ANCHOR_CUT
+    committed = json.loads(Path(
+        "docs/results/m71synthetic/mcmc_comparison.json").read_text())
+    cfg = load_suite_config("experiments/m71synthetic")
+    prior, model, kernel = _built(cfg, dev)
+    chain, _ = mcmc_chain(cfg, kernel, dev)
+    with np.load("tests/data/m71synthetic_tiles.npz") as t:
+        images = torch.as_tensor(t["images"][:ANCHOR_FULL[0]],
+                                 dtype=torch.float32, device=dev)
+    launches, records = {}, {}
+    key = torch.tensor([97531, 86420], dtype=torch.int64, device=dev)
+    problem = _study_inputs(dev, prior, model, images[:1].cpu().numpy(),
+                            None, cfg.sampler.num_catalogs, 0)
+    records["smc"] = time_launch(
+        "m71synthetic image", "K1",
+        _sweep_args(key, kernel, *problem, cfg.kernel.num_iters), peaks,
+        label="anchor")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "output"
+        _stage_suite_tiles(out, "m71synthetic")
+        cfg.output_dir, cfg.num_images, cfg.batch_size = str(out), n, n
+        _, smc = _m71_studies_run(
+            f"m71synthetic CS-SMC on {n} images",
+            lambda: run_experiment(cfg, device=dev, verbose=False),
+            tag="anchor")
+        assert smc["K1"] > 0 and sum(smc.values()) == smc["K1"], smc
+        launches["smc"] = smc["K1"]
+
+        kept = {}
+        saved = compare_mcmc.run_anchors
+
+        def keep(*args, **kwargs):
+            kept["runs"], kept["walls"] = saved(*args, **kwargs)
+            return kept["runs"], kept["walls"]
+
+        compare_mcmc.run_anchors = keep
+        try:
+            got, run = _m71_studies_run(
+                f"compare_mcmc {n} images x {reps} reps x {total} sweeps",
+                lambda: _quiet(compare_mcmc.main, [
+                    "--num-images", str(n), "--reps", str(reps),
+                    "--num-samples", str(total), "--burnin", str(burnin),
+                    "--thin", str(thin), "--output-dir", str(out),
+                    "--device", "cuda"]), smc=False, tag="anchor")
+        finally:
+            compare_mcmc.run_anchors = saved
+    K = num_kept(MCMCConfig(total, burnin, thin))
+    assert run["K1"] == 1 + K and sum(run.values()) == run["K1"], run
+    launches["anchor"] = run["K1"]
+    M = prior.max_objects
+    for name, (counts, fluxes, acc) in kept["runs"].items():
+        assert counts.shape == (n, reps * K), (name, counts.shape)
+        assert fluxes.shape == (n, reps * K, M), (name, fluxes.shape)
+        assert ((counts >= 0) & (counts <= M)).all(), name
+        assert np.isfinite(fluxes).all() and (fluxes >= 0).all(), name
+        assert np.isfinite(acc).all() and ((acc >= 0) & (acc <= 1)).all(), (
+            name, acc)
+    walls = kept["walls"]
+    print(f"[anchor] {n * reps} chains x {total} sweeps ({burnin} burn-in, "
+          f"{K} kept, every {thin}): MH {walls['mh']:.3f} s, RJ "
+          f"{walls['rj']:.3f} s; every chain finite, acceptance in [0, 1]")
+    for path in (("count_pmf_tvd", "mean"), ("count_pmf_tvd", "p90"),
+                 ("well_mixed_chains", "n"),
+                 ("mean_count_agreement", "mean_abs_diff"),
+                 ("median_total_flux_mean_abs_rel_diff",),
+                 ("mcmc_acc_rate_range",), ("rjmh", "count_pmf_tvd_mean"),
+                 ("rjmh", "mean_count_mean_abs_diff")):
+        a, b = got, committed
+        for k in path:
+            a, b = a[k], b[k]
+        print(f"[anchor] cut {'.'.join(path)}: {a} (committed at 200 x 4 x "
+              f"50,000, not held: {b})")
+
+    sub = compare_mcmc.stack_reps(images[:n], reps)
+    records["cut"] = _anchor_chain_shape(dev, "the cut", sub, prior, model,
+                                         chain, burnin, thin, peaks)
+    N_img, N_reps, nb, k = ANCHOR_FULL
+    full = compare_mcmc.stack_reps(images[:N_img], N_reps)
+    records["full"] = _anchor_chain_shape(dev, "the committed anchor", full,
+                                          prior, model, chain, nb, k, peaks)
+    for chains in ANCHOR_RJ_CHAINS:
+        ms = compare_mcmc.rj_sweep_ms(images, prior, model, chain, chains,
+                                      sweeps=ANCHOR_RJ_SWEEPS, warm=10)
+        print(f"[anchor] RJ sweep (birth/death, plain) at {chains} chains: "
+              f"{ms:.3f} ms a sweep ({ANCHOR_RJ_SWEEPS} sweeps after 10)")
+    return launches, records
+
+
+# ----------------------------------------------------------------------
+# [parallel]: two job processes of run_experiment.py --distributed
+# ----------------------------------------------------------------------
+# divideandconquer cut to this many images, at batch size 1
+PARALLEL_IMAGES = 4
+PARALLEL_TIMEOUT_S = 600
+
+
+def _parallel_config(tmp, name):
+    cfg = _suite_config("divideandconquer")
+    cfg.num_images, cfg.batch_size = PARALLEL_IMAGES, 1
+    cfg.output_dir = f"{tmp}/{name}"
+    return cfg
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _batches_differ(a_dir, b_dir):
+    """``{batch file: [(array, share of its elements that differ)]}`` for
+    every array but the run times that is not equal between the batch
+    files of two run directories."""
+    differ = {}
+    for q in sorted(Path(a_dir).glob("smc_batch*.npz")):
+        with np.load(q) as a, np.load(Path(b_dir) / q.name) as b:
+            bad = [(key, float(np.mean(a[key] != b[key])))
+                   for key in a.files if not key.startswith("runtime")
+                   and not np.array_equal(a[key], b[key])]
+        if bad:
+            differ[q.name] = bad
+    return differ
+
+
+def _parallel_mismatch(tmp, ref, out, differ):
+    """The job processes' batches differ from this process's run: print
+    which, run the single-process reference again in a fresh process and
+    say which of the three runs it equals, then fail the phase."""
+    from smcdet_tpu_torch.config import save_config
+
+    print(f"[parallel] MISMATCH job processes against this process's run: "
+          f"{differ}")
+    fresh = _parallel_config(tmp, "fresh")
+    save_config(fresh, f"{tmp}/fresh.yaml")
+    proc = subprocess.run(
+        [sys.executable, "-m", "smcdet_tpu_torch.run_experiment",
+         f"{tmp}/fresh.yaml", "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=PARALLEL_TIMEOUT_S)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+    else:
+        again = Path(fresh.output_dir) / fresh.name
+        print(f"[parallel] a fresh single process against this process's "
+              f"run: {_batches_differ(ref, again) or 'equal'}; against the "
+              f"job processes: {_batches_differ(out, again) or 'equal'}")
+    raise AssertionError(f"[parallel] job processes differ from the "
+                         f"single-process run: {differ}")
+
+
+def phase_parallel(dev):
+    """``[parallel]``: the divideandconquer cut (``PARALLEL_IMAGES`` images,
+    batch size 1) through ``run_experiment`` in this process (launches
+    counted; every tile-level run and every bridge level at temperature 1),
+    then through two job processes of ``python -m
+    smcdet_tpu_torch.run_experiment --distributed`` (gloo over localhost,
+    both on ``cuda:0``): each exits 0, their batch files are disjoint and
+    their union is the single-process run's, each file is finite with
+    weights summing to 1 and equal, array for array, to the single-process
+    run's (so at temperature 1 as it is; on a mismatch
+    ``_parallel_mismatch`` runs the reference again in a fresh process,
+    says which run it equals, and fails). Then ``SMCSampler.run(devices=
+    [cuda:0])`` bit-equal to ``devices=None`` on one image,
+    ``select_device()`` the card, and ``describe_devices()``. Returns the
+    K1 and K3 launches (K3's by bridge level) and the sampler's K1
+    launches."""
+    import os
+
+    from smcdet_tpu_torch.config import save_config
+    from smcdet_tpu_torch.inference.aggregate import expand_prior
+    from smcdet_tpu_torch.inference.smc import SMCSampler
+    from smcdet_tpu_torch.runner import load_results
+    from smcdet_tpu_torch.utils.devices import describe_devices, select_device
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        single = _parallel_config(tmp, "single")
+        with _SMCResults() as kept:
+            run, res, levels, _ = _aggregation_batch(dev, single, "parallel")
+        runs, tiles = kept.check("parallel")
+        temps = [t for image in levels for _, ts, _ in image
+                 for t in np.ravel(ts)]
+        assert min(temps) == 1.0, temps
+        launches["K1"], launches["K3"] = run["K1"], run["K3"]
+        # one K3 launch a bridge iteration
+        launches["bridge levels"] = [
+            sum(lv[k][0] for lv in levels if len(lv) > k)
+            for k in range(max(len(lv) for lv in levels))]
+        assert sum(launches["bridge levels"]) == run["K3"], (levels, run)
+        print(f"[parallel] single process: {runs} SMC runs over {tiles} "
+              f"tiles and {len(temps)} merged tiles, all at temperature 1")
+
+        jobs = _parallel_config(tmp, "jobs")
+        save_config(jobs, f"{tmp}/config.yaml")
+        port = _free_port()
+        procs = []
+        for rank in range(2):
+            env = dict(os.environ, MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
+                       PYTHONPATH=os.getcwd())
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "smcdet_tpu_torch.run_experiment",
+                 f"{tmp}/config.yaml", "--distributed", "--device", "cuda"],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        start = time.perf_counter()
+        try:
+            logs = [p.communicate(timeout=PARALLEL_TIMEOUT_S)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - start
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                print(log[-4000:])
+            assert p.returncode == 0, f"job process {rank}: {p.returncode}"
+        out = Path(jobs.output_dir) / jobs.name
+        by_job = {rank: {b["batch"] for b in json.loads(
+            (out / f"smc_manifest_job{rank}.json").read_text())["batches"]}
+            for rank in range(2)}
+        ref = Path(single.output_dir) / single.name
+        assert not by_job[0] & by_job[1], by_job
+        assert by_job[0] | by_job[1] == set(range(PARALLEL_IMAGES)), by_job
+        assert (sorted(q.name for q in out.glob("smc_batch*.npz"))
+                == sorted(q.name for q in ref.glob("smc_batch*.npz")))
+        for q in sorted(out.glob("smc_batch*.npz")):
+            with np.load(q) as b:
+                assert np.isfinite(b["log_normalizing_constant"].max(-1)
+                                   ).all(), q.name
+                np.testing.assert_allclose(b["weights"].sum(-1), 1.0,
+                                           atol=1e-5)
+        differ = _batches_differ(ref, out)
+        if differ:
+            _parallel_mismatch(tmp, ref, out, differ)
+        got = load_results(out)
+        print(f"[parallel] two job processes (--distributed, gloo, both on "
+              f"cuda:0) in {wall:.3f} s: batches {by_job}, disjoint, their "
+              f"union the single-process run's; {len(got['image_index'])} "
+              f"images, every array equal to the single-process run's")
+
+    cfg = _suite_config("divideandconquer")
+    prior, model, kernel = _built(cfg, dev)
+    td = cfg.sampler.tile_dim
+    with np.load("tests/data/divideandconquer_tiles.npz") as t:
+        image = t["images"][0]
+    sampler = SMCSampler(image, td, expand_prior(prior, td, td,
+                                                 prior.max_objects),
+                         model.with_shape(td, td), kernel,
+                         num_catalogs=cfg.sampler.num_catalogs,
+                         max_smc_iters=cfg.sampler.max_smc_iters)
+    _reset_launches()
+    outs = [sampler.run(torch.Generator(device=dev).manual_seed(8),
+                        devices=d) for d in (None, [torch.device("cuda", 0)])]
+    sampler_launches = _launches()
+    for f in outs[0]._fields:
+        a, b = getattr(outs[0], f), getattr(outs[1], f)
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b), f
+    assert sampler_launches["K1"] > 0, sampler_launches
+    launches["sampler K1"] = sampler_launches["K1"]
+    print(f"[parallel] SMCSampler.run(devices=[cuda:0]) bit-equal to "
+          f"devices=None ({outs[0].temperature.numel()} tiles, "
+          f"{sampler_launches['K1']} K1 launches in both runs)")
+    assert select_device() == torch.device("cuda", 0), select_device()
+    print(f"[parallel] select_device() = {select_device()}")
+    print("[parallel] describe_devices():")
+    for line in describe_devices().splitlines():
+        print(f"[parallel]   {line}")
+    return launches
+
+
 def _quiet(main, argv):
     """A study's ``main(argv)`` with its printed report swallowed (the
     phase prints its own line); returns what ``main`` returns."""
@@ -4363,6 +4881,16 @@ def main():
     dev = torch.device("cuda")
     import smcdet_tpu_torch  # noqa: F401  (fails outside the repository)
 
+    workers = _SeedWorkers(SEED_WORKERS)
+    try:
+        _phases(smi, dev, workers)
+    finally:
+        workers.close()
+
+
+def _phases(smi, dev, workers):
+    """Phases 2-31 (the module's docstring), then the paths, the kernels
+    line and the device line."""
     start = time.perf_counter()
     phase_build()
     # each path is driven with the launch counts set to 0 just before it
@@ -4390,11 +4918,11 @@ def main():
                                                scored["cells"])
     k2_entry.update(k2_pair)
     launches["K4"] = mala_basic = phase_mala_entry(dev, mh_basic)
-    dnc, m71, m71_share = phase_aggregation(dev)
+    dnc, m71, m71_share = phase_aggregation(dev, workers)
     launches["K1"] += dnc["K1"] + m71["K1"]
     launches["K2"] = sum(k2_entry.values()) + dnc["K2"] + m71["K2"]
     launches["K3"] = dnc["K3"] + m71["K3"]
-    mala_dnc = phase_mala_dnc(dev)
+    mala_dnc = phase_mala_dnc(dev, workers)
     launches["K4"] += mala_dnc["K4 tile"] + mala_dnc["K4 bridge"]
     phase_profile(dev)
     phase_profile_pair(dev, work.name)
@@ -4429,7 +4957,7 @@ def main():
     phase_fit(dev)
     print(f"[time] fit in {time.perf_counter() - mark:.1f} s")
     mark = time.perf_counter()
-    m71ss = phase_m71ss(dev)
+    m71ss = phase_m71ss(dev, workers)
     launches["K2"] += m71ss["K2"]
     print(f"[time] m71ss in {time.perf_counter() - mark:.1f} s")
     mark = time.perf_counter()
@@ -4463,7 +4991,16 @@ def main():
     ingest, _ = phase_ingest(dev, m71_share)
     launches["K2"] += ingest["K2"]
     print(f"[time] ingest in {time.perf_counter() - mark:.1f} s")
-    print(f"[done] phases 2-29 in {time.perf_counter() - start:.1f} s on "
+    mark = time.perf_counter()
+    anchor, anchor_records = phase_anchor(dev, peaks)
+    launches["K1"] += anchor["smc"] + anchor["anchor"]
+    print(f"[time] anchor in {time.perf_counter() - mark:.1f} s")
+    mark = time.perf_counter()
+    parallel = phase_parallel(dev)
+    launches["K1"] += parallel["K1"] + parallel["sampler K1"]
+    launches["K3"] += parallel["K3"]
+    print(f"[time] parallel in {time.perf_counter() - mark:.1f} s")
+    print(f"[done] phases 2-31 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
@@ -4506,8 +5043,6 @@ def main():
         ("K1", "bench quick", bench["quick"], bench_shapes["quick"]),
         ("K1", "bench full frame (chunk 14)", bench["full frame"],
          bench_shapes["chunk 14"]),
-        ("K1", "bench full frame (chunk 28, information)",
-         bench["full frame chunk 28"], bench_shapes["pool 28"]),
         ("K1", "stream quick (pool 16)", stream["quick"],
          bench_shapes["quick"]),
         ("K1", "stream full frame (pool 28)", stream["full frame"],
@@ -4548,12 +5083,26 @@ def main():
          mcmc_records["m71synthetic"]["block"]),
         ("K2", "ingest m71 cut (the port's tiles and fit)", ingest["K2"],
          shapes["m71 tile K2"]),
+        ("K1", "anchor's m71synthetic CS-SMC", anchor["smc"],
+         anchor_records["smc"]),
+        ("K1", "anchor cut MCMC burn-in", 1,
+         anchor_records["cut"]["burn-in"]),
+        ("K1", "anchor cut MCMC blocks", anchor["anchor"] - 1,
+         anchor_records["cut"]["block"]),
+        ("K1", "parallel divideandconquer tiles", parallel["K1"],
+         shapes["dnc tile K1"]),
+        *[("K3", f"parallel divideandconquer bridge level {i}", n,
+           k3_levels[i]) for i, n in enumerate(parallel["bridge levels"])],
+        ("K1", "SMCSampler.run(devices=[cuda:0])", parallel["sampler K1"],
+         shapes["dnc tile K1"]),
     ])
-    print("[paths] not ranked: the full frame at chunk 56 and at the memory "
+    print("[paths] not ranked: the committed anchor's 800 x 1 launches "
+          "(timed in [anchor], its 30,000-sweep burn-in and 10,000 blocks "
+          "not run here)")
+    print("[paths] not ranked: the full frame at the memory "
           "model's largest chunk ("
           + ", ".join(f"{k}: {v} K1 launches" for k, v in bench.items()
-                      if k not in ("quick", "full frame",
-                                   "full frame chunk 28"))
+                      if k not in ("quick", "full frame"))
           + "), launch shapes not timed; repeated_runs at its committed "
           "size (timed in [m71studies], not run here)")
     print("[done] the kernels line: K2's record at the cells shapes, K3's "
@@ -4574,4 +5123,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--worker"]:
+        _worker()
+    else:
+        main()

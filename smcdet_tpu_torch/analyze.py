@@ -4,7 +4,7 @@
     python -m smcdet_tpu_torch.analyze output/<name> [--method smc]
         [--mag-bins 15 18 21 24] [--num-match 50] [--locs-tol 0.5]
         [--mags-tol 0.5] [--bootstrap 1000] [--tiles PATH]
-        [--out-suffix S] [--device cuda]
+        [--out-suffix S] [--device cuda] [--no-figures]
 
 From ``output/<name>/<method>_batch*.npz`` and the truth in ``tiles.npz``
 (or ``--tiles``) it computes the posterior count confusion matrix and its
@@ -14,7 +14,14 @@ magnitude bin by catalog matching, with bootstrap intervals over images
 (and the extractor baseline's when ``sep_results.npz`` exists). It writes
 ``<method>_analysis<suffix>.json`` with the JAX script's keys and rounding.
 Matching runs on ``--device`` (default ``cuda``, never swapped for another
-device). Figures are not drawn: the report has no ``figures`` key.
+device). As the JAX script, it draws the report's figures
+(``smcdet_tpu_torch/figures.py:save_all``) into
+``<results_dir>/figures<suffix>`` (``figures_<method><suffix>`` for another
+method than smc) and lists them under ``figures``, unless ``--no-figures``
+is given; where matplotlib does not import (the H100 machine) that is an
+error naming ``--no-figures``, never a silent skip. Draw them on a machine
+with matplotlib from the card run's result files:
+``python -m smcdet_tpu_torch.analyze output/<name> --device cpu``.
 
 The sampled catalogs of the matching are drawn on the CPU from
 ``torch.Generator().manual_seed(k)`` (k = 0, 1, 2 where the JAX script uses
@@ -130,14 +137,22 @@ def _by_bin(ci):
 
 def analyze(results_dir, *, method="smc", mag_bins=(15.0, 18.0, 21.0, 24.0),
             num_match=50, locs_tol=0.5, mags_tol=0.5, bootstrap=1000,
-            tiles=None, device="cuda", draw=catalog_indices):
+            tiles=None, device="cuda", draw=catalog_indices, figures=True,
+            out_suffix=""):
     """The report of ``results_dir`` (a dict with the JAX script's keys).
     ``draw(seed, weights, num)`` gives the sampled catalogs of each
-    matching."""
+    matching. With ``figures`` the report's figures are drawn into
+    ``results_dir/figures<out_suffix>`` (``figures_<method>...`` for another
+    method than smc) and listed under ``figures``; where matplotlib does
+    not import that raises ``RuntimeError`` naming ``--no-figures``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda: no CUDA card is available "
                            "(torch.cuda.is_available() is False)")
+    if figures:
+        from smcdet_tpu_torch.figures import require_matplotlib
+
+        require_matplotlib("--no-figures")
     tols = dict(locs_tol=locs_tol, mags_tol=mags_tol,
                 mag_bins=list(mag_bins))
     out_dir = Path(results_dir)
@@ -181,10 +196,10 @@ def analyze(results_dir, *, method="smc", mag_bins=(15.0, 18.0, 21.0, 24.0),
     mc = _match(draw, 0, device, truth, est, num_match, weights, **tols)
     point = _point(mc)
     boot = bootstrap_prf(mc, bootstrap)
-    report["detection"] = _by_bin({m: ci_summary(point[m], boot[m])
-                                   for m in point})
+    smc_ci = {m: ci_summary(point[m], boot[m]) for m in point}
+    report["detection"] = _by_bin(smc_ci)
 
-    sep = None
+    sep, sep_ci = None, None
     sep_path = out_dir / "sep_results.npz"
     if sep_path.exists():
         sep = np.load(sep_path)
@@ -204,8 +219,9 @@ def analyze(results_dir, *, method="smc", mag_bins=(15.0, 18.0, 21.0, 24.0),
              sep["fluxes"][:, None]), 1, **tols)
         sep_point = _point(mc_sep)
         sep_boot = bootstrap_prf(mc_sep, bootstrap, seed=1)
-        report["sep_baseline"] = _by_bin({
-            m: ci_summary(sep_point[m], sep_boot[m]) for m in sep_point})
+        sep_ci = {m: ci_summary(sep_point[m], sep_boot[m])
+                  for m in sep_point}
+        report["sep_baseline"] = _by_bin(sep_ci)
 
         # head to head on the same eval tiles: the SMC detection metrics
         # restricted to the SEP eval subset
@@ -233,6 +249,20 @@ def analyze(results_dir, *, method="smc", mag_bins=(15.0, 18.0, 21.0, 24.0),
             float(np.mean(per_image)), 4)
         report["runtime_s"]["per_image_max"] = round(
             float(np.max(per_image)), 4)
+
+    if figures:
+        from smcdet_tpu_torch.figures import save_all
+
+        # detected stars per magnitude bin: truth, the posterior's spread
+        tt = mc.num_true_total.cpu().numpy()
+        et = mc.num_est_total.cpu().numpy()
+        report["figures"] = save_all(
+            out_dir / (("figures" if method == "smc" else f"figures_{method}")
+                       + out_suffix),
+            mag_bins=list(mag_bins), smc_ci=smc_ci, sep_ci=sep_ci,
+            confusion=M, levels=COVERAGE_LEVELS, coverage=cov,
+            n_images=int(nz.sum()), ranks=ranks, true_counts=truth_counts,
+            runtimes=per_image, classified=(tt[:, 0, :].sum(0), et.sum(0)))
     return report
 
 
@@ -244,8 +274,8 @@ def main(argv=None, *, draw=catalog_indices):
         description="Score a finished experiment with the PyTorch port: "
                     "count confusion, total-flux coverage, SBC and "
                     "detection P/R/F1, written to "
-                    "<results_dir>/<method>_analysis<suffix>.json. Figures "
-                    "are not drawn (the report has no 'figures' key).")
+                    "<results_dir>/<method>_analysis<suffix>.json, with "
+                    "the report's figures (unless --no-figures).")
     parser.add_argument("results_dir")
     parser.add_argument("--method", default="smc")
     parser.add_argument("--mag-bins", type=float, nargs="+",
@@ -262,6 +292,9 @@ def main(argv=None, *, draw=catalog_indices):
                              "truth-variant analysis keeps the main one")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the matching (default cuda)")
+    parser.add_argument("--no-figures", action="store_true",
+                        help="draw no figures (needed where matplotlib "
+                             "does not import, as on the H100 machine)")
     args = parser.parse_args(argv)
     if args.tiles and not args.out_suffix:
         stem = Path(args.tiles).stem
@@ -275,7 +308,8 @@ def main(argv=None, *, draw=catalog_indices):
         args.results_dir, method=args.method, mag_bins=args.mag_bins,
         num_match=args.num_match, locs_tol=args.locs_tol,
         mags_tol=args.mags_tol, bootstrap=args.bootstrap, tiles=args.tiles,
-        device=args.device, draw=draw)
+        device=args.device, draw=draw, figures=not args.no_figures,
+        out_suffix=args.out_suffix)
     print(json.dumps(report, indent=2))
     path = Path(args.results_dir) / (
         f"{args.method}_analysis{args.out_suffix}.json")

@@ -18,8 +18,8 @@ as the JAX package runs them outside its Pallas kernel. Each stage runs in
 a profiler range: ``agg.merge``, ``agg.resample``, ``agg.rerender``,
 ``agg.mutate``, ``agg.relocate``, ``agg.pair``, ``agg.temper``.
 
-Not ported: the multi-device level sharding (``Aggregate.run(devices=)``
-raises).
+``Aggregate.run(devices=)`` splits each level's tile grid over a list of
+devices (``_run_level_split``, ``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +54,12 @@ from smcdet_tpu_torch.ops.resampling import (
     stratified_indices,
 )
 from smcdet_tpu_torch.ops.tempering import solve_tempering_step
+from smcdet_tpu_torch.parallel.sharding import (
+    as_device,
+    level_split,
+    shard_generator,
+    to_device,
+)
 
 __all__ = ["AggregateConfig", "AggregateState", "Aggregate", "SideMask",
            "expand_prior"]
@@ -406,6 +412,53 @@ def _run_level(generator, state: AggregateState, prior, model, kernel,
     return new_state, diag
 
 
+def _run_level_split(generator, state: AggregateState, prior, model, kernel,
+                     cfg: AggregateConfig, axis: int, dims, devices,
+                     level: int):
+    """``_run_level`` with the level's grid of merged pairs split over
+    ``devices`` by ``level_split`` (JAX's ``_level_sharding`` rule), so
+    that both children of a pair sit in one block: each block runs on its
+    device, from ``shard_generator``'s generator, and the blocks' states and
+    diagnostics are joined in grid order on the state's device
+    (``iterations``: the most of any block). A single block on the state's
+    device is ``_run_level`` itself."""
+    Th, Tw, H, W = dims
+    devices = [as_device(d) for d in devices]
+    pairs = (Th // 2, Tw) if axis == 0 else (Th, Tw // 2)
+    a, b = level_split(len(devices), *pairs)
+    rows, cols = Th // a, Tw // b
+    home = state.data.device
+    states, diags = [], []
+    for i in range(a):
+        for j in range(b):
+            k = i * b + j
+            dev = devices[k]
+            sub = AggregateState(*(
+                x[i * rows:(i + 1) * rows, j * cols:(j + 1) * cols].to(dev)
+                for x in state))
+            st, dg = _run_level(shard_generator(generator, dev, k, level),
+                                sub, to_device(prior, dev),
+                                to_device(model, dev), to_device(kernel, dev),
+                                cfg, axis, (rows, cols, H, W))
+            states.append(st)
+            diags.append(dg)
+    if len(states) == 1:
+        return to_device(states[0], home), to_device(diags[0], home)
+
+    def grid(parts):
+        # the blocks, row-major, joined into the level's grid on home
+        return torch.cat([torch.cat([p.to(home) for p in parts[i * b:
+                                                               (i + 1) * b]],
+                                    dim=1) for i in range(a)], dim=0)
+
+    state = AggregateState(*(grid([s[f] for s in states])
+                             for f in range(len(AggregateState._fields))))
+    diag = {"temperature": grid([d["temperature"] for d in diags]),
+            "iterations": max(d["iterations"] for d in diags),
+            "acc_rate": grid([d["acc_rate"] for d in diags])}
+    return state, diag
+
+
 class Aggregate:
     """User-facing wrapper (the reference ``Aggregate`` API): take a
     finished sampler's tile posteriors and the model objects, run the merge
@@ -493,22 +546,21 @@ class Aggregate:
 
     def run(self, generator=None, verbose=False, devices=None):
         """Run the merge tree, then the final resample and prune.
-        ``devices`` (the JAX package's level sharding) is not ported."""
-        if devices is not None:
-            raise NotImplementedError(
-                "sharding the aggregation over devices is not ported "
-                "(ROADMAP queue 1 item 5)")
+        ``devices``: a list of devices over which each level's tile grid is
+        split (``_run_level_split``; default: the state's device alone)."""
         state = self.state
         if generator is None:
             generator = torch.Generator(device=state.data.device)
             generator.manual_seed(0)
+        if devices is None:
+            devices = [state.data.device]
         Th, Tw = self.num_tiles_h, self.num_tiles_w
         H, W = state.data.shape[2], state.data.shape[3]
         for level in range(self.num_aggregation_levels):
             axis = level % 2
-            state, diag = _run_level(generator, state, self.prior,
-                                     self.image_model, self.kernel,
-                                     self.config, axis, (Th, Tw, H, W))
+            state, diag = _run_level_split(
+                generator, state, self.prior, self.image_model, self.kernel,
+                self.config, axis, (Th, Tw, H, W), devices, level)
             self.diagnostics.append(diag)
             stuck = diag["temperature"] < 1.0
             if bool(stuck.any()):

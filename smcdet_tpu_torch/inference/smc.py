@@ -40,6 +40,7 @@ from smcdet_tpu_torch.inference.kernels import (
 from smcdet_tpu_torch.ops.catalogs import prune_catalog, slot_mask
 from smcdet_tpu_torch.ops.resampling import gather_particles, resample_indices
 from smcdet_tpu_torch.ops.tempering import solve_tempering_step
+from smcdet_tpu_torch.parallel.sharding import shard_runs
 
 __all__ = [
     "SMCConfig",
@@ -50,6 +51,7 @@ __all__ = [
     "csmc_finalize",
     "run_csmc",
     "run_csmc_chunked",
+    "join_results",
     "chunk_bytes_per_tile",
     "default_budget_bytes",
     "max_tiles_per_chunk",
@@ -409,11 +411,23 @@ def run_csmc_chunked(generator, images, prior, model, kernel,
         mdl = model if bg is None else model.with_background(bg[i:i + size])
         parts.append(run_csmc(generator, images[i:i + size], prior, mdl,
                               kernel, cfg))
-    inv = None if order is None else torch.argsort(order)
+    return join_results(parts,
+                        None if order is None else torch.argsort(order))
+
+
+def join_results(parts, inv=None, device=None) -> SMCResult:
+    """``SMCResult``s of consecutive tile ranges joined along the tile axis
+    (a recorded history along its own), on ``device`` (default: where
+    they are), then put in the caller's order by the inverse permutation
+    ``inv``; ``num_iters`` is the largest. A single part that needs no
+    move and no reordering is returned as it is."""
+    if (len(parts) == 1 and inv is None and (
+            device is None or parts[0].weights.device == device)):
+        return parts[0]
 
     def joined(vals, axis):
-        # the chunks' tensors along the tile axis, in the caller's order
-        v = torch.cat(vals, dim=axis)
+        v = torch.cat([x if device is None else x.to(device) for x in vals],
+                      dim=axis)
         return v if inv is None else v.index_select(axis, inv)
 
     out = {}
@@ -468,15 +482,21 @@ class SMCSampler:
         )
         self.result: SMCResult | None = None
 
-    def run(self, generator=None, streaming=False) -> SMCResult:
+    def run(self, generator=None, streaming=False,
+            devices=None) -> SMCResult:
         """Run the sampler over difficulty-sorted chunks of tiles or, with
         ``streaming=True``, through the swap-on-converge tile pool
         (``inference/streaming.py``). The memory budget is
         ``memory_budget_bytes`` where the sampler has it, else
-        ``budget_bytes``."""
+        ``budget_bytes``. ``devices``: a list of devices over which the
+        tiles are split (``parallel/sharding.py``), each range run on its
+        device and the results joined in tile order on the image's device
+        (default: the image's device alone)."""
         if generator is None:
             generator = torch.Generator(device=self.image.device)
             generator.manual_seed(0)
+        if devices is None:
+            devices = [self.tiled_image.device]
         budget = getattr(self, "memory_budget_bytes", self.budget_bytes)
         if streaming:
             from smcdet_tpu_torch.inference.streaming import (
@@ -485,13 +505,16 @@ class SMCSampler:
 
             self.result = run_csmc_streaming(
                 generator, self.tiled_image, self.prior, self.image_model,
-                self.kernel, self.config, budget_bytes=budget)
+                self.kernel, self.config, budget_bytes=budget,
+                devices=devices)
             return self.result
-        self.result = run_csmc_chunked(
-            generator, self.tiled_image, self.prior, self.image_model,
-            self.kernel, self.config, budget_bytes=budget,
-            sort_tiles=True,
-        )
+        parts = shard_runs(
+            lambda gen, images, prior, model, kernel, _: run_csmc_chunked(
+                gen, images, prior, model, kernel, self.config,
+                budget_bytes=budget, sort_tiles=True),
+            devices, generator, self.tiled_image, self.prior,
+            self.image_model, self.kernel)
+        self.result = join_results(parts, device=self.image.device)
         return self.result
 
     # -- posterior summaries -------------------------------------------

@@ -56,8 +56,10 @@ from smcdet_tpu_torch.inference.smc import (
     csmc_init,
     csmc_step,
     default_budget_bytes,
+    join_results,
     max_tiles_per_chunk,
 )
+from smcdet_tpu_torch.parallel.sharding import shard_runs
 
 __all__ = ["run_csmc_streaming"]
 
@@ -157,18 +159,44 @@ def run_csmc_streaming(generator, images, prior, model, kernel,
 
     ``fixed_schedule`` and ``record_history`` raise ``ValueError`` (both
     index a global iteration number that swapped-in tiles do not share).
-    ``devices`` raises ``NotImplementedError``: the tile mesh
-    (``parallel/``) is not ported.
+    ``devices``: a list of devices over which the tiles are split
+    (``parallel/sharding.py``; default: the images' device alone); each
+    range runs a pool of its own (``pool`` divided among them, or each
+    sized by its device's budget) and the results are joined in tile order
+    on the images' device; with several devices the info's ``steps`` is
+    the longest shard's, ``pool`` the slots in all, and ``shards`` each
+    shard's info.
     """
     if cfg.fixed_schedule is not None or cfg.record_history:
         raise ValueError(
             "run_csmc_streaming requires adaptive tempering and "
             "record_history=False (both index a global iteration number "
             "that swapped-in tiles don't share)")
-    if devices is not None:
-        raise NotImplementedError(
-            "a tile pool sharded over devices needs parallel/, which is not "
-            "ported (ROADMAP queue 1 item 9)")
+    if devices is None:
+        devices = [images.device]
+    shard_pool = None if pool is None else max(1, pool // len(devices))
+    runs = shard_runs(
+        lambda gen, imgs, pr, mdl, ker, tiles: _run_pool(
+            gen, imgs, pr, mdl, ker, cfg, shard_pool, budget_bytes,
+            tiles.start),
+        devices, generator, images, prior, model, kernel)
+    result = join_results([r for r, _ in runs], device=images.device)
+    if len(runs) == 1:
+        info = runs[0][1]
+    else:
+        infos = [i for _, i in runs]
+        info = {"per_tile_iters": np.concatenate([i["per_tile_iters"]
+                                                  for i in infos]),
+                "steps": max(i["steps"] for i in infos),
+                "pool": sum(i["pool"] for i in infos), "shards": infos}
+    return (result, info) if return_info else result
+
+
+def _run_pool(generator, images, prior, model, kernel, cfg: SMCConfig,
+              pool, budget_bytes, tile_offset: int):
+    """``run_csmc_streaming``'s pool on one device: ``(result, info)``.
+    ``tile_offset`` is the index of the first tile in the caller's whole
+    batch: the finalize and insert generators are forked by that index."""
     T, H, W = images.shape
     if pool is None:
         if budget_bytes is None:
@@ -218,12 +246,14 @@ def run_csmc_streaming(generator, images, prior, model, kernel,
             with record_function("stream.finalize"):
                 results[t] = csmc_finalize(
                     prior, model, cfg, _slot_substate(state, s)._replace(
-                        generator=_fork(generator, _FINALIZE_SALT + t)))
+                        generator=_fork(generator, _FINALIZE_SALT
+                                        + tile_offset + t)))
             if next_tile < T:
                 t_new = next_tile
                 bg1 = None if bg is None else bg[t_new:t_new + 1]
                 with record_function("stream.insert"):
-                    sub = csmc_init(_fork(generator, _INSERT_SALT + t_new),
+                    sub = csmc_init(_fork(generator,
+                                          _INSERT_SALT + tile_offset + t_new),
                                     images[t_new:t_new + 1], prior,
                                     _model_for(model, bg1), cfg)
                     in_flight = _insert_substate(in_flight, sub, s)
@@ -248,8 +278,6 @@ def run_csmc_streaming(generator, images, prior, model, kernel,
             out[f] = int(iters.max()) if T else 0
         else:
             out[f] = torch.cat([getattr(results[t], f) for t in range(T)])
-    result = SMCResult(**out)
-    if return_info:
-        return result, {"per_tile_iters": iters, "steps": d_inflight,
-                        "pool": P}
-    return result
+    return SMCResult(**out), {"per_tile_iters": iters, "steps": d_inflight,
+                              "pool": P}
+

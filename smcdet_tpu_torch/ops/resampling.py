@@ -15,8 +15,21 @@ __all__ = [
 ]
 
 
+def _cdf(p):
+    """``cumsum`` along the last axis, the same bits on every call. On a
+    CUDA tensor whose only row is that axis (the aggregation's final
+    ``[1, 1, N]`` resample) PyTorch scans with CUB's decoupled look-back,
+    whose float sums may follow the blocks' timing; a second, zero row
+    sends it to the row-wise scan, whose order is fixed."""
+    if p.is_cuda and p.numel() == p.shape[-1]:
+        rows = p.reshape(1, -1)
+        two = torch.cat([rows, torch.zeros_like(rows)])
+        return torch.cumsum(two, dim=-1)[0].reshape(p.shape)
+    return torch.cumsum(p, dim=-1)
+
+
 def _inverse_cdf(weights, u):
-    cdf = torch.cumsum(weights, dim=-1)
+    cdf = _cdf(weights)
     idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), side="left")
     return idx.clamp(max=weights.shape[-1] - 1)
 
@@ -98,7 +111,7 @@ def stratified_indices(weights, strata, num_strata: int, method: str, *,
     if method != "systematic":
         raise ValueError("resample_method must be multinomial or systematic")
 
-    cdf = torch.cumsum(p, dim=-1)
+    cdf = _cdf(p)
     cum = torch.cumsum(as_int, dim=-1)  # members up to and including n
     n_strat = cum[..., -1].to(torch.float32)  # [..., C]
     rank = torch.gather(cum, -2, strata_row)[..., 0, :] - 1

@@ -22,6 +22,18 @@ on ``--device`` instead (``smcdet_tpu_torch/semisynthetic.py``):
 
 ``--method mcmc`` runs the saturated MH chain baseline (one chain per tile,
 the config's ``mcmc`` settings) instead of CS-SMC.
+
+``--distributed`` joins the process group named by the environment
+(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; gloo) before
+the run, and each process then takes the batches of its rank; it raises
+when the environment names no group. Two job processes on one card:
+
+    MASTER_ADDR=localhost MASTER_PORT=29511 WORLD_SIZE=2 RANK=0 \
+        python -m smcdet_tpu_torch.run_experiment experiments/basic \
+        --distributed &
+    MASTER_ADDR=localhost MASTER_PORT=29511 WORLD_SIZE=2 RANK=1 \
+        python -m smcdet_tpu_torch.run_experiment experiments/basic \
+        --distributed
 ``--device`` defaults to ``cuda`` and is never swapped for another device:
 without a CUDA card, pass ``--device cpu`` to run the plain PyTorch
 versions of the kernels.
@@ -92,6 +104,10 @@ def main(argv=None):
                         help="write the simulated (or, for the "
                              "m71semisynthetic suites, rendered) tiles.npz "
                              "and exit")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join the process group named by MASTER_ADDR "
+                             "/ MASTER_PORT / WORLD_SIZE / RANK (gloo); each "
+                             "process then runs the batches of its rank")
     parser.add_argument("--catalog", default=None,
                         choices=("padded", "intile", "reach"),
                         help="with --generate on an m71semisynthetic suite: "
@@ -126,8 +142,20 @@ def main(argv=None):
     _check_device(device)
     from smcdet_tpu_torch.runner import run_experiment
 
-    out = run_experiment(cfg, method=args.method, job_index=args.job_index,
-                         num_jobs=args.num_jobs, device=device)
+    if args.distributed:
+        from smcdet_tpu_torch.parallel.distributed import (
+            initialize_distributed,
+        )
+
+        initialize_distributed(require=True)
+    try:
+        out = run_experiment(cfg, method=args.method,
+                             job_index=args.job_index,
+                             num_jobs=args.num_jobs, device=device)
+    finally:
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
     print(f"results in {out}")
 
 

@@ -5,7 +5,8 @@ Simulate or load tiles, run inference per batch on ``device`` and write one
 shapes and dtypes of the JAX runner's, so either package's
 ``load_results`` (and ``experiments/analyze.py``) reads either's output. A
 job skips batches whose file exists (resume) and takes every
-``num_jobs``-th batch from ``job_index`` (sharding).
+``num_jobs``-th batch from ``job_index`` (sharding; in a process group,
+by default the process's rank in the group, ``parallel/distributed.py``).
 
 Two pipelines for ``method="smc"``: chunked CS-SMC over the batch's
 tiles, or, with ``aggregation.enabled``, the per-image pipeline (tile the
@@ -268,9 +269,14 @@ def run_experiment(cfg: ExperimentConfig, method: str = "smc",
     A ragged last batch is padded with copies of its last image and the
     results sliced back. Existing batch files are skipped (resume). On the
     card the kernel library is built and loaded before the first batch's
-    clock starts.
+    clock starts. In a process group of more than one process
+    (``parallel/distributed.py``) with no explicit ``num_jobs``, each
+    process takes the shard of its rank (``host_shard``).
     """
+    from smcdet_tpu_torch.parallel.distributed import host_shard
+
     _check_supported(cfg, method)
+    job_index, num_jobs = host_shard(job_index, num_jobs)
     if not 0 <= job_index < num_jobs:
         raise ValueError(f"job_index {job_index} not in [0, {num_jobs})")
     device = torch.device(device)

@@ -1,7 +1,8 @@
 """The port runs on a machine without JAX: no module of
 ``smcdet_tpu_torch`` (``studies/`` included) and no line of ``chip_smoke.py``
 or the card runners ``tests/torch_synthetic_suites.py``,
-``tests/torch_m71_studies.py`` and ``tests/torch_m71_fixtures.py`` imports
+``tests/torch_m71_studies.py``, ``tests/torch_m71_fixtures.py`` and
+``tests/torch_mcmc_anchor.py`` imports
 ``jax``, ``flax``, ``optax``, the JAX package ``smcdet_tpu`` or its
 ``experiments`` scripts (``make_fixture`` among them, which reaches
 ``smcdet_tpu.ingest``), at any depth of the file
@@ -22,7 +23,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "smcdet_tpu", "experiments",
 FILES = sorted((REPO / "smcdet_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "torch_synthetic_suites.py",
     REPO / "tests" / "torch_m71_studies.py",
-    REPO / "tests" / "torch_m71_fixtures.py"]
+    REPO / "tests" / "torch_m71_fixtures.py",
+    REPO / "tests" / "torch_mcmc_anchor.py"]
 
 
 def imported_modules(source: str):

@@ -188,8 +188,8 @@ def test_analyze_json_matches_experiments_analyze(tmp_path, capsys):
     finally:
         sys.argv = argv
     want = json.loads((tmp_path / "jax" / "smc_analysis.json").read_text())
-    got = tanalyze.main([str(tmp_path / "port"), "--device", "cpu", *args],
-                        draw=_jax_draw)
+    got = tanalyze.main([str(tmp_path / "port"), "--device", "cpu",
+                         "--no-figures", *args], draw=_jax_draw)
     assert json.loads((tmp_path / "port" / "smc_analysis.json").read_text()
                       ) == got
     assert "figures" not in got and "figures" not in want

@@ -194,8 +194,9 @@ def test_capped_tile_finalizes_at_exactly_the_cap():
 
 def test_rejects_global_iteration_configs_and_devices():
     """``record_history`` and ``fixed_schedule`` raise ``ValueError``, as
-    in JAX; ``devices=`` raises ``NotImplementedError`` (no ``parallel/``
-    in the port)."""
+    in JAX; ``devices=`` naming a CUDA device without a card raises
+    ``RuntimeError`` (the tile split never runs a device's share
+    elsewhere)."""
     images, _, prior, model, kernel, cfg = _port(2)
     gen = torch.Generator().manual_seed(0)
     for change in ({"record_history": True},
@@ -204,6 +205,7 @@ def test_rejects_global_iteration_configs_and_devices():
         with pytest.raises(ValueError, match="adaptive tempering"):
             run_csmc_streaming(gen, images, prior, model, kernel, bad,
                                pool=2)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        run_csmc_streaming(gen, images, prior, model, kernel, cfg, pool=2,
-                           devices=["cuda:0"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            run_csmc_streaming(gen, images, prior, model, kernel, cfg,
+                               pool=2, devices=["cuda:0"])

@@ -61,7 +61,7 @@ def main(argv=None):
                       "mcmc"]),
         "sep": _run(["smcdet_tpu_torch.detect.baseline", SUITE]),
         "analyze": _run(["smcdet_tpu_torch.analyze", OUT, "--method",
-                         "mcmc", "--tiles", TILES]),
+                         "mcmc", "--tiles", TILES, "--no-figures"]),
     }
     got = json.loads(Path(f"{OUT}/mcmc_analysis.json").read_text())
     shutil.copy(f"{OUT}/mcmc_analysis.json",

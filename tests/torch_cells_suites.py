@@ -97,7 +97,8 @@ def main(argv=None):
     for name, (_, committed, bins) in SUITES.items():
         walls[f"analyze {name}"] = _run(["smcdet_tpu_torch.analyze",
                                          f"output/{name}", "--tiles", TILES,
-                                         "--mag-bins", *bins])
+                                         "--mag-bins", *bins,
+                                         "--no-figures"])
         got = json.loads(Path(f"output/{name}/smc_analysis.json").read_text())
         shutil.copy(f"output/{name}/smc_analysis.json",
                     report_dir / f"{name}_smc_analysis.json")

@@ -17,9 +17,11 @@ beside the JAX seeds' range (how many lie inside it):
         --num-images 20 --num-catalogs 512 --seeds 0 1 2 3 4 5 6 7
 
 ``--history 12`` prints instead the mean temperature of the first 12 SMC
-iterations per seed under both packages' ``run_csmc``, and ``--levels 0.5
+iterations per seed under both packages' ``run_csmc``, ``--levels 0.5
 1.0`` the statistic and the acceptance a sweep at equilibrium at those
-temperatures, from the same catalogs.
+temperatures, from the same catalogs, and ``--turn [--turn-keys K]`` the
+statistic sweep by sweep through the turning mutation and the one before
+it, from each seed's JAX state, under both packages (``turn_statistic``).
 
 It imports both packages, as the parity tests do.
 """
@@ -258,6 +260,142 @@ def statistic_levels(args, tiles, sweeps=40, keys=4):
                   f"acceptance {ac:.5f}", flush=True)
 
 
+def _first_below(stat, tol):
+    """The sweeps the early stop runs on a statistic trajectory: through
+    the first sweep whose statistic falls below ``tol`` (all of them if
+    none does)."""
+    below = np.flatnonzero(~(np.asarray(stat) >= tol))
+    return int(below[0]) + 1 if below.size else len(stat)
+
+
+def turn_statistic(args, tiles, sweeps=100):
+    """The squared-jump statistic sweep by sweep through the turning
+    mutation: the first mutation whose early stop ends before
+    ``num_iters``. For each of ``--seeds`` the JAX package's ``csmc_init``
+    and ``csmc_step`` run to that mutation (located by replaying each
+    mutation's sweeps on the step's own keys), and its input (JAX's
+    resampled catalogs, re-rendered, at the state's temperatures) is the
+    start of ``--turn-keys`` trajectories of ``sweeps`` sweeps each under
+    JAX's ``SingleComponentMH.sweep`` (keys ``fold_in(key, i)``, as
+    ``_run_sweeps_early_stop``) and under the port's one-sweep plain run
+    (a fresh key a sweep from a ``torch.Generator``, as
+    ``early_stop_sweeps``), none stopped. Prints per seed the sweeps each
+    trajectory would run before the stop, the mean statistic at chosen
+    sweeps, and the pooled first-passage counts of both packages."""
+    import copy
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from scipy.stats import mannwhitneyu
+    from torch_parity import port_kernel, port_model, port_prior, t
+
+    from smcdet_tpu.inference import kernels as jk
+    from smcdet_tpu.inference import smc as jsmc
+    from smcdet_tpu.ops.resampling import gather_particles, resample_indices
+    from smcdet_tpu_torch.inference import kernels as tk
+
+    torch.set_num_threads(args.threads)
+    (prior, model, kernel, cfg), _, images = _objects(args, tiles)
+    cfg = dataclasses.replace(cfg, max_smc_iters=100, record_history=False)
+    imgs = jnp.asarray(images.numpy())
+    T, C, N = imgs.shape[0], prior.num_counts, args.num_catalogs
+    counts = jnp.broadcast_to(jsmc._strata(prior)[None, :, None], (T, C, N))
+    tol = args.tol
+
+    @jax.jit
+    def mutation_input(state):
+        # csmc_step's resample and re-render, on the step's own keys
+        _, k_res, k_mut = jax.random.split(state.key, 3)
+        keep = (state.temperature >= 1.0)[:, None, None]
+        idx = resample_indices(k_res, state.weights, N, cfg.resample_method)
+        locs, fluxes = gather_particles(idx, state.locs, state.fluxes,
+                                        particle_axis=2)
+        locs = jnp.where(keep[..., None, None], state.locs, locs)
+        fluxes = jnp.where(keep[..., None], state.fluxes, fluxes)
+        ctx = jk.TargetContext(prior=prior, model=model,
+                               image=imgs[:, None, None],
+                               temperature=state.temperature[:, None, None])
+        return k_mut, ctx, jk.init_kernel_state(ctx, counts, locs, fluxes)
+
+    @jax.jit
+    def trajectory(key, ctx, st):
+        def body(st, i):
+            new, _ = kernel.sweep(jax.random.fold_in(key, i), ctx, counts,
+                                  st)
+            return new, ((new.locs - st.locs) ** 2).sum((-1, -2)).mean()
+        return jax.lax.scan(body, st, jnp.arange(sweeps))[1]
+
+    step = jax.jit(lambda st: jsmc.csmc_step(imgs, prior, model, kernel,
+                                             cfg, st))
+    one = copy.copy(port_kernel(kernel, backend="torch"))
+    one.num_iters, one.sqjumpdist_tol = 1, None
+    marks = [0, 1, 4, 9, 19, 49, sweeps - 1]
+    pooled = {}
+    for seed in args.seeds:
+        state = jax.jit(lambda k: jsmc.csmc_init(k, imgs, prior, model,
+                                                 cfg))(jax.random.key(seed))
+        capped, before = 0, None
+        while True:
+            k_mut, ctx, kin = mutation_input(state)
+            n = _first_below(trajectory(k_mut, ctx, kin), tol)
+            if n < kernel.num_iters:
+                break
+            capped += 1
+            before = (ctx, kin)
+            state = step(state)
+        temps = np.asarray(state.temperature)
+        print(f"seed {seed}: the turn is mutation {capped + 1} (the JAX "
+              f"run's own keys stop it after {n} sweeps); temperatures "
+              f"mean {temps.mean():.4f}, min {temps.min():.4f}, "
+              f"{int((temps >= 1).sum())}/{T} at 1", flush=True)
+        for label, start in (("the last capped mutation", before),
+                             ("the turning mutation", (ctx, kin))):
+            if start is None:
+                continue
+            c, k = start
+            runs = {"jax": [np.asarray(trajectory(
+                jax.random.key(1000 + r), c, k)) for r in
+                range(args.turn_keys)]}
+            pctx = tk.TargetContext(port_prior(prior), port_model(model),
+                                    t(c.image), t(c.temperature))
+            pcounts = t(counts, torch.int32)
+            runs["torch"] = []
+            for r in range(args.turn_keys):
+                g = torch.Generator().manual_seed(2000 + r)
+                pst = tk.init_kernel_state(pctx, pcounts, t(k.locs),
+                                           t(k.fluxes))
+                stat = []
+                for _ in range(sweeps):
+                    new, _ = one.run_from_state(g, pctx, pcounts, pst)
+                    stat.append(float(((new.locs - pst.locs) ** 2)
+                                      .sum((-1, -2)).mean()))
+                    pst = new
+                runs["torch"].append(np.asarray(stat))
+            for side, trajs in runs.items():
+                first = [_first_below(x, tol) for x in trajs]
+                pooled.setdefault((label, side), []).extend(first)
+                mean = np.mean(trajs, axis=0)
+                sd = float(np.mean([np.std(x[10:]) for x in trajs]))
+                print(f"seed {seed} {label} {side}: sweeps before the stop "
+                      f"{first} (mean {np.mean(first):.2f}); mean statistic "
+                      f"at sweeps "
+                      + ", ".join(f"{i + 1}: {mean[i]:.5f}" for i in marks)
+                      + f"; its sd over sweeps 11-{sweeps} {sd:.3e}; share "
+                      f"of sweeps below {tol}: "
+                      f"{float(np.mean(np.asarray(trajs) < tol)):.4f}",
+                      flush=True)
+    for label in ("the last capped mutation", "the turning mutation"):
+        a, b = pooled.get((label, "jax")), pooled.get((label, "torch"))
+        if not a:
+            continue
+        p = mannwhitneyu(a, b).pvalue if len(set(a + b)) > 1 else 1.0
+        print(f"{label}, pooled over the seeds x {args.turn_keys} keys: jax "
+              f"mean {np.mean(a):.3f}, torch mean {np.mean(b):.3f} sweeps "
+              f"before the stop; Mann-Whitney p {p:.4g}", flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--num-images", type=int, default=8)
@@ -271,6 +409,13 @@ def main():
     parser.add_argument("--levels", type=float, nargs="*", default=[],
                         help="instead: the statistic and acceptance a "
                              "sweep at equilibrium at these temperatures")
+    parser.add_argument("--turn", action="store_true",
+                        help="instead: the statistic sweep by sweep "
+                             "through the turning mutation, from each "
+                             "seed's JAX state, under both packages")
+    parser.add_argument("--turn-keys", type=int, default=8,
+                        help="with --turn: trajectories per package and "
+                             "seed")
     args = parser.parse_args()
 
     import jax
@@ -287,6 +432,8 @@ def main():
         return temperature_history(args, tiles)
     if args.levels:
         return statistic_levels(args, tiles)
+    if args.turn:
+        return turn_statistic(args, tiles)
     report = {}
     for side, run in (("jax", run_jax), ("torch", run_port)):
         report[side] = {}

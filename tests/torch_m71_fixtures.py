@@ -135,7 +135,7 @@ def suite(out, device, walls):
                                str(config), "--device", device])
     walls["analyze"] = _run(["smcdet_tpu_torch.analyze",
                              f"output/{SUITE_NAME}", "--tiles", str(tiles),
-                             "--device", device])
+                             "--device", device, "--no-figures"])
     got = json.loads((REPO / "output" / SUITE_NAME / "smc_analysis.json")
                      .read_text())
     (out / "smc_analysis.json").write_text(json.dumps(got, indent=2))

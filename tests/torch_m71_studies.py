@@ -308,7 +308,7 @@ def study(name, report_dir, walls, device, split_samples=None):
         walls[name] = _run([mod + "run_smc_oracle", *dev])
         walls["analyze oracle"] = _run([
             "smcdet_tpu_torch.analyze", "output/m71oracle", "--tiles",
-            f"{M71}/data/m71/tiles.npz", *dev])
+            f"{M71}/data/m71/tiles.npz", "--no-figures", *dev])
         path = out / "m71oracle" / "smc_analysis.json"
         row = score_oracle(json.loads(path.read_text()),
                            _committed("m71/oracle_smc_analysis.json"))

@@ -137,7 +137,8 @@ def _suite(name, report_dir, walls):
     walls[name] = _run(["smcdet_tpu_torch.run_experiment", suite,
                         "--config", config])
     walls[f"analyze {name}"] = _run(["smcdet_tpu_torch.analyze",
-                                     f"output/{name}", "--tiles", tiles])
+                                     f"output/{name}", "--tiles", tiles,
+                                     "--no-figures"])
     out = REPO / "output" / name / "smc_analysis.json"
     got = json.loads(out.read_text())
     shutil.copy(out, report_dir / f"{name}_smc_analysis.json")
@@ -173,7 +174,7 @@ def _port_render(name, report_dir, walls):
                                  cwd)
     walls[f"analyze port {name}"] = _run(
         ["smcdet_tpu_torch.analyze", f"output/{name}", "--tiles",
-         f"output/{name}/tiles.npz"], cwd)
+         f"output/{name}/tiles.npz", "--no-figures"], cwd)
     out = cwd / "output" / name / "smc_analysis.json"
     shutil.copy(out, report_dir / f"port_render_{name}_smc_analysis.json")
     row, _ = _scores(json.loads(out.read_text()),

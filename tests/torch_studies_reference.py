@@ -32,6 +32,13 @@ quantile against the fixture's tiles; prints one JSON line per seed, then
 each statistic's range over the seeds (the band of
 ``tests/torch_m71_studies.py``).
 
+``anchor-mh [--num-images 200] [--seeds 11 21] [--port-seeds 0 1]
+[--top 8] [--device cpu]``: ``experiments/m71synthetic/compare_mcmc.py``'s
+MH anchor (``anchor_mh``) under the current JAX package, each ``key0``'s
+acceptance range and highest-acceptance images, then the port's anchor on
+those images (where ``tests/torch_mcmc_anchor.py`` misses the
+acceptance range).
+
 ``singletile --dc A --st B``: compare_singletile's report (count-pmf TVD
 and mean-count difference per image) from two
 ``tests/torch_cells_localise.py`` summaries (``<runner>_summary.npz``, the
@@ -266,11 +273,90 @@ def simulator_ks(args):
         for q in next(iter(per_seed.values()))}}))
 
 
+def anchor_mh(args):
+    """``experiments/m71synthetic/compare_mcmc.py``'s MH anchor under the
+    current JAX package (the script's kernel and ``MCMCConfig``, its
+    ``pooled`` reps on keys ``key0 + r``) on the first ``--num-images``
+    m71synthetic images, once per ``key0`` in ``--seeds``: the acceptance
+    range as the script rounds it and the images of highest pooled
+    acceptance. Then the port's ``run_anchors`` (``--device``, the plain
+    version on the CPU) on the ``--top`` images of highest acceptance under
+    the first key, once per ``--port-seeds`` value, beside JAX's pooled
+    acceptance of the same images."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from smcdet_tpu.config import (
+        build_image_model,
+        build_kernel,
+        build_prior,
+        load_config,
+    )
+    from smcdet_tpu.inference.mcmc import MCMCConfig, run_mh
+
+    cfg = load_config(REPO / "experiments" / "m71synthetic" / "config.yaml")
+    tiles = args.tiles or REPO / "tests" / "data" / "m71synthetic_tiles.npz"
+    with np.load(tiles) as t:
+        images = np.asarray(t["images"][:args.num_images], np.float32)
+    prior = build_prior(cfg.prior)
+    model = build_image_model(cfg.image_model)
+    kernel = build_kernel(cfg.kernel).replace(
+        num_iters=1, locs_stdev=jnp.float32(cfg.mcmc.locs_stdev),
+        fluxes_stdev=jnp.float32(cfg.mcmc.fluxes_stdev))
+    mc = dict(num_samples_total=args.num_samples,
+              num_samples_burnin=args.burnin, keep_every_k=2,
+              flux_detection_threshold=cfg.sampler.flux_detection_threshold)
+    run = jax.jit(lambda k, im: run_mh(k, im, prior, model, kernel,
+                                       MCMCConfig(**mc)))
+    acc = {}
+    for key0 in args.seeds:
+        start = time.perf_counter()
+        acc[key0] = np.stack([np.asarray(run(jax.random.key(key0 + r),
+                                             jnp.asarray(images)).acc_rate)
+                              for r in range(args.reps)]).mean(0)
+        top = np.argsort(-acc[key0])[:args.top]
+        print(json.dumps({
+            "runner": "jax", "key0": key0,
+            "mcmc_acc_rate_range": [round(float(acc[key0].min()), 3),
+                                    round(float(acc[key0].max()), 3)],
+            "top_images": top.tolist(),
+            "top_acc": np.round(acc[key0][top], 4).tolist(),
+            "wall_s": round(time.perf_counter() - start, 1)}), flush=True)
+    if not args.port_seeds:
+        return
+    from smcdet_tpu_torch import config as tcfg
+    from smcdet_tpu_torch.inference.mcmc import MCMCConfig as TConfig
+    from smcdet_tpu_torch.runner import mcmc_chain
+    from smcdet_tpu_torch.studies.compare_mcmc import run_anchors
+
+    dev = torch.device(args.device)
+    pc = tcfg.load_config(REPO / "experiments" / "m71synthetic"
+                          / "config.yaml")
+    pprior = tcfg.build_prior(pc.prior, dev)
+    pmodel = tcfg.build_image_model(pc.image_model, dev)
+    chain, _ = mcmc_chain(pc, tcfg.build_kernel(pc.kernel, dev), dev)
+    top = np.argsort(-acc[args.seeds[0]])[:args.top]
+    sub = torch.as_tensor(images[top], device=dev)
+    for seed in args.port_seeds:
+        start = time.perf_counter()
+        runs, _ = run_anchors(sub, pprior, pmodel, chain, TConfig(**mc),
+                              args.reps, seed)
+        got = runs["mh"][2]
+        print(json.dumps({
+            "runner": "torch", "seed": seed, "images": top.tolist(),
+            "acc": np.round(got, 4).tolist(),
+            "jax_acc": {k: np.round(v[top], 4).tolist()
+                        for k, v in acc.items()},
+            "max": round(float(got.max()), 3),
+            "wall_s": round(time.perf_counter() - start, 1)}), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("study", choices=("kernels", "kernels-port",
                                           "singletile", "pmf-spread",
-                                          "simulator-ks"))
+                                          "simulator-ks", "anchor-mh"))
     parser.add_argument("--dump", default=None,
                         help="kernels, kernels-port: save each seed's count "
                              "pmfs per kernel to this .npz")
@@ -281,10 +367,20 @@ def main():
     parser.add_argument("--tiles", default=None)
     parser.add_argument("--dc", help="singletile: the tree's summary")
     parser.add_argument("--st", help="singletile: the single-tile summary")
+    parser.add_argument("--num-samples", type=int, default=50_000,
+                        help="anchor-mh: sweeps a chain")
+    parser.add_argument("--burnin", type=int, default=30_000,
+                        help="anchor-mh: burn-in sweeps")
+    parser.add_argument("--reps", type=int, default=4,
+                        help="anchor-mh: chains an image, pooled")
+    parser.add_argument("--top", type=int, default=8,
+                        help="anchor-mh: images of highest acceptance")
+    parser.add_argument("--port-seeds", type=int, nargs="*", default=[],
+                        help="anchor-mh: the port's runs on the top images")
     args = parser.parse_args()
     {"kernels": kernels, "kernels-port": kernels_port,
      "singletile": singletile, "pmf-spread": pmf_spread,
-     "simulator-ks": simulator_ks}[args.study](args)
+     "simulator-ks": simulator_ks, "anchor-mh": anchor_mh}[args.study](args)
 
 
 if __name__ == "__main__":

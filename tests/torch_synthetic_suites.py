@@ -237,7 +237,7 @@ def _analyze(name, method, cwd, report_dir, walls, label, device):
     bins = SUITES[name][3]
     walls[f"analyze {label} {method}"] = _run(
         ["smcdet_tpu_torch.analyze", f"output/{name}", "--method", method,
-         "--mag-bins", *bins, "--device", device], cwd)
+         "--mag-bins", *bins, "--device", device, "--no-figures"], cwd)
     out = Path(cwd) / "output" / name / f"{method}_analysis.json"
     shutil.copy(out, report_dir / f"{label}_{method}_analysis.json")
     return json.loads(out.read_text())
