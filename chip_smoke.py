@@ -104,15 +104,16 @@ Phases (a failing phase raises; there is no CPU fallback):
     the m71 fixture (per-tile backgrounds, K2), m71synthetic (K1), basic
     (K2, Poisson), cells (K2, 16x16) and basic under MALA (K4): each
     kernel at its chain's launch shapes against its plain version
-    (passthrough, >= 99% same-stream agreement, equilibrium, two launches
-    on one key bit-identical, ``launch_agreement``), its burn-in and block
+    (passthrough, >= 99% same-stream agreement, equilibrium over
+    ``MCMC_EQ_SWEEPS`` sweeps, two launches on one key bit-identical,
+    ``launch_agreement``), its burn-in and block
     launches timed beside their bounds, the rate cache's drift over a
     whole burn-in launch (and the plain version's on two m71 tiles); then
     one batch each through ``run_experiment(method="mcmc")`` at the
     configs' chain lengths (50,000 sweeps, 30,000 burn-in, thinning 2: one
     burn-in launch and 10,000 block launches), every launch counted, with
     the later chains cut when the batches would exceed ``MCMC_BUDGET_S``
-    (15 s: the chains after the m71 fixture's keep a share of their
+    (10 s: the chains after the m71 fixture's keep a share of their
     samples);
     then ``torch.profiler`` over an m71 batch cut to 1,000 blocks: device
     time, idle share and host time per block;
@@ -130,8 +131,9 @@ Phases (a failing phase raises; there is no CPU fallback):
     (K2), the basic batch under MALA
     (K4) and one divideandconquer image (K1 tiles, K3 bridges): one counted
     launch a sweep, tolerance 0 running exactly ``num_iters`` launches a
-    mutation, the plain version on the same Philox keys stopping at the
-    same sweep in >= 99% of mutations with >= 99% of particles agreeing;
+    mutation, the plain version on the same Philox keys (on every
+    ``SQJD_COMPARE_EVERY``-th mutation) stopping at the same sweep in >=
+    99% of those with >= 99% of particles agreeing;
     sweeps per mutation, the host's wall per sweep beside a one-sweep
     launch's time, the batch wall;
 22. history: the quick cell with ``record_history`` on a fixed ladder,
@@ -179,7 +181,7 @@ Phases (a failing phase raises; there is no CPU fallback):
     compare_nogiants (the whole fixture's giant geometry equal to the
     committed one) and misspec_study, simulator_checks (K2), repeated_runs
     at 8 runs, N 512 and 2048, 10 and 100 sweeps (K1) and split_mode_study
-    at 8 chains x 300 sweeps (K1 at N = 1, the reversible-jump anchors
+    at 8 chains x 150 sweeps (K1 at N = 1, the reversible-jump anchors
     plain), every tile-level SMC run at temperature 1 with a finite log Z
     and weights summing to 1; then K1 and K2 at the launch shapes the
     studies add at their committed sizes, on the studies' own tiles
@@ -197,8 +199,8 @@ Phases (a failing phase raises; there is no CPU fallback):
     m71 cut of ``[m71]`` (8 tiles, one batch, K2) on the port's own tiles
     and fitted ``params.yaml``;
 30. anchor: the SMC-versus-MCMC anchor (``studies/compare_mcmc``) at a cut,
-    ``ANCHOR_CUT`` (16 m71synthetic images x 2 reps on the tile axis, 2,000
-    sweeps, 1,000 burn-in, thin 2), after the port's CS-SMC on those
+    ``ANCHOR_CUT`` (16 m71synthetic images x 2 reps on the tile axis, 400
+    sweeps, 200 burn-in, thin 2), after the port's CS-SMC on those
     images: K1 once for the burn-in and once a kept sample, the RJ sweep
     plain, every chain finite, the acceptances in [0, 1], its report
     printed beside the committed one (not held); K1 at the CS-SMC's launch
@@ -214,7 +216,19 @@ Phases (a failing phase raises; there is no CPU fallback):
     single-process run's, each finite with weights summing to 1 and equal
     to the single-process run's, a failing process failing the phase;
     ``SMCSampler.run(devices=[cuda:0])`` bit-equal to ``devices=None``;
-    ``select_device()`` the card; ``describe_devices()``.
+    ``select_device()`` the card; ``describe_devices()``;
+32. dnc4: the divideandconquer suite on 32x32 images, a 4x4 grid of 8x8
+    tiles (``phase_dnc4``; configs from ``studies/dnc_grid.py``, the JAX
+    package's images from ``tests/data/divideandconquer32_tiles.npz``):
+    two images through the tree under MH (K1 tiles, K3 at levels 0-1, K3g
+    at 32x16 with 64 slots and 32x32 with 128), one under MALA (K4, then
+    K4g), the first through the 32x32 single tile (K2g, 32 slots) cut to
+    3 SMC iterations (at the config's 100 it reaches temperature 0.039 in
+    96 s) and ``compare_singletile`` on it; every tree level and tile at
+    temperature 1;
+    K2g, K3g and K4g held against their plain versions at each launch
+    shape of the path and at a 24x24 tile with 20 slots off it
+    (``launch_agreement``, the bound), and K3g over 800 sweeps at level 2.
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -324,6 +338,9 @@ M71SS_JAX_WITHIN = 66
 SQJD_TOL = 1e-2
 # the early stop's quick-cell path runs this many of the quick cell's tiles
 SQJD_QUICK_TILES = 4
+# the plain version is compared on every this-many-th mutation of a path
+# (the first included): the comparisons were two thirds of the phase
+SQJD_COMPARE_EVERY = 4
 # [history]: a ladder of dyadic temperatures, exact in float32, so the
 # recorded temperatures equal it bit for bit
 HISTORY_LADDER = (0.0625, 0.125, 0.25, 0.5, 1.0)
@@ -355,12 +372,18 @@ REPLACES = {"K1": "smcdet_tpu/ops/pallas_sweep.py:178",
             "K2": "smcdet_tpu/ops/pallas_sweep.py:178",
             "K3": "smcdet_tpu/ops/pallas_sweep.py:178",
             "K4": "smcdet_tpu/ops/pallas_sweep.py:485",
-            "K5": "experiments/roofline.py:96"}
+            "K5": "experiments/roofline.py:96",
+            "K2g": "smcdet_tpu/ops/pallas_sweep.py:178",
+            "K3g": "smcdet_tpu/ops/pallas_sweep.py:178",
+            "K4g": "smcdet_tpu/ops/pallas_sweep.py:485"}
 SOURCES = {"K1": "smcdet_tpu_torch/csrc/mh_sweep_k2.cu",
            "K2": "smcdet_tpu_torch/csrc/mh_sweep_k2.cu",
            "K3": "smcdet_tpu_torch/csrc/mh_sweep_k3.cu",
            "K4": "smcdet_tpu_torch/csrc/mala_sweep_k4.cu",
-           "K5": "smcdet_tpu_torch/csrc/chain_k5.cu"}
+           "K5": "smcdet_tpu_torch/csrc/chain_k5.cu",
+           "K2g": "smcdet_tpu_torch/csrc/mh_sweep_k2g.cu",
+           "K3g": "smcdet_tpu_torch/csrc/mh_sweep_k3g.cu",
+           "K4g": "smcdet_tpu_torch/csrc/mala_sweep_k4g.cu"}
 
 # The least time of a sweep loop (``bound_ms``): the larger of its bytes
 # over the memory rate and its operations over the peak rate of their unit.
@@ -572,7 +595,8 @@ def _kernel_label(mangled):
 
 
 def kernel_id(name):
-    """The id (K1 to K5) of a sweep or chain kernel from its function name,
+    """The id (K1 to K5, K2g to K4g) of a sweep or chain kernel from its
+    function name,
     as ``_kernel_label`` or the profiler writes it; None for any other
     function. K1 is K2's lane-group kernel instantiated for the M71 8x8
     target (template arguments 8, 8, lanes, Gaussian noise 0, SDSS beta = 3
@@ -583,7 +607,10 @@ def kernel_id(name):
     for pattern, kid in (("mh_sweep_k2_kernel", "K2"),
                          ("mh_sweep_k3_kernel", "K3"),
                          ("mala_sweep_k4_kernel", "K4"),
-                         ("chain_k5_kernel", "K5")):
+                         ("chain_k5_kernel", "K5"),
+                         ("mh_sweep_k2g_kernel", "K2g"),
+                         ("mh_sweep_k3g_kernel", "K3g"),
+                         ("mala_sweep_k4g_kernel", "K4g")):
         if pattern in flat:
             return kid
     return None
@@ -894,15 +921,16 @@ def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
     return n_flip, n_tail, worst_flip, worst_tail
 
 
-def _equilibrium(dev, label, kernel, ctx, counts, state):
-    """800 sweeps of each on different streams: tempered-target q50/q75
-    within 5% + 5 nats, acceptance within 0.02 (the bounds of
-    tests/test_pallas.py:107-154), and the kernel's caches (the rate, and
-    the child rate on the bridge) against a fresh render."""
+def _equilibrium(dev, label, kernel, ctx, counts, state, sweeps=800):
+    """``sweeps`` sweeps of each on different streams: tempered-target
+    q50/q75 within 5% + 5 nats, acceptance within 0.02 (the bounds of
+    tests/test_pallas.py:107-154, at its 800 sweeps), and the kernel's
+    caches (the rate, and the child rate on the bridge) against a fresh
+    render."""
     from smcdet_tpu_torch.inference.kernels import init_kernel_state
 
     saved, res = kernel.num_iters, {}
-    kernel.num_iters = 800
+    kernel.num_iters = sweeps
     for backend, seed in (("auto", 5), ("torch", 6)):
         kernel.backend = backend
         res[backend] = kernel.run_from_state(
@@ -916,10 +944,12 @@ def _equilibrium(dev, label, kernel, ctx, counts, state):
     ltk, ltp = (x.flatten().cpu().numpy() for x in (ltk, ltp))
     for q in (50, 75):
         a, b = np.percentile(ltp, q), np.percentile(ltk, q)
-        print(f"[{label}] 800 sweeps q{q}: plain {a:.3f} kernel {b:.3f}")
+        print(f"[{label}] {sweeps} sweeps q{q}: plain {a:.3f} kernel "
+              f"{b:.3f}")
         assert abs(a - b) <= 0.05 * abs(a) + 5.0, (q, a, b)
     ak, ap = float(acck.mean()), float(accp.mean())
-    print(f"[{label}] 800 sweeps acceptance: plain {ap:.5f} kernel {ak:.5f}")
+    print(f"[{label}] {sweeps} sweeps acceptance: plain {ap:.5f} kernel "
+          f"{ak:.5f}")
     assert abs(ak - ap) < 0.02
     fresh = init_kernel_state(ctx, counts, stk.locs, stk.fluxes)
     for cache, ll in (("rate", "parent_ll"), ("child_rate", "child_ll")):
@@ -1022,7 +1052,9 @@ def launch_agreement(run, plain, args, child=None, sweeps=20, bar=0.99):
     and ``sweeps`` sweeps on one key: the empty ones pass through
     bit-exactly (acceptance 0), and at least 99% of particles agree to rtol
     1e-4, the bars of ``branch_check`` (``bar``: the share held). Returns
-    the share that agrees."""
+    ``(share, err)``: the share that agrees and the largest absolute
+    difference of pll and lp on the particles that agree (NaN where none
+    does)."""
     short = list(args)
     short[6] = args[6].clone()
     short[6][0, ::2] = 0
@@ -1034,9 +1066,14 @@ def launch_agreement(run, plain, args, child=None, sweeps=20, bar=0.99):
         assert torch.equal(out[0, ::2], inp[0, ::2]), (
             "zero-count passthrough moved")
     assert float(outs[5][0, ::2].abs().max()) == 0.0
-    share = float(_agreement(outs, ref, tuple(short[6].shape)).float().mean())
+    agree = _agreement(outs, ref, tuple(short[6].shape))
+    share = float(agree.float().mean())
     assert share >= bar, share
-    return share
+    if not bool(agree.any()):
+        return share, float("nan")
+    err = max(float((a[agree] - b[agree]).abs().max())
+              for a, b in zip(outs[3:5], ref[3:5]))
+    return share, err
 
 
 def sweep_bound(prior, model, counts, rate, M, sweeps, child=False,
@@ -1046,7 +1083,10 @@ def sweep_bound(prior, model, counts, rate, M, sweeps, child=False,
     with a star move, so only theirs are counted) on the tile target or,
     with ``child``, the bridge's; MH sweeps, or with ``mala`` MALA's.
     ``peaks`` are the FP32 (flop/s) and SFU (results/s) rates: the data
-    sheet's, or K5's measured ones."""
+    sheet's, or K5's measured ones. The same function, so the same bound,
+    whichever kernel computes it (K2g, K3g and K4g's reads of the caches
+    they keep in device memory are their design's traffic, not the
+    function's)."""
     from smcdet_tpu_torch.distributions import TruncatedPareto
     from smcdet_tpu_torch.models.priors import ParetoFlux
     from smcdet_tpu_torch.models.psf import GaussianPSF
@@ -1210,9 +1250,10 @@ def _groups(args, child, groups):
 
     out = list(args)
     out[4:12] = [take(t) for t in args[4:12]]
-    child = child._replace(rate=take(child.rate), ll=take(child.ll),
-                           slot_side=None if child.slot_side is None
-                           else take(child.slot_side))
+    if child is not None:
+        child = child._replace(rate=take(child.rate), ll=take(child.ll),
+                               slot_side=None if child.slot_side is None
+                               else take(child.slot_side))
     return out, child
 
 
@@ -1559,43 +1600,60 @@ def phase_mala_kernel(dev, bridge_levels, peaks):
     return records
 
 
-def time_launch(path, name, args, peaks, child=None, label="shapes"):
-    """Sweep kernel ``name`` (K1, K2 or K4; the router must name it) at the
-    launch ``args`` of ``path``: CUDA-event time of 5 launches, the plain
-    version's of one, the grid (``launch_geometry``), ``launch_agreement``
-    with the plain version, and the bound at the data sheet's peaks and at
-    K5's ``peaks``. Prints one ``[label]`` line; returns the record."""
-    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
-
+def time_launch(path, name, args, peaks, child=None, label="shapes",
+                check=True):
+    """Sweep kernel ``name`` (any sweep kernel but K5; the router must name
+    it) at the launch ``args`` of ``path``: CUDA-event time of 5 launches
+    and the bound at the data sheet's peaks and at K5's ``peaks``; with
+    ``check`` (for a launch not held against its plain version elsewhere)
+    also the plain version's time of one launch, the grid
+    (``launch_geometry``) and ``launch_agreement`` with the plain version.
+    Prints one ``[label]`` line; returns the record (with
+    ``max_abs_err``, of pll and lp where the two agree)."""
+    run, plain, mala = _sweep_route(name, args, child)
     prior, model, sweeps = args[2], args[3], args[12]
     M = args[8].shape[-1]
-    mala = name == "K4"
-    if mala:
-        assert mala_sweep.mala_kernel(prior, model, M,
-                                      child=child is not None) == name
-        run, plain = mala_sweep.mala_sweeps, mala_sweep.mala_sweeps_reference
-    else:
-        assert mh_sweep.sweep_kernel(prior, model, M) == name
-        run, plain = mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference
     ms = _time_ms(lambda: run(*args, child=child), reps=5)
-    plain_ms = _time_ms(lambda: plain(*args, child=child), reps=1)
-    geo = launch_geometry(lambda: run(*args, child=child))
-    share = launch_agreement(run, plain, args, child)
     bound = [sweep_bound(prior, model, args[6], args[9], M, sweeps,
                          child=child is not None, mala=mala, peaks=p)
              for p in ((PEAK_FP32, PEAK_SFU), peaks)]
     G, N = args[6].shape
     shape = (f"{G} groups x {N}, {model.height}x{model.width}, M={M}, "
              f"{sweeps} sweeps")
-    print(f"[{label}] {name} {path} ({shape}): kernel {ms:.3f} ms "
-          f"({_geometry_text(geo)}), plain {plain_ms:.3f} ms, bound "
-          f"{bound[0][0]:.4f} ms ({bound[0][1]}; at K5's measured rates "
-          f"{bound[1][0]:.4f} ms); zero-count particles pass through "
-          f"bit-exactly, {share:.6f} of particles agree after 20 "
-          f"same-stream sweeps")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0][0],
-            "bound_by": bound[0][1], "measured_bound_ms": bound[1][0],
-            "shape": shape, "geometry": geo, "agreement": share}
+    rec = {"ms": ms, "bound_ms": bound[0][0], "bound_by": bound[0][1],
+           "measured_bound_ms": bound[1][0], "shape": shape}
+    text = (f"[{label}] {name} {path} ({shape}): kernel {ms:.3f} ms, bound "
+            f"{bound[0][0]:.4f} ms ({bound[0][1]}; at K5's measured rates "
+            f"{bound[1][0]:.4f} ms)")
+    if check:
+        rec["plain_ms"] = _time_ms(lambda: plain(*args, child=child), reps=1)
+        rec["geometry"] = launch_geometry(lambda: run(*args, child=child))
+        rec["agreement"], rec["max_abs_err"] = launch_agreement(
+            run, plain, args, child)
+        text += (f"; {_geometry_text(rec['geometry'])}, plain "
+                 f"{rec['plain_ms']:.3f} ms; zero-count particles pass "
+                 f"through bit-exactly, {rec['agreement']:.6f} of particles "
+                 f"agree after 20 same-stream sweeps (pll/lp max abs err "
+                 f"{rec['max_abs_err']:.3e})")
+    print(text)
+    return rec
+
+
+def _sweep_route(name, args, child):
+    """The wrapper, the plain version and whether it is MALA, of the sweep
+    kernel ``name``, which the router must name for the launch ``args``
+    (and ``child``)."""
+    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
+
+    prior, model, M = args[2], args[3], args[8].shape[-1]
+    if name.startswith("K4"):
+        assert mala_sweep.mala_kernel(prior, model, M,
+                                      child=child is not None) == name
+        return (mala_sweep.mala_sweeps, mala_sweep.mala_sweeps_reference,
+                True)
+    assert mh_sweep.sweep_kernel(prior, model, M,
+                                 child=child is not None) == name
+    return mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference, False
 
 
 def phase_launch_shapes(dev, levels, peaks):
@@ -1714,16 +1772,19 @@ def phase_main_path(dev):
     return launches, elapsed
 
 
-def _entry_batch(dev, cfg, label, out_root):
+def _entry_batch(dev, cfg, label, out_root, capture=None, tempered=True):
     """One full batch of a chunked suite (``cfg``, as loaded) through
     ``run_experiment``, its mutate calls counted; returns (calls, launches,
-    results)."""
+    results). ``capture``: as ``_aggregation_batch``'s. Every tile ends at
+    temperature 1, or with ``tempered=False`` (a run cut to fewer SMC
+    iterations than it needs) runs ``max_smc_iters`` iterations and ends
+    below 1."""
     from smcdet_tpu_torch.config import build_prior
     from smcdet_tpu_torch.runner import load_results, run_experiment
 
     T = cfg.num_images = cfg.batch_size
     cfg.output_dir = out_root
-    with _Calls() as calls:
+    with _Calls(capture) as calls:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         before = torch.cuda.memory_allocated(dev)
@@ -1757,7 +1818,12 @@ def _entry_batch(dev, cfg, label, out_root):
                         * cfg.image_model.image_width, T, peak - before)
     assert calls.tile[kind] == iters and sum(calls.bridge.values()) == 0
     assert res["image_index"].tolist() == list(range(T))
-    assert np.all(res["temperature"] == 1.0), res["temperature"]
+    if tempered:
+        assert np.all(res["temperature"] == 1.0), res["temperature"]
+    else:
+        assert iters == s.max_smc_iters, iters
+        assert np.all((res["temperature"] > 0.0)
+                      & (res["temperature"] < 1.0)), res["temperature"]
     assert np.isfinite(res["log_normalizing_constant"]).all()
     np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
     return calls, launches, res
@@ -2060,7 +2126,12 @@ class _Calls:
     and ``SingleComponentMALA``, by kind) on the tile target and on the
     bridge, and keeps every ``Aggregate.run``'s diagnostics (per level the
     bridge iterations, the temperatures and the last iteration's mean
-    acceptance), while the ``with`` block runs."""
+    acceptance), while the ``with`` block runs. With ``capture`` (a dict)
+    it also keeps a copy of each shape's first call: ``capture[(kind,
+    bridge, H, W, M)] = (kernel, ctx, counts, state)``."""
+
+    def __init__(self, capture=None):
+        self.capture = capture
 
     def _classes(self):
         from smcdet_tpu_torch.inference.aggregate import Aggregate
@@ -2082,10 +2153,18 @@ class _Calls:
         agg_run = aggregate.run
 
         def counter(kind, run_from_state):
-            def counted(kernel, gen, ctx, *args, **kwargs):
+            def counted(kernel, gen, ctx, counts, state, *args, **kwargs):
                 target = self.tile if ctx.child_model is None else self.bridge
                 target[kind] += 1
-                return run_from_state(kernel, gen, ctx, *args, **kwargs)
+                key = (kind, ctx.child_model is not None, ctx.model.height,
+                       ctx.model.width, state.fluxes.shape[-1])
+                if self.capture is not None and key not in self.capture:
+                    self.capture[key] = (kernel, ctx, counts.clone(),
+                                         type(state)(*(
+                                             None if v is None else v.clone()
+                                             for v in state)))
+                return run_from_state(kernel, gen, ctx, counts, state, *args,
+                                      **kwargs)
             return counted
 
         def recorded(agg, *args, **kwargs):
@@ -2114,8 +2193,12 @@ def _reset_launches():
     mh_sweep.mh_sweeps.launches = 0
     mh_sweep.mh_sweeps.k2_launches = 0
     mh_sweep.mh_sweeps.k3_launches = 0
+    mh_sweep.mh_sweeps.k2g_launches = 0
+    mh_sweep.mh_sweeps.k3g_launches = 0
     mala_sweep.mala_sweeps.launches = 0
     mala_sweep.mala_sweeps.bridge_launches = 0
+    mala_sweep.mala_sweeps.k4g_launches = 0
+    mala_sweep.mala_sweeps.k4g_bridge_launches = 0
     roofline.chain.launches = 0
 
 
@@ -2126,17 +2209,20 @@ def _launches():
     f, g = mh_sweep.mh_sweeps, mala_sweep.mala_sweeps
     return {"K1": f.launches, "K2": f.k2_launches, "K3": f.k3_launches,
             "K4 tile": g.launches, "K4 bridge": g.bridge_launches,
-            "K5": roofline.chain.launches}
+            "K5": roofline.chain.launches, "K2g": f.k2g_launches,
+            "K3g": f.k3g_launches, "K4g tile": g.k4g_launches,
+            "K4g bridge": g.k4g_bridge_launches}
 
 
-def _aggregation_batch(dev, cfg, label):
+def _aggregation_batch(dev, cfg, label, capture=None):
     """One batch of an aggregation-enabled suite through ``run_experiment``
     with the tile and bridge mutate calls counted against the kernels'
     launches; returns (launches, results, per-image level diagnostics, the
-    peak memory above the allocation before the run)."""
+    peak memory above the allocation before the run). ``capture``: a dict
+    that receives each shape's first mutate call (``_Calls``)."""
     from smcdet_tpu_torch.runner import load_results, run_experiment
 
-    with _Calls() as calls:
+    with _Calls(capture) as calls:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         before = torch.cuda.memory_allocated(dev)
@@ -2155,12 +2241,14 @@ def _aggregation_batch(dev, cfg, label):
           f"{float(per_image.mean()):.3f} s, peak memory {peak} B")
     print(f"[{label}] tile mutate calls {calls.tile}, bridge mutate calls "
           f"{calls.bridge}; launches {launches}")
-    assert launches["K1"] + launches["K2"] == calls.tile["mh"], (launches,
-                                                                 calls.tile)
-    assert launches["K3"] == calls.bridge["mh"], (launches, calls.bridge)
-    assert launches["K4 tile"] == calls.tile["mala"], (launches, calls.tile)
-    assert launches["K4 bridge"] == calls.bridge["mala"], (launches,
-                                                           calls.bridge)
+    assert launches["K1"] + launches["K2"] + launches["K2g"] == calls.tile[
+        "mh"], (launches, calls.tile)
+    assert launches["K3"] + launches["K3g"] == calls.bridge["mh"], (
+        launches, calls.bridge)
+    assert launches["K4 tile"] + launches["K4g tile"] == calls.tile[
+        "mala"], (launches, calls.tile)
+    assert launches["K4 bridge"] + launches["K4g bridge"] == calls.bridge[
+        "mala"], (launches, calls.bridge)
     assert res["image_index"].tolist() == list(range(cfg.num_images))
     assert np.isfinite(res["log_normalizing_constant"].max(-1)).all()
     np.testing.assert_allclose(res["weights"].sum(-1), 1.0, atol=1e-5)
@@ -2343,11 +2431,13 @@ def dnc_runs(dev, cfg, label, seeds, workers=None):
     return tiles["true_counts"], runs
 
 
-def binomial_floor(n, hits, alpha=DNC_ALPHA):
+def binomial_floor(n, hits, alpha=DNC_ALPHA, n_ref=None):
     """The least number of successes in ``n`` trials outside the lower
-    ``alpha`` tail of the binomial at the rate ``(hits + 1) / (n + 2)``:
-    the rule of succession's estimate from a reference's ``hits`` of ``n``."""
-    p, cdf = (hits + 1) / (n + 2), 0.0
+    ``alpha`` tail of the binomial at the rate ``(hits + 1) / (n_ref + 2)``:
+    the rule of succession's estimate from a reference's ``hits`` of
+    ``n_ref`` trials (default ``n``)."""
+    n_ref = n if n_ref is None else n_ref
+    p, cdf = (hits + 1) / (n_ref + 2), 0.0
     for k in range(n + 1):
         cdf += math.comb(n, k) * p ** k * (1 - p) ** (n - k)
         if cdf >= alpha:
@@ -2461,18 +2551,21 @@ def phase_mala_dnc(dev, workers=None):
     return launches
 
 
-def phase_profile(dev):
-    """``torch.profiler`` over one warm divideandconquer image through
-    ``run_experiment``: device time by range (``agg.*`` and ``smc.*``, the
-    kernels launched inside each) and the device's idle share, 1 - the sum
-    of kernel time over the wall."""
+def phase_profile(dev, cfg=None, label="profile",
+                  what="one divideandconquer image"):
+    """``torch.profiler`` over one warm divideandconquer image (or the
+    first image of aggregation config ``cfg``) through ``run_experiment``:
+    device time by range (``agg.*`` and ``smc.*``, the kernels launched
+    inside each) and the device's idle share, 1 - the sum of kernel time
+    over the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from smcdet_tpu_torch.config import load_config
     from smcdet_tpu_torch.runner import run_experiment
 
-    cfg = load_config("experiments/divideandconquer/config.yaml")
+    if cfg is None:
+        cfg = load_config("experiments/divideandconquer/config.yaml")
     cfg.num_images = cfg.batch_size = 1
     with tempfile.TemporaryDirectory() as tmp:
         cfg.output_dir = tmp
@@ -2501,19 +2594,19 @@ def phase_profile(dev):
             if kid is not None:
                 n, ms = sweeps.get(kid, (0, 0.0))
                 sweeps[kid] = (n + 1, ms + e.device_time_total / 1e3)
-    print(f"[profile] one divideandconquer image under the profiler: wall "
+    print(f"[{label}] {what} under the profiler: wall "
           f"{wall * 1e3:.1f} ms, kernels {kernel_ms:.1f} ms, device idle "
           f"{1 - kernel_ms / (wall * 1e3):.3f}")
     for kid, (n, ms) in sorted(sweeps.items()):
-        print(f"[profile] {kid} (the sweeps of "
-              f"{'agg' if kid == 'K3' else 'smc'}.mutate): {n} launches, "
-              f"device {ms:.3f} ms")
+        print(f"[{label}] {kid} (the sweeps of "
+              f"{'agg' if kid in ('K3', 'K3g') else 'smc'}.mutate): {n} "
+              f"launches, device {ms:.3f} ms")
     for key in sorted(ranges, key=lambda k: -ranges[k][1]):
         n, ms = ranges[key]
-        print(f"[profile] {key}: {n} calls, PyTorch kernels {ms:.3f} ms")
+        print(f"[{label}] {key}: {n} calls, PyTorch kernels {ms:.3f} ms")
     rest = kernel_ms - sum(ms for _, ms in ranges.values()) - sum(
         ms for _, ms in sweeps.values())
-    print(f"[profile] outside the ranges: device {rest:.3f} ms")
+    print(f"[{label}] outside the ranges: device {rest:.3f} ms")
 
 
 def phase_profile_pair(dev, work):
@@ -2684,8 +2777,11 @@ MCMC_CHAINS = (("m71 fixture", "m71", "mh", "K2"),
 MCMC_BUDGET_S = 10.0
 # the plain chain's drift check: tiles and sweeps
 MCMC_PLAIN_DRIFT = (2, 1000)
-# the equilibrium check's chains (copies of one tile)
+# the equilibrium check's chains (copies of one tile) and sweeps: the
+# chains start burnt in, and the plain version's sweeps (host-bound, about
+# 15 ms each) were most of the phase at 800
 MCMC_EQ_CHAINS = 512
+MCMC_EQ_SWEEPS = 400
 # keys of the chain launches' agreement check, at the batch's launch and
 # at the equilibrium check's
 MCMC_AGREEMENT_KEYS = 4
@@ -2752,7 +2848,8 @@ def chain_vs_plain(dev, label, kid, suite, kind, peaks):
     batch's tiles, N = 1: one live particle in each block), from the empty
     start moved 200 sweeps: zero-count passthrough bit-exact, >= 99% of
     chains agree with the plain version after 20 same-stream sweeps,
-    800-sweep equilibrium and cache drift (``_equilibrium``), two launches
+    ``MCMC_EQ_SWEEPS``-sweep equilibrium and cache drift
+    (``_equilibrium``), two launches
     on one key bit-identical, ``launch_agreement`` pooled over
     ``MCMC_AGREEMENT_KEYS`` keys at the batch's launch and at the
     equilibrium chains'; then the burn-in launch
@@ -2790,7 +2887,8 @@ def chain_vs_plain(dev, label, kid, suite, kind, peaks):
         chain)
     state_eq, _ = with_iters(chain, mc.num_samples_burnin).run_from_state(
         gen, ctx_eq, counts_eq, state_eq)
-    _equilibrium(dev, f"mcmc {label}", chain, ctx_eq, counts_eq, state_eq)
+    _equilibrium(dev, f"mcmc {label}", chain, ctx_eq, counts_eq, state_eq,
+                 MCMC_EQ_SWEEPS)
 
     key = torch.tensor([4242, 2424], dtype=torch.int64, device=dev)
     k, nb = mc.keep_every_k, mc.num_samples_burnin
@@ -2805,7 +2903,7 @@ def chain_vs_plain(dev, label, kid, suite, kind, peaks):
     eq_block = _chain_args(key, chain, ctx_eq, counts_eq, state_eq, k)
     shares = [(len(args[6]), launch_agreement(
         run, plain, [torch.tensor([4242 + i, 2424], dtype=torch.int64,
-                                  device=dev)] + args[1:], bar=0.0))
+                                  device=dev)] + args[1:], bar=0.0)[0])
         for args in (block, eq_block) for i in range(MCMC_AGREEMENT_KEYS)]
     del ctx_eq, counts_eq, state_eq, eq_block
     n_runs = sum(n for n, _ in shares)
@@ -3168,11 +3266,12 @@ class _EarlyStopRuns:
     ``compare``, the plain version then runs from the same state on a copy
     of the generator, so on the same Philox keys, and its sweeps and the
     share of particles that agree with the kernel's (``_agreement``) are
-    recorded too; that comparison's time is kept apart (``compare_s``) and
+    recorded too, on every ``compare``-th mutation from the first (0: on
+    none); that comparison's time is kept apart (``compare_s``) and
     launches nothing. ``mutations``: ``[sweeps, plain sweeps, agreeing
-    share, particles, wall s]``."""
+    share, particles, wall s]``, the plain ones None where not compared."""
 
-    def __init__(self, compare):
+    def __init__(self, compare=0):
         self.compare = compare
         self.mutations, self.compare_s = [], 0.0
 
@@ -3202,7 +3301,7 @@ class _EarlyStopRuns:
                 torch.cuda.synchronize()
                 rec = [sweeps[0], None, None, counts.numel(),
                        time.perf_counter() - start]
-                if self.compare:
+                if self.compare and len(self.mutations) % self.compare == 0:
                     mark = time.perf_counter()
                     copy = torch.Generator(device=gen.device)
                     copy.set_state(saved)
@@ -3268,9 +3367,10 @@ def phase_sqjd(dev, peaks):
     just before each run: at tolerance 0 every mutation must run exactly
     ``num_iters`` sweeps, one launch each; at ``SQJD_TOL`` every sweep of a
     mutation is one launch of the path's kernel, counted, and the plain
-    version, run from the same state on the same Philox keys, must stop at
-    the same sweep in at least 99% of mutations with at least 99% of
-    particles in agreement (``launch_agreement``'s bar). Prints the sweeps
+    version, run from the same state on the same Philox keys on every
+    ``SQJD_COMPARE_EVERY``-th mutation, must stop at the same sweep in at
+    least 99% of those with at least 99% of particles in agreement
+    (``launch_agreement``'s bar). Prints the sweeps
     per mutation, the launches, the host's wall per sweep beside the
     kernel's one-sweep launch time, and the batch wall without the
     comparison. Returns ``(launches by kernel, {path: record})``: the
@@ -3322,7 +3422,7 @@ def phase_sqjd(dev, peaks):
                  ("divideandconquer image", ("K1", "K3"),
                   batch("divideandconquer", images=1)))
         for label, kids, run in paths:
-            with _EarlyStopRuns(compare=False) as every:
+            with _EarlyStopRuns() as every:
                 _reset_launches()
                 iters = run(0.0)
                 launches = _launches()
@@ -3335,7 +3435,7 @@ def phase_sqjd(dev, peaks):
             for k in totals:
                 totals[k] += launches[k]
 
-            with _EarlyStopRuns(compare=True) as runs:
+            with _EarlyStopRuns(SQJD_COMPARE_EVERY) as runs:
                 _reset_launches()
                 start = time.perf_counter()
                 run(SQJD_TOL)
@@ -3345,8 +3445,9 @@ def phase_sqjd(dev, peaks):
             sweeps = [m[0] for m in muts]
             n = sum(launches[k] for k in kids)
             others = sum(launches.values()) - n - launches["K5"]
-            same = sum(m[0] == m[1] for m in muts) / len(muts)
-            agree = sum(m[2] * m[3] for m in muts) / sum(m[3] for m in muts)
+            held = [m for m in muts if m[1] is not None]
+            same = sum(m[0] == m[1] for m in held) / len(held)
+            agree = sum(m[2] * m[3] for m in held) / sum(m[3] for m in held)
             host_ms = sum(m[4] for m in muts) / sum(sweeps) * 1e3
             print(f"[sqjd] {label}, tolerance {SQJD_TOL}: {len(muts)} "
                   f"mutations, sweeps per mutation mean "
@@ -3355,9 +3456,10 @@ def phase_sqjd(dev, peaks):
                   f"{'+'.join(kids)} ({launches}), one a sweep; host wall "
                   f"per sweep {host_ms:.4f} ms; run wall {wall:.3f} s "
                   f"without the comparison ({runs.compare_s:.3f} s)")
-            print(f"[sqjd] {label}: the plain version on the same keys "
-                  f"stops at the same sweep in {same:.4f} of mutations, "
-                  f"{agree:.6f} of particles agree")
+            print(f"[sqjd] {label}: the plain version on the same keys, "
+                  f"on {len(held)} of the {len(muts)} mutations, stops at "
+                  f"the same sweep in {same:.4f} of them, {agree:.6f} of "
+                  f"particles agree")
             assert n == sum(sweeps) and others == 0, (n, sum(sweeps),
                                                       launches)
             assert same >= 0.99 and agree >= 0.99, (same, agree)
@@ -4040,7 +4142,7 @@ def phase_studies(dev, peaks):
 M71STUDIES_CROWDED_TILES = 4
 M71STUDIES_SUITE_TILES = 4
 M71STUDIES_REPEATED = (8, (512, 2048), (10, 100))
-M71STUDIES_SPLIT = (8, 300)
+M71STUDIES_SPLIT = (8, 150)
 # repeated_runs at its committed size: runs a setting, particles per
 # stratum (K1 is timed at each N's call shape, at the grid's 10 sweeps)
 M71STUDIES_REPEATED_FULL = (100, (512, 2048, 8192))
@@ -4489,7 +4591,7 @@ def phase_ingest(dev, m71_share):
 # ----------------------------------------------------------------------
 # images, reps, sweeps, burn-in, thin: printed beside the committed
 # figures, not held to them
-ANCHOR_CUT = (16, 2, 2000, 1000, 2)
+ANCHOR_CUT = (16, 2, 400, 200, 2)
 # the committed anchor's images and reps (K1's 800 x 1 launch), burn-in
 # and thin
 ANCHOR_FULL = (200, 4, 30000, 2)
@@ -4516,7 +4618,7 @@ def _anchor_chain_shape(dev, label, imgs, prior, model, chain, nb, k, peaks):
     block = _chain_args(None, chain, ctx, counts, state, k)
     shares = [launch_agreement(run, plain, [torch.tensor(
         [4242 + i, 2424], dtype=torch.int64, device=dev)] + block[1:],
-        bar=0.0) for i in range(MCMC_AGREEMENT_KEYS)]
+        bar=0.0)[0] for i in range(MCMC_AGREEMENT_KEYS)]
     agree = float(np.mean(shares))
     print(f"[anchor] K1 at {label} ({counts.shape[0]} chains x 1): zero-count "
           f"passthrough bit-exact; launch_agreement over "
@@ -4820,6 +4922,257 @@ def phase_parallel(dev):
     return launches
 
 
+# [dnc4]: the divideandconquer suite on 32x32 images, a 4x4 grid of 8x8
+# tiles (smcdet_tpu_torch/studies/dnc_grid.py derives its configs), on the
+# JAX package's draw of its images (tests/torch_dnc4_tiles.py)
+DNC4_DIM = 32
+DNC4_TILES = "tests/data/divideandconquer32_tiles.npz"
+DNC4_IMAGES = 2  # through the tree under MH
+DNC4_MALA_IMAGES = 1
+# through the single tile, cut to DNC4_SINGLE_ITERS SMC iterations: at
+# the config's 100 it reaches temperature 0.039 on the first image in 96 s
+# (N = 8192 x 33 strata re-rendered every iteration; PERF.md), so no run
+# within this script's time reaches 1
+DNC4_SINGLE_IMAGES = 1
+DNC4_SINGLE_ITERS = 3
+# the single tile's launch is held to its plain version on its first groups
+DNC4_SINGLE_GROUPS = 2
+# the shape off the path: a 24x24 tile with 20 slots, 256 particles a
+# stratum on one tile (the bridge: 2 groups of 256)
+DNC4_OFF_PATH = ((24, 24), 20, 256)
+# particles a group of the 800-sweep equilibrium on the bridge
+DNC4_EQ_PARTICLES = 256
+
+
+def _dnc4_levels(label, levels, images):
+    """Per image the four levels' bridge iterations, every merged tile at
+    temperature 1; returns the bridge launches of each level over the
+    images (one a bridge iteration)."""
+    assert len(levels) == images, levels
+    for i, lv in enumerate(levels):
+        assert len(lv) == 4, lv
+        print(f"[{label}] image {i}: bridge iterations per level "
+              f"{[it for it, _, _ in lv]}, last acceptance "
+              f"{[round(acc, 4) for _, _, acc in lv]}")
+        assert all(all(x == 1.0 for x in np.ravel(temp))
+                   for _, temp, _ in lv), lv
+    return [sum(lv[k][0] for lv in levels) for k in range(4)]
+
+
+def _dnc4_agree(path, name, args, child=None):
+    """``launch_agreement`` of kernel ``name`` with its plain version at a
+    launch off the path (no timing); returns ``{"agreement",
+    "max_abs_err"}``."""
+    run, plain, _ = _sweep_route(name, args, child)
+    share, err = launch_agreement(run, plain, args, child)
+    G, N = args[6].shape
+    print(f"[dnc4] {name} {path} ({G} groups x {N}, {args[3].height}x"
+          f"{args[3].width}, M={args[8].shape[-1]}): zero-count particles "
+          f"pass through bit-exactly, {share:.6f} of particles agree after "
+          f"20 same-stream sweeps (pll/lp max abs err {err:.3e})")
+    return {"agreement": share, "max_abs_err": err}
+
+
+def _dnc4_off_path(dev, mh, mala):
+    """K2g, K3g and K4g (tile and bridge) held against their plain versions
+    at a shape no path runs: ``DNC4_OFF_PATH``'s 24x24 tile with 20 slots,
+    from prior catalogs, the bridge with random origin tags and a split at
+    row 12."""
+    from smcdet_tpu_torch.inference.aggregate import SideMask, expand_prior
+    from smcdet_tpu_torch.inference.kernels import (
+        TargetContext,
+        init_kernel_state,
+    )
+
+    (h, w), M, N = DNC4_OFF_PATH
+    _, tprior, tmodel, _, _ = _dnc_problem(dev)
+    prior, model = expand_prior(tprior, h, w, M), tmodel.with_shape(h, w)
+    key = torch.tensor([24024, 20], dtype=torch.int64, device=dev)
+    ctx, counts, state = _kernel_inputs(dev, prior, model, 1, N, 3)
+    records = {}
+    for name, kernel in (("K2g", mh), ("K4g", mala)):
+        records[f"{name} tile"] = _dnc4_agree(
+            "off-path 24x24 tile", name,
+            _sweep_args(key, kernel, ctx, counts, state, kernel.num_iters))
+    g = torch.Generator(device=dev).manual_seed(4)
+    counts = torch.randint(0, M + 1, (1, 2, N), generator=g, device=dev,
+                           dtype=torch.int32)
+    locs, fluxes = prior.sample_marks(g, counts, (1, 2, N))
+    tags = (torch.rand((1, 2, N, M), generator=g, device=dev) < 0.5).float()
+    ctx = TargetContext(prior, model, ctx.image[:1].expand(1, 2, 1, h, w),
+                        torch.full((1, 2, 1), 0.5, device=dev),
+                        child_model=model,
+                        child_side_mask=SideMask(0, h // 2, h, w),
+                        child_slot_side=tags)
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    for name, kernel in (("K3g", mh), ("K4g", mala)):
+        records[f"{name} bridge"] = _dnc4_agree(
+            "off-path 24x24 bridge", name,
+            _sweep_args(key, kernel, ctx, counts, state, kernel.num_iters),
+            _flat_child(ctx, counts, state))
+    return records
+
+
+def phase_dnc4(dev, peaks):
+    """The divideandconquer suite on 32x32 images through ``run_experiment``
+    with the configs ``studies/dnc_grid.py`` derives: ``DNC4_IMAGES`` of the
+    JAX package's images through the tree under MH (K1 on the 16 tiles, K3
+    at levels 0-1, K3g at levels 2-3: 32x16 with 64 slots, 32x32 with 128),
+    ``DNC4_MALA_IMAGES`` under MALA (K4, then K4g at levels 2-3), and
+    ``DNC4_SINGLE_IMAGES`` of them through the single 32x32 tile (K2g, 32
+    slots, N = 8192) cut to ``DNC4_SINGLE_ITERS`` SMC iterations,
+    then ``compare_singletile`` on the images both ran. Every tree level and
+    tile at temperature 1, finite log Z, weights summing to 1. Then each
+    new kernel against its plain version at each launch shape of the path
+    (its first launch there, captured; ``time_launch``: the zero-count
+    passthrough bit for bit, >= 99% agreement after 20 sweeps, time beside
+    the bound), at the shape off the path and K4g on the single tile
+    (``launch_agreement`` alone), and K3g over 800 sweeps at level 2.
+    (The profile of a tree image is ``tests/torch_synthetic_suites.py
+    --dnc4``'s, which has the time.) Returns the launches of the runs, the
+    records of the kernels line and the ``[paths]`` rows."""
+    from smcdet_tpu_torch.run_experiment import load_suite_config
+    from smcdet_tpu_torch.studies import compare_singletile
+    from smcdet_tpu_torch.studies.dnc_grid import derived_configs
+
+    key = torch.tensor([32032, 4444], dtype=torch.int64, device=dev)
+    launches, records, paths, first = {}, {}, [], {}
+    mark = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfgs = derived_configs(f"{tmp}/configs", DNC4_DIM, output_dir=tmp,
+                               mala_steps=MALA_DNC_STEPS)
+        with np.load(DNC4_TILES) as t:
+            tiles = {k: t[k][:DNC4_IMAGES] for k in t.files}
+        truth = tiles["true_counts"]
+        staged = Path(tmp) / "divideandconquer" / "tiles.npz"
+        staged.parent.mkdir()
+        np.savez(staged, **tiles)
+        for name, path in cfgs.items():
+            cfg = load_suite_config(str(path))
+            print(f"[dnc4] {name} config: {cfg.image_model.image_height}x"
+                  f"{cfg.image_model.image_width} images, tile "
+                  f"{cfg.sampler.tile_dim}, N {cfg.sampler.num_catalogs}, "
+                  f"max_objects {cfg.prior.max_objects}, kernel "
+                  f"{cfg.kernel.kind}")
+
+        def batch(name, images, label, capture):
+            cfg = load_suite_config(str(cfgs[name]))
+            cfg.num_images = cfg.batch_size = images
+            start = time.perf_counter()
+            out = _aggregation_batch(dev, cfg, label, capture)
+            print(f"[{label}] {images} image(s) in "
+                  f"{time.perf_counter() - start:.1f} s")
+            return out
+
+        mh_first, mala_first = {}, {}
+        run, res, levels, _ = batch("dnc", DNC4_IMAGES, "dnc4", mh_first)
+        per_level = _dnc4_levels("dnc4", levels, DNC4_IMAGES)
+        assert run["K1"] > 0 and run["K3"] > 0 and run["K3g"] > 0, run
+        assert run["K3"] == sum(per_level[:2]), (run, per_level)
+        assert run["K3g"] == sum(per_level[2:]), (run, per_level)
+        _count_share("dnc4", res, truth)
+        launches["MH"], paths_mh = run, per_level
+
+        run, res, levels, _ = batch("mala", DNC4_MALA_IMAGES, "dnc4 mala",
+                                    mala_first)
+        mala_level = _dnc4_levels("dnc4 mala", levels, DNC4_MALA_IMAGES)
+        assert run["K4 tile"] > 0 and run["K4g bridge"] > 0, run
+        assert run["K4 bridge"] == sum(mala_level[:2]), (run, mala_level)
+        assert run["K4g bridge"] == sum(mala_level[2:]), (run, mala_level)
+        assert run["K1"] + run["K3"] + run["K3g"] == 0, run
+        _count_share("dnc4 mala", res, truth[:DNC4_MALA_IMAGES])
+        launches["MALA"] = run
+
+        cfg = load_suite_config(str(cfgs["singletile"]))
+        cfg.batch_size = DNC4_SINGLE_IMAGES
+        cfg.sampler.max_smc_iters = DNC4_SINGLE_ITERS
+        start = time.perf_counter()
+        _, run, res = _entry_batch(dev, cfg, "dnc4 single tile", tmp, first,
+                                   tempered=False)
+        print(f"[dnc4 single tile] {DNC4_SINGLE_IMAGES} image(s) in "
+              f"{time.perf_counter() - start:.1f} s")
+        assert run["K2g"] > 0 and sum(run.values()) == run["K2g"], run
+        _count_share("dnc4 single tile", res, truth[:DNC4_SINGLE_IMAGES])
+        launches["single"] = run
+        report = _quiet(compare_singletile.main, ["--config",
+                                                  str(cfgs["dnc"])])
+        print(f"[dnc4] compare_singletile over {report['images']} image(s), "
+              f"the single tile at temperature "
+              f"{res['temperature'].ravel().tolist()} after "
+              f"{DNC4_SINGLE_ITERS} SMC iterations: {json.dumps(report)}")
+        assert report["images"] == DNC4_SINGLE_IMAGES
+
+    print(f"[dnc4] runs in {time.perf_counter() - mark:.1f} s")
+    # the new kernels at the path's launch shapes, against plain
+    mark = time.perf_counter()
+
+    def args_of(capture, kind, bridge, h, w, M, cut=None):
+        kernel, ctx, counts, state = capture[(kind, bridge, h, w, M)]
+        args = _sweep_args(key, kernel, ctx, counts, state, kernel.num_iters)
+        child = _flat_child(ctx, counts, state)
+        if cut is not None:
+            args, child = _groups(args, child, cut)
+        return args, child
+
+    mala = mala_first[("mala", False, 8, 8, 8)][0]
+    levels_shape = [(16, 8, 16), (16, 16, 32), (32, 16, 64), (32, 32, 128)]
+    for i, (h, w, M) in enumerate(levels_shape):
+        name = "K3" if i < 2 else "K3g"
+        args, child = args_of(mh_first, "mh", True, h, w, M)
+        rec = time_launch(f"dnc4 bridge level {i}", name, args, peaks, child,
+                          label="dnc4", check=i >= 2)
+        records[f"{name} level {i}"] = rec
+        paths.append((name, f"dnc4 bridge level {i}", paths_mh[i], rec))
+        name = "K4" if i < 2 else "K4g"
+        path = f"dnc4 bridge level {i} under MALA"
+        if ("mala", True, h, w, M) not in mala_first:
+            # the MALA run's bridge reached temperature 1 in its first step
+            # here and launched nothing: MALA at the MH run's first launch
+            mala_first[("mala", True, h, w, M)] = (
+                mala, *mh_first[("mh", True, h, w, M)][1:])
+            path += " (at the MH run's state: no MALA launch there)"
+        args, child = args_of(mala_first, "mala", True, h, w, M)
+        rec = time_launch(path, name, args, peaks, child, label="dnc4",
+                          check=i >= 2)
+        records[f"{name} level {i}"] = rec
+        paths.append((name, f"dnc4 bridge level {i} under MALA",
+                      mala_level[i], rec))
+    args, _ = args_of(mh_first, "mh", False, 8, 8, 8)
+    rec = time_launch("dnc4 tiles", "K1", args, peaks, label="dnc4",
+                      check=False)
+    paths.append(("K1", "dnc4 tiles", launches["MH"]["K1"], rec))
+    args, _ = args_of(mala_first, "mala", False, 8, 8, 8)
+    rec = time_launch("dnc4 tiles under MALA", "K4", args, peaks,
+                      label="dnc4", check=False)
+    paths.append(("K4", "dnc4 tiles under MALA", launches["MALA"]["K4 tile"],
+                  rec))
+    args, _ = args_of(first, "mh", False, 32, 32, 32)
+    rec = time_launch("dnc4 single tile", "K2g", args, peaks, label="dnc4",
+                      check=False)
+    paths.append(("K2g", "dnc4 single tile", launches["single"]["K2g"], rec))
+    args, _ = args_of(first, "mh", False, 32, 32, 32, DNC4_SINGLE_GROUPS)
+    records["K2g single tile"] = time_launch(
+        f"dnc4 single tile's first {DNC4_SINGLE_GROUPS} groups", "K2g",
+        args, peaks, label="dnc4")
+    kernel, ctx, counts, state = first[("mh", False, 32, 32, 32)]
+    records["K4g tile"] = _dnc4_agree(
+        f"the single tile's first {DNC4_SINGLE_GROUPS} groups under MALA "
+        f"(off the path)", "K4g",
+        _groups(_sweep_args(key, mala, ctx, counts, state, mala.num_iters),
+                None, DNC4_SINGLE_GROUPS)[0])
+    records.update({f"off-path {k}": v for k, v in _dnc4_off_path(
+        dev, kernel, mala).items()})
+    print(f"[dnc4] kernel checks in {time.perf_counter() - mark:.1f} s")
+    mark = time.perf_counter()
+
+    # 800 sweeps at level 2 on K3g's first particles
+    kernel, ctx, counts, state = mh_first[("mh", True, 32, 16, 64)]
+    _equilibrium(dev, "dnc4 K3g level 2", kernel,
+                 *_first_particles(ctx, counts, state, DNC4_EQ_PARTICLES))
+    print(f"[dnc4] equilibrium in {time.perf_counter() - mark:.1f} s")
+    return launches, records, paths
+
+
 def _quiet(main, argv):
     """A study's ``main(argv)`` with its printed report swallowed (the
     phase prints its own line); returns what ``main`` returns."""
@@ -4889,7 +5242,7 @@ def main():
 
 
 def _phases(smi, dev, workers):
-    """Phases 2-31 (the module's docstring), then the paths, the kernels
+    """Phases 2-32 (the module's docstring), then the paths, the kernels
     line and the device line."""
     start = time.perf_counter()
     phase_build()
@@ -5000,7 +5353,16 @@ def _phases(smi, dev, workers):
     launches["K1"] += parallel["K1"] + parallel["sampler K1"]
     launches["K3"] += parallel["K3"]
     print(f"[time] parallel in {time.perf_counter() - mark:.1f} s")
-    print(f"[done] phases 2-31 in {time.perf_counter() - start:.1f} s on "
+    mark = time.perf_counter()
+    dnc4, dnc4_records, dnc4_paths = phase_dnc4(dev, peaks)
+    for run in dnc4.values():
+        for kid in ("K1", "K3", "K2g", "K3g"):
+            launches[kid] = launches.get(kid, 0) + run[kid]
+        launches["K4"] += run["K4 tile"] + run["K4 bridge"]
+        launches["K4g"] = (launches.get("K4g", 0) + run["K4g tile"]
+                           + run["K4g bridge"])
+    print(f"[time] dnc4 in {time.perf_counter() - mark:.1f} s")
+    print(f"[done] phases 2-32 in {time.perf_counter() - start:.1f} s on "
           f"{smi}")
     k2 = dict(records["K2 cells"])
     k2["max_abs_err"] = max(k2["max_abs_err"],
@@ -5095,6 +5457,7 @@ def _phases(smi, dev, workers):
            k3_levels[i]) for i, n in enumerate(parallel["bridge levels"])],
         ("K1", "SMCSampler.run(devices=[cuda:0])", parallel["sampler K1"],
          shapes["dnc tile K1"]),
+        *dnc4_paths,
     ])
     print("[paths] not ranked: the committed anchor's 800 x 1 launches "
           "(timed in [anchor], its 30,000-sweep burn-in and 10,000 blocks "
@@ -5107,13 +5470,26 @@ def _phases(smi, dev, workers):
           "size (timed in [m71studies], not run here)")
     print("[done] the kernels line: K2's record at the cells shapes, K3's "
           "at one divideandconquer image's level-0 launch, K4's at the basic "
-          "shapes")
+          "shapes; K2g's at the 32x32 single tile's first "
+          f"{DNC4_SINGLE_GROUPS} groups, K3g's and K4g's at one 32x32 "
+          "image's level-3 launch (max_abs_err: the largest over [dnc4]'s "
+          "checks)")
+    for name in ("K2g", "K3g", "K4g"):
+        records[name] = dict(
+            dnc4_records["K2g single tile" if name == "K2g"
+                         else f"{name} level 3"],
+            max_abs_err=max(r["max_abs_err"] for k, r in dnc4_records.items()
+                            if k.startswith((name, f"off-path {name}"))
+                            and "max_abs_err" in r))
     print(json.dumps({"kernels": [
         _record("mh_sweep", "K1", launches["K1"], records["K1"]),
         _record("mh_sweep_k2", "K2", launches["K2"], k2),
         _record("mh_sweep_k3", "K3", launches["K3"], records["K3"]),
         _record("mala_sweep_k4", "K4", launches["K4"], records["K4"]),
         _record("chain_k5", "K5", launches["K5"], records["K5"]),
+        _record("mh_sweep_k2g", "K2g", launches["K2g"], records["K2g"]),
+        _record("mh_sweep_k3g", "K3g", launches["K3g"], records["K3g"]),
+        _record("mala_sweep_k4g", "K4g", launches["K4g"], records["K4g"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,51 @@
+// Fused single-component Metropolis-Hastings sweep loop for Hopper (sm_90a)
+// on the tile target at any tile shape and slot count (kernel K2g).
+//
+// Replaces the TPU kernel smcdet_tpu/ops/pallas_sweep.py:_make_kernel in its
+// tile-target specializations wherever K1 and K2 (mh_sweep_k2.cu: 8x8 and
+// 16x16 tiles with up to 16 slots) are not built for the shape: the
+// single-tile run of a whole image, such as the 32x32 yardstick of a 4x4
+// tile grid. Every noise, PSF and flux-prior variant of K2. The sweep loop
+// is mh_sweep_generic.cuh's body (its design, shared with K3g), without the
+// child term.
+
+#include "mh_sweep_generic.cuh"
+
+namespace {
+
+using namespace smcdet;
+
+template <int NOISE, int PSF>
+__global__ void __launch_bounds__(kGenericBlock)
+mh_sweep_k2g_kernel(const GenericBuffers B, int N, int M, int H, int W,
+                    int num_iters, const GenericParams Q) {
+  mh_sweep_generic_body<NOISE, PSF, false>(B, N, M, H, W, num_iters, Q);
+}
+
+struct Kernels {
+  template <int NOISE, int PSF>
+  static constexpr auto get() { return mh_sweep_k2g_kernel<NOISE, PSF>; }
+};
+
+}  // namespace
+
+// Launch K2g on `stream`. Tensors are contiguous: image [G, H*W],
+// temperature [G], counts [G, N] int32, locs [G, N, M, 2], fluxes [G, N, M],
+// rate [G, N, H*W], pll / lp / acc [G, N], key int64 [2]; the child buffers
+// and tags are null (child_axis -1). Returns the CUDA error of the launch
+// (0 on success; mh_sweep_generic.cuh: launch_generic_kinds).
+extern "C" int smcdet_mh_sweeps_k2g_launch(
+    const void* key, const void* image, const void* temperature,
+    const void* counts, const void* locs_in, const void* fluxes_in,
+    const void* rate_in, const void* pll_in, const void* lp_in,
+    const void* crate_in, const void* cll_in, const void* tags,
+    void* locs_out, void* fluxes_out, void* rate_out, void* pll_out,
+    void* lp_out, void* acc_out, void* crate_out, void* cll_out, int G,
+    int N, int M, int H, int W, int num_iters, GenericParams params,
+    void* stream) {
+  return launch_generic_kinds<Kernels>(
+      key, image, temperature, counts, locs_in, fluxes_in, rate_in, pll_in,
+      lp_in, crate_in, cll_in, tags, locs_out, fluxes_out, rate_out, pll_out,
+      lp_out, acc_out, crate_out, cll_out, G, N, M, H, W, num_iters, params,
+      false, stream);
+}

@@ -12,9 +12,11 @@ reductions over a dense ``[Th, Tw, C, N]`` membership mask.
 
 The bridge loop runs on the host, one ``(temperature < 1).any()`` read per
 iteration, like ``run_csmc``; its mutation is the tile stage's kernel,
-``SingleComponentMH`` (on a CUDA tensor kernel K3) or ``SingleComponentMALA``
-(kernel K4), then plain-PyTorch relocation and pair-redistribute sweeps,
-as the JAX package runs them outside its Pallas kernel. Each stage runs in
+``SingleComponentMH`` (on a CUDA tensor kernel K3 on a 2x2 grid's joined
+tiles, K3g on the larger joined tiles and slot counts of a bigger grid) or
+``SingleComponentMALA`` (K4, K4g), then plain-PyTorch relocation and
+pair-redistribute sweeps, as the JAX package runs them outside its Pallas
+kernel. Each stage runs in
 a profiler range: ``agg.merge``, ``agg.resample``, ``agg.rerender``,
 ``agg.mutate``, ``agg.relocate``, ``agg.pair``, ``agg.temper``.
 

@@ -189,8 +189,9 @@ class SingleComponentMH:
     """Random-walk single-component Metropolis-Hastings.
 
     ``backend="auto"`` sends CUDA tensors to kernel K1, K2 or, on the
-    aggregation bridge target, K3 (``mh_sweep.sweep_kernel``; raising for a
-    target none covers) and CPU tensors to the plain version;
+    aggregation bridge target, K3, and at any other tile shape or slot
+    count to K2g or K3g (``mh_sweep.sweep_kernel``; raising for a target
+    none covers) and CPU tensors to the plain version;
     ``backend="torch"`` always runs the plain version, which is how the
     kernel is compared with it on the card. ``sqjumpdist_tol`` stops a
     mutation's sweeps early (``early_stop_sweeps``): one launch a sweep.
@@ -369,8 +370,8 @@ class SingleComponentMALA:
     of the summed slot target, as the reference takes ``jax.grad``. It runs
     on any device and is the reference for the statistics.
     ``run_from_state`` runs the fused loop with the closed-form gradient:
-    ``backend="auto"`` sends CUDA tensors to kernel K4
-    (``ops/mala_sweep.py``, raising for a shape K4 is not built for) and CPU
+    ``backend="auto"`` sends CUDA tensors to kernel K4, or K4g at a shape
+    K4 is not built for (``ops/mala_sweep.py:mala_kernel``), and CPU
     tensors to its plain version; ``backend="torch"`` always runs the plain
     version.
     """

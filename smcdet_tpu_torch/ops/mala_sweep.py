@@ -3,9 +3,12 @@ version.
 
 ``mala_sweeps`` runs ``num_iters`` MALA sweeps over a batch of particles, on
 the tile target or, with a ``ChildTerm``, the aggregation bridge's. On a
-CUDA tensor it launches K4 (``csrc/mala_sweep_k4.cu``), which replaces
-``smcdet_tpu/ops/pallas_sweep.py:_make_mala_kernel``; ``mala_kernel`` names
-the shapes it is built for and raises for any other. On a CPU tensor it runs
+CUDA tensor it launches K4 (``csrc/mala_sweep_k4.cu``) on the shapes of K2
+and K3, and K4g (``csrc/mala_sweep_k4g.cu``: one warp per particle, any
+shape and slot count up to what a block's shared memory holds) on every
+other; together they replace
+``smcdet_tpu/ops/pallas_sweep.py:_make_mala_kernel``. ``mala_kernel`` names
+the kernel and raises above the shared-memory limit. On a CPU tensor it runs
 the plain PyTorch version, ``mala_sweeps_reference``. There is no fallback
 from one to the other.
 
@@ -26,8 +29,9 @@ zero gradient, as for ``torch.autograd``.
 Both versions draw the stream of K1-K3 (``mh_sweep.philox_uniforms``): draw
 0 gives the slot, y, x and flux uniforms, draw 1 the accept uniform. Layouts
 are those of ``mh_sweep``. MALA's drift amplifies a last-bit difference
-over the sweeps, so the plain version follows K4 operation by operation:
-it sums the pixels in K4's lane order (``lane_sum`` with ``K4_LANES``),
+over the sweeps, so the plain version follows K4 (and K4g) operation by
+operation: it sums the pixels in the kernel's lane order (``lane_sum`` with
+``K4_LANES``, or ``GENERIC_LANES`` where K4g runs),
 works out K4's reciprocals (the PSF's widths and normalisers, and one
 reciprocal of the variance or rate per pixel and point that the likelihood
 and its derivative share: ``psf_and_deriv``, ``noise_recip``,
@@ -53,11 +57,11 @@ from smcdet_tpu_torch.models.priors import NormalFlux, ParetoFlux
 from smcdet_tpu_torch.models.psf import SDSSPSF
 from smcdet_tpu_torch.ops import mh_sweep
 from smcdet_tpu_torch.ops.mh_sweep import (
-    K2_MAX_SLOTS,
-    K2_TILES,
-    K3_TILES,
+    GENERIC_LANES,
     ChildTerm,
     flux_prior_delta,
+    generic_lanes,
+    lane_sum,
     location_window,
     select_slot,
     side_window,
@@ -91,11 +95,13 @@ K4_LANES = {((8, 8), False): 4, ((16, 16), False): 16,
             ((16, 8), True): 16, ((16, 16), True): 32}
 
 
-def k4_lanes(model, bridge: bool):
-    """K4's lanes per particle on ``model``'s tile (the tile target, or with
-    ``bridge`` the aggregation bridge's), None where K4 is not built for
-    it."""
-    return K4_LANES.get(((model.height, model.width), bridge))
+def k4_lanes(model, bridge: bool, M: int):
+    """The lanes per particle of the kernel that runs ``model``'s tile with
+    ``M`` slots (the tile target, or with ``bridge`` the aggregation
+    bridge's): ``GENERIC_LANES`` where K4g runs it, else K4's."""
+    if generic_lanes(model, M, bridge):
+        return GENERIC_LANES
+    return K4_LANES[((model.height, model.width), bridge)]
 
 
 def psf_and_deriv(model, loc):
@@ -206,36 +212,17 @@ def flux_log_prob_grad(prior, f):
                               f"{type(flux).__name__}")
 
 
-def lane_sum(x, lanes=None):
-    """Sum over the trailing pixel axis in K4's order with ``lanes`` lanes
-    per particle (``k4_lanes``): lane ``l`` adds pixels ``l, l + L, ...``
-    in turn, then the lanes add up pairwise as K4's ``__shfl_xor_sync``
-    butterfly does (lane ``l`` with ``l + L / 2``, then ``l + L / 4``, ...).
-    The same order gives the kernel's bits where the terms agree. Without
-    ``lanes`` (a tile K4 is not built for) it sums with ``.sum(-1)``."""
-    HW = x.shape[-1]
-    if lanes is None or HW % lanes:
-        return x.sum(-1)
-    parts = x.unflatten(-1, (HW // lanes, lanes))
-    acc = parts[..., 0, :]
-    for k in range(1, HW // lanes):
-        acc = acc + parts[..., k, :]
-    while acc.shape[-1] > 1:
-        half = acc.shape[-1] // 2
-        acc = acc[..., :half] + acc[..., half:]
-    return acc[..., 0]
-
-
 def slot_gradient(prior, model, image_flat, temperature, active, f, render,
-                  rate, child_rate=None, window=None):
+                  rate, M, child_rate=None, window=None):
     """Closed-form gradient of the tempered slot target at the star
     ``render = psf_and_deriv(model, loc)`` with flux ``f [..., N]``, given
-    the full rate cache ``rate`` (and on the bridge the child rate and the
-    star's child window): ``(grad_loc [..., N, 2], grad_f [..., N])``, 0
+    the full rate cache ``rate`` of a particle with ``M`` slots (and on the
+    bridge the child rate and the star's child window), its pixels summed
+    in the order of the kernel ``k4_lanes`` names: ``(grad_loc [..., N, 2], grad_f [..., N])``, 0
     for an inactive particle but for its flux-prior term."""
     psi, dpsi, dy, dx = render
     tau = temperature[..., None]
-    lanes = k4_lanes(model, child_rate is not None)
+    lanes = k4_lanes(model, child_rate is not None, M)
     g = tau * dll_drate(model, image_flat, rate)
     if child_rate is not None:
         g = g + (1.0 - tau) * dll_drate(model, image_flat, child_rate) * window
@@ -292,7 +279,8 @@ def mala_proposal(u_j, u_loc, u_f, *, prior, model, proposal, image_flat,
     aeff = torch.where(active, model.adu_per_nmgy, 0.0)[..., None]
     tau = temperature
     args = (prior, model, image_flat, tau, active)
-    lanes = k4_lanes(model, child is not None)
+    M = fluxes.shape[-1]
+    lanes = k4_lanes(model, child is not None, M)
 
     w_old = w_new = None
     if child is not None:
@@ -305,7 +293,7 @@ def mala_proposal(u_j, u_loc, u_f, *, prior, model, proposal, image_flat,
     # the forward drift at the current point (the cached rates)
     old = psf_and_deriv(model, loc_j)
     rate_wo = rate - (aeff * f_safe[..., None]) * old[0]
-    gl, gf = slot_gradient(*args, f_safe, old, rate,
+    gl, gf = slot_gradient(*args, f_safe, old, rate, M,
                            None if child is None else child.rate, w_old)
     half_ls2 = 0.5 * p.locs_stdev * p.locs_stdev
     half_fs2 = 0.5 * p.fluxes_stdev * p.fluxes_stdev
@@ -332,7 +320,7 @@ def mala_proposal(u_j, u_loc, u_f, *, prior, model, proposal, image_flat,
                             lanes)
         log_target_old = log_target_old + (1.0 - tau) * child.ll
         log_target_new = log_target_new + (1.0 - tau) * cll_prop
-    gl_r, gf_r = slot_gradient(*args, f_prop, new, rate_prop, crate_prop,
+    gl_r, gf_r = slot_gradient(*args, f_prop, new, rate_prop, M, crate_prop,
                                w_new)
     mu_loc_r = loc_prop + half_ls2 * gl_r
     mu_f_r = f_prop + half_fs2 * gf_r
@@ -420,28 +408,22 @@ def mala_sweeps_reference(key, proposal, prior, model, image, temperature,
 
 
 def mala_kernel(prior, model, M: int, child: bool = False) -> str:
-    """``"K4"`` where K4 is built for the target: the tile target on K2's
-    tiles (8x8 and 16x16 with 1..16 slots), the aggregation bridge
-    (``child``) on K3's joined tiles (16x8 with 1..16 slots, 16x16 with
-    1..32), every noise, PSF and flux prior of K2. Raises
-    ``NotImplementedError`` naming what is missing otherwise."""
-    shape = (model.height, model.width)
-    if child:
-        if not 1 <= M <= K3_TILES.get(shape, 0):
-            raise NotImplementedError(
-                f"no CUDA MALA bridge kernel for {shape[0]}x{shape[1]} "
-                f"tiles with M={M}: K4 is built for "
-                + " and ".join(f"{h}x{w} with 1..{m} slots"
-                               for (h, w), m in K3_TILES.items()))
-    elif shape not in K2_TILES or not 1 <= M <= K2_MAX_SLOTS:
-        raise NotImplementedError(
-            f"no CUDA MALA kernel for {shape[0]}x{shape[1]} tiles with "
-            f"M={M}: K4 is built for "
-            f"{' and '.join(f'{h}x{w}' for h, w in K2_TILES)} tiles with "
-            f"1..{K2_MAX_SLOTS} slots")
+    """The CUDA kernel that runs this MALA target: ``"K4"`` where K4 is
+    built for it (the tile target on K2's tiles, 8x8 and 16x16 with 1..16
+    slots; the aggregation bridge, ``child``, on K3's joined tiles, 16x8
+    with 1..16 slots and 16x16 with 1..32), ``"K4g"`` at every other shape
+    and slot count; every noise, PSF and flux prior of K2. Raises
+    ``NotImplementedError`` naming what is missing for a PSF or flux prior
+    none covers, and naming the limit where a block needs more shared
+    memory than ``mh_sweep.GENERIC_SMEM_LIMIT``."""
     mh_sweep._check_target(prior, model, isinstance(
         prior.flux, (TruncatedPareto, ParetoFlux)))
-    return "K4"
+    shape = (model.height, model.width)
+    if mh_sweep._fixed_shape(shape, M, child):
+        return "K4"
+    mh_sweep._check_generic(shape, M, "MALA bridge kernel" if child
+                            else "MALA kernel")
+    return "K4g"
 
 
 def mala_sweeps(key, proposal, prior, model, image, temperature, counts,
@@ -450,24 +432,27 @@ def mala_sweeps(key, proposal, prior, model, image, temperature, counts,
     """Run ``num_iters`` fused MALA sweeps; returns ``(locs, fluxes, rate,
     pll, lp, acc)``, and with ``child`` also ``(child_rate, cll)`` (the
     outputs of ``pallas_mala_sweeps``). CPU tensors take the plain version;
-    CUDA tensors launch K4 on the current stream, without synchronising, or
-    raise ``NotImplementedError`` for a shape K4 is not built for.
-    ``mala_sweeps.launches`` counts the tile-target launches,
-    ``.bridge_launches`` the bridge's."""
+    CUDA tensors launch the kernel ``mala_kernel`` names (K4 or K4g) on the
+    current stream, without synchronising, or raise
+    ``NotImplementedError``. ``mala_sweeps.launches`` counts K4's
+    tile-target launches, ``.bridge_launches`` K4's bridge launches,
+    ``.k4g_launches`` and ``.k4g_bridge_launches`` K4g's."""
     if not locs.is_cuda:
         return mala_sweeps_reference(key, proposal, prior, model, image,
                                      temperature, counts, locs, fluxes, rate,
                                      pll, lp, num_iters, child)
-    mala_kernel(prior, model, fluxes.shape[-1], child=child is not None)
-    outs = mh_sweep.launch("K4", key, proposal, prior, model, image,
+    name = mala_kernel(prior, model, fluxes.shape[-1],
+                       child=child is not None)
+    outs = mh_sweep.launch(name, key, proposal, prior, model, image,
                            temperature, counts, locs, fluxes, rate, pll, lp,
                            num_iters, child)
-    if child is None:
-        mala_sweeps.launches += 1
-    else:
-        mala_sweeps.bridge_launches += 1
+    counter = ("" if name == "K4" else "k4g_") + (
+        "launches" if child is None else "bridge_launches")
+    setattr(mala_sweeps, counter, getattr(mala_sweeps, counter) + 1)
     return outs
 
 
 mala_sweeps.launches = 0
 mala_sweeps.bridge_launches = 0
+mala_sweeps.k4g_launches = 0
+mala_sweeps.k4g_bridge_launches = 0

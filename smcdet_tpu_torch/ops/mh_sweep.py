@@ -2,17 +2,22 @@
 its plain version.
 
 ``mh_sweeps`` runs ``num_iters`` MH sweeps over a batch of particles. On a
-CUDA tensor it launches one of three hand-written kernels, which together
+CUDA tensor it launches one of five hand-written kernels, which together
 replace ``smcdet_tpu/ops/pallas_sweep.py:_make_kernel``: K1 (the M71
 main path: Gaussian noise, SDSS beta = 3, 8x8) or K2 (every other tile
-target on 8x8 and 16x16 tiles), both ``csrc/mh_sweep_k2.cu``'s lane-group
-kernel through its one entry point, K1 its instantiation for that one kind
-with launches counted apart; or K3 (``csrc/mh_sweep_k3.cu``, the
-aggregation bridge target with its child term, on the joined 16x8 and 16x16
-tiles);
-``sweep_kernel`` picks one or raises. On a CPU tensor it runs the plain
-PyTorch version, ``mh_sweeps_reference``. There is no fallback from one to
-the other.
+target on 8x8 and 16x16 tiles with up to 16 slots), both
+``csrc/mh_sweep_k2.cu``'s lane-group kernel through its one entry point, K1
+its instantiation for that one kind with launches counted apart; K3
+(``csrc/mh_sweep_k3.cu``, the aggregation bridge target with its child
+term, on the joined 16x8 and 16x16 tiles of a 2x2 grid); or, at every other
+shape and slot count, K2g (``csrc/mh_sweep_k2g.cu``, the tile target) and
+K3g (``csrc/mh_sweep_k3g.cu``, the bridge), one warp per particle at any
+H, W and M up to what a block's shared memory holds
+(``generic_smem_bytes``). ``sweep_kernel`` picks one or raises. On a CPU
+tensor it runs the plain PyTorch version, ``mh_sweeps_reference``, which
+sums a particle's pixels in K2g's and K3g's order at their shapes
+(``lane_sum`` with ``GENERIC_LANES``). There is no fallback from one to the
+other.
 
 Both versions draw the same random stream: Philox4x32-10 with a 64-bit key
 drawn once per call and the counter ``(particle, sweep, draw,
@@ -27,7 +32,8 @@ Layouts (flattened groups ``G`` = tiles x strata): ``image [G, H*W]``,
 ``key`` int64 ``[2]`` holding two 32-bit words. The bridge target adds
 ``ChildTerm``: the child rate ``[G, N, H*W]``, the child log-likelihood
 ``[G, N]`` and the slot origin tags ``[G, N, M]`` (or none, for the side of
-the star's location).
+the star's location); K3 takes the tags as one 64-bit mask per particle
+(``tag_bits``), K3g and K4g as one byte per slot.
 """
 
 from __future__ import annotations
@@ -48,10 +54,14 @@ from smcdet_tpu_torch.models.priors import NormalFlux, ParetoFlux
 from smcdet_tpu_torch.models.psf import SDSSPSF, GaussianPSF
 
 __all__ = [
+    "GENERIC_LANES",
+    "GENERIC_SMEM_LIMIT",
     "ChildTerm",
     "MHProposal",
     "even_pixels",
     "flux_prior_delta",
+    "generic_smem_bytes",
+    "lane_sum",
     "launch",
     "location_window",
     "mh_sweeps",
@@ -188,6 +198,30 @@ def select_slot(u_j, counts, locs, fluxes):
             torch.where(active, f_j, 0.0))
 
 
+def lane_sum(x, lanes=None):
+    """Sum over the trailing pixel axis in a kernel's order with ``lanes``
+    lanes per particle: lane ``l`` adds pixels ``l, l + L, ...`` in turn,
+    then the lanes add up pairwise as a ``__shfl_xor_sync`` butterfly does
+    (lane ``l`` with ``l + L / 2``, then ``l + L / 4``, ...). A pixel count
+    that ``lanes`` does not divide is padded with zeros, which leave every
+    partial sum as it is. The same order gives the kernel's bits where the
+    terms agree. Without ``lanes`` it sums with ``.sum(-1)``."""
+    if lanes is None:
+        return x.sum(-1)
+    HW = x.shape[-1]
+    pad = -HW % lanes
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    parts = x.unflatten(-1, ((HW + pad) // lanes, lanes))
+    acc = parts[..., 0, :]
+    for k in range(1, parts.shape[-2]):
+        acc = acc + parts[..., k, :]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+
+
 def flux_prior_delta(prior, active, f_old, f_new):
     """Flux-prior log-density change of the moved slot (0 where inactive)."""
     if prior.flux is None:
@@ -213,9 +247,12 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
     ``u_j``/``u_f``/``u_acc`` are ``[..., N]``, ``u_loc`` ``[..., N, 2]``;
     ``image_flat`` and ``temperature`` broadcast against ``[..., N, H*W]``
     and ``[..., N]``. Returns ``(locs, fluxes, rate, pll, lp, applied)``,
-    and with ``child`` also ``(child_rate, cll)``.
+    and with ``child`` also ``(child_rate, cll)``. The pixels are summed in
+    the order of the kernel that runs the target on the card: ``lane_sum``
+    with ``GENERIC_LANES`` where that is K2g or K3g.
     """
     onehot, active, loc_j, f_j = select_slot(u_j, counts, locs, fluxes)
+    lanes = generic_lanes(model, fluxes.shape[-1], child is not None)
 
     lo, hi = prior.loc_low, prior.loc_high
     p = proposal
@@ -228,7 +265,7 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
     a = active[..., None]
     d = model.adu_per_nmgy * (f_prop[..., None] * new - f_j[..., None] * old)
     rate_prop = rate + torch.where(a, d, 0.0)
-    pll_prop = model.loglikelihood_from_rate_flat(image_flat, rate_prop)
+    pll_prop = lane_sum(model.pixel_loglik(image_flat, rate_prop), lanes)
     lp_prop = lp + flux_prior_delta(prior, active, f_j, f_prop)
 
     log_target_old = lp + temperature * pll
@@ -244,7 +281,8 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
         dc = model.adu_per_nmgy * (f_prop[..., None] * (new * w_new)
                                    - f_j[..., None] * (old * w_old))
         crate_prop = child.rate + torch.where(a, dc, 0.0)
-        cll_prop = model.loglikelihood_from_rate_flat(image_flat, crate_prop)
+        cll_prop = lane_sum(model.pixel_loglik(image_flat, crate_prop),
+                            lanes)
         log_target_old = log_target_old + (1.0 - temperature) * child.ll
         log_target_new = log_target_new + (1.0 - temperature) * cll_prop
     log_q = (
@@ -275,8 +313,9 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
 def mh_sweeps_reference(key, proposal, prior, model, image, temperature,
                         counts, locs, fluxes, rate, pll, lp, num_iters: int,
                         child: ChildTerm | None = None):
-    """Plain PyTorch version of K1, K2 and K3 for any target the eager
-    model supports: ``num_iters`` sweeps over the kernels' random stream.
+    """Plain PyTorch version of K1, K2, K3, K2g and K3g for any target the
+    eager model supports: ``num_iters`` sweeps over the kernels' random
+    stream.
     Returns ``(locs, fluxes, rate, pll, lp, acc)`` with ``acc`` the applied
     fraction per particle, and with ``child`` also ``(child_rate, cll)``."""
     return sweeps_on_stream(sweep_with_uniforms, key, proposal, prior, model,
@@ -331,6 +370,50 @@ K2_MAX_SLOTS = 16
 # K3's joined tiles and the most slots each is built for
 # (csrc/mh_sweep_k3.cu): the two levels of a 2x2 tile grid of 8x8 tiles
 K3_TILES = {(16, 8): 16, (16, 16): 32}
+# K2g, K3g and K4g (csrc/mh_sweep_generic.cuh): one warp per particle, and a
+# block's 8 particles' catalogs beside the image and lgamma(image + 1) in
+# dynamic shared memory, which holds at most 227 KB a block on the H100
+GENERIC_LANES = 32
+GENERIC_PARTICLES_PER_BLOCK = 8
+GENERIC_SMEM_LIMIT = 227 * 1024
+
+
+def generic_smem_bytes(height: int, width: int, M: int) -> int:
+    """The dynamic shared memory of one block of K2g, K3g or K4g: the image
+    and lgamma(image + 1) (``2 H W`` floats) and 8 particles' catalogs
+    (``3 M`` floats each)."""
+    return 4 * (2 * height * width + GENERIC_PARTICLES_PER_BLOCK * 3 * M)
+
+
+def _fixed_shape(shape, M: int, child: bool) -> bool:
+    """Whether K1/K2 (the tile target) or K3 (the bridge) is built for the
+    tile ``shape`` with ``M`` slots."""
+    if child:
+        return 1 <= M <= K3_TILES.get(shape, 0)
+    return shape in K2_TILES and 1 <= M <= K2_MAX_SLOTS
+
+
+def _check_generic(shape, M: int, what: str):
+    """Raise for a shape K2g, K3g and K4g cannot run: no slot, or more
+    shared memory a block than the card has."""
+    if M < 1:
+        raise NotImplementedError(f"no CUDA {what} for M={M}: a particle "
+                                  f"needs at least one slot")
+    need = generic_smem_bytes(*shape, M)
+    if need > GENERIC_SMEM_LIMIT:
+        raise NotImplementedError(
+            f"no CUDA {what} for {shape[0]}x{shape[1]} tiles with M={M}: "
+            f"one block's image and catalogs take {need} bytes of shared "
+            f"memory, above the {GENERIC_SMEM_LIMIT}-byte limit "
+            f"(GENERIC_SMEM_LIMIT, 227 KB a block on the H100)")
+
+
+def generic_lanes(model, M: int, child: bool = False):
+    """``GENERIC_LANES`` where K2g or K3g runs the target (the order the
+    plain version sums a particle's pixels in), None where K1, K2 or K3
+    does."""
+    fixed = _fixed_shape((model.height, model.width), M, child)
+    return None if fixed else GENERIC_LANES
 
 
 class _K2Params(ctypes.Structure):
@@ -339,6 +422,8 @@ class _K2Params(ctypes.Structure):
 
 
 class _K3Params(ctypes.Structure):
+    """K3's parameters; also K4's, K2g's, K3g's and K4g's (their
+    ``GenericParams``), with ``child_axis`` -1 on the tile target."""
     _fields_ = [("base", _K2Params), ("boundary", ctypes.c_float),
                 ("child_axis", ctypes.c_int), ("side_from_tag", ctypes.c_int)]
 
@@ -358,28 +443,22 @@ def sweep_kernel(prior, model, M: int, child: bool = False) -> str:
     """The CUDA kernel that runs this target: ``"K1"`` (Gaussian noise,
     SDSS beta = 3, 8x8, 1..16 slots: the M71 main path, whatever its flux
     prior), ``"K2"`` (every other noise, PSF and flux prior on 8x8 or 16x16
-    tiles with 1..16 slots) or,
-    for the aggregation bridge (``child``), ``"K3"`` (the joined 16x8 tile
-    with 1..16 slots and 16x16 with 1..32). Raises ``NotImplementedError``
-    naming what is missing for a target none covers."""
+    tiles with 1..16 slots), for the aggregation bridge (``child``)
+    ``"K3"`` (the joined 16x8 tile with 1..16 slots and 16x16 with 1..32),
+    and at every other shape and slot count ``"K2g"`` (the tile target) or
+    ``"K3g"`` (the bridge). Raises ``NotImplementedError`` naming what is
+    missing for a PSF or flux prior none covers, and naming the limit for a
+    shape whose block needs more shared memory than ``GENERIC_SMEM_LIMIT``
+    (``generic_smem_bytes``)."""
     pareto = isinstance(prior.flux, (TruncatedPareto, ParetoFlux))
     shape = (model.height, model.width)
-    if child:
-        if M < 1 or M > K3_TILES.get(shape, 0):
-            raise NotImplementedError(
-                f"no CUDA bridge sweep kernel for {shape[0]}x{shape[1]} "
-                f"tiles with M={M}: K3 is built for "
-                + " and ".join(f"{h}x{w} with 1..{m} slots"
-                               for (h, w), m in K3_TILES.items()))
-        _check_target(prior, model, pareto)
-        return "K3"
-    if shape not in K2_TILES or not 1 <= M <= K2_MAX_SLOTS:
-        raise NotImplementedError(
-            f"no CUDA sweep kernel for {shape[0]}x{shape[1]} tiles "
-            f"with M={M}: K2 is built for "
-            f"{' and '.join(f'{h}x{w}' for h, w in K2_TILES)} tiles with "
-            f"1..{K2_MAX_SLOTS} slots")
     _check_target(prior, model, pareto)
+    if not _fixed_shape(shape, M, child):
+        _check_generic(shape, M, "bridge sweep kernel" if child
+                       else "sweep kernel")
+        return "K3g" if child else "K2g"
+    if child:
+        return "K3"
     if (model.noise == "gaussian" and isinstance(model.psf, SDSSPSF)
             and model.psf.wing_beta3 and shape == (8, 8)):
         return "K1"
@@ -438,8 +517,8 @@ def _k2_params(proposal, prior, model) -> _K2Params:
 
 
 def _k3_params(proposal, prior, model, child) -> _K3Params:
-    """The bridge's parameters; without ``child`` (K4's tile target)
-    ``child_axis`` is -1."""
+    """The bridge's parameters; without ``child`` (the tile target of K4,
+    K2g and K4g) ``child_axis`` is -1."""
     if child is None:
         return _K3Params(_k2_params(proposal, prior, model), 0.0, -1, 0)
     return _K3Params(_k2_params(proposal, prior, model),
@@ -450,9 +529,14 @@ def _k3_params(proposal, prior, model, child) -> _K3Params:
 _ENTRY_POINTS = {"K1": "smcdet_mh_sweeps_k2_launch",
                  "K2": "smcdet_mh_sweeps_k2_launch",
                  "K3": "smcdet_mh_sweeps_k3_launch",
-                 "K4": "smcdet_mala_sweeps_k4_launch"}
+                 "K4": "smcdet_mala_sweeps_k4_launch",
+                 "K2g": "smcdet_mh_sweeps_k2g_launch",
+                 "K3g": "smcdet_mh_sweeps_k3g_launch",
+                 "K4g": "smcdet_mala_sweeps_k4g_launch"}
 _PARAMS = {"K1": (_K2Params, 15), "K2": (_K2Params, 15),
-           "K3": (_K3Params, 20), "K4": (_K3Params, 20)}
+           **{k: (_K3Params, 20) for k in ("K3", "K4", "K2g", "K3g", "K4g")}}
+# the kernels whose tile target takes the bridge's buffers as null pointers
+_TWENTY_BUFFERS = ("K4", "K2g", "K4g")
 
 
 def _entry(name: str):
@@ -481,7 +565,8 @@ def _check(name, t, shape, dtype, device):
 
 def tag_bits(slot_side):
     """Origin tags ``[G, N, M]`` (M <= 32) as one int64 bit mask per
-    particle, bit ``m`` set where slot ``m`` came from the even child."""
+    particle, bit ``m`` set where slot ``m`` came from the even child (K3's
+    and K4's input; K3g and K4g take one byte per slot)."""
     M = slot_side.shape[-1]
     weights = torch.ones((), dtype=torch.int64, device=slot_side.device) \
         << torch.arange(M, device=slot_side.device)
@@ -495,10 +580,11 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
     pll, lp, acc)``, and with ``child`` also ``(child_rate, cll)`` (the
     outputs of ``pallas_mh_sweeps``).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``sweep_kernel`` names (K1, K2, or K3 with ``child``) on the current
-    stream, without synchronising, or raise ``NotImplementedError`` for a
-    target none covers. ``mh_sweeps.launches``, ``.k2_launches`` and
-    ``.k3_launches`` count the launches of each."""
+    ``sweep_kernel`` names (K1, K2 or K2g, or with ``child`` K3 or K3g) on
+    the current stream, without synchronising, or raise
+    ``NotImplementedError`` for a target none covers.
+    ``mh_sweeps.launches`` (K1), ``.k2_launches``, ``.k3_launches``,
+    ``.k2g_launches`` and ``.k3g_launches`` count the launches of each."""
     if not locs.is_cuda:
         return mh_sweeps_reference(key, proposal, prior, model, image,
                                    temperature, counts, locs, fluxes, rate,
@@ -507,27 +593,26 @@ def mh_sweeps(key, proposal, prior, model, image, temperature, counts, locs,
                         child=child is not None)
     outs = launch(name, key, proposal, prior, model, image, temperature,
                   counts, locs, fluxes, rate, pll, lp, num_iters, child)
-    if name == "K1":
-        mh_sweeps.launches += 1
-    elif name == "K2":
-        mh_sweeps.k2_launches += 1
-    else:
-        mh_sweeps.k3_launches += 1
+    counter = "launches" if name == "K1" else f"{name.lower()}_launches"
+    setattr(mh_sweeps, counter, getattr(mh_sweeps, counter) + 1)
     return outs
 
 
 mh_sweeps.launches = 0
 mh_sweeps.k2_launches = 0
 mh_sweeps.k3_launches = 0
+mh_sweeps.k2g_launches = 0
+mh_sweeps.k3g_launches = 0
 
 
 def launch(name, key, proposal, prior, model, image, temperature, counts,
            locs, fluxes, rate, pll, lp, num_iters: int,
            child: ChildTerm | None = None):
-    """Launch sweep kernel ``name`` ("K1" to "K4") on CUDA tensors on the
-    current stream, without synchronising, after checking every input;
-    returns the outputs of ``mh_sweeps``. ``proposal`` carries the
-    proposal scales (for K4, MALA's step sizes)."""
+    """Launch sweep kernel ``name`` ("K1" to "K4", "K2g", "K3g", "K4g") on
+    CUDA tensors on the current stream, without synchronising, after
+    checking every input; returns the outputs of ``mh_sweeps``.
+    ``proposal`` carries the proposal scales (for K4 and K4g, MALA's step
+    sizes)."""
     G, N, M = fluxes.shape
     if num_iters < 1:
         raise ValueError("num_iters must be positive")
@@ -552,16 +637,17 @@ def launch(name, key, proposal, prior, model, image, temperature, counts,
         tags = None
         if child.slot_side is not None:
             _check("slot_side", child.slot_side, (G, N, M), f32, dev)
-            tags = tag_bits(child.slot_side)
+            tags = (tag_bits(child.slot_side) if name in ("K3", "K4")
+                    else (child.slot_side > 0.5).to(torch.uint8))
         ins += [child.rate, child.ll, tags]
         child_outs = [torch.empty_like(child.rate),
                       torch.empty_like(child.ll)]
         bufs = ins + outs + child_outs
-    elif name == "K4":  # the tile target: no child buffers
+    elif name in _TWENTY_BUFFERS:  # the tile target: no child buffers
         bufs = ins + [None] * 3 + outs + [None] * 2
     else:
         bufs = ins + outs
-    if name in ("K3", "K4"):
+    if _PARAMS[name][0] is _K3Params:
         params = _k3_params(proposal, prior, model, child)
     else:
         params = _k2_params(proposal, prior, model)

@@ -11,7 +11,9 @@ on the whole 16x16 image. Run both pipelines over the same tiles first:
     python -m smcdet_tpu_torch.run_experiment experiments/divideandconquer \\
         --config config_singletile.yaml
 
-(the single-tile config reads ``output/divideandconquer/tiles.npz``). From
+(the single-tile config reads ``output/divideandconquer/tiles.npz``;
+``--config`` names another tree config, such as the 32x32 one
+``studies/dnc_grid.py`` writes, whose ``output_dir`` holds both runs). From
 ``output/divideandconquer`` and ``output/divideandconquer_singletile`` (the
 port's ``load_results``; either package's batch files) it writes
 ``output/divideandconquer/singletile_comparison.json`` with the JAX
@@ -63,9 +65,14 @@ def main(argv=None):
         prog="python -m smcdet_tpu_torch.studies.compare_singletile",
         description="Count-pmf agreement of the divide-and-conquer and "
                     "single-tile runs over the same images.")
-    parser.parse_args(argv)
-    cfg = load_config(REPO / "experiments" / "divideandconquer"
-                      / "config.yaml")
+    parser.add_argument(
+        "--config", default=str(REPO / "experiments" / "divideandconquer"
+                                / "config.yaml"),
+        help="the tree's config, whose output_dir holds both runs (default "
+             "the committed suite's; smcdet_tpu_torch.studies.dnc_grid "
+             "writes one for a larger image)")
+    args = parser.parse_args(argv)
+    cfg = load_config(args.config)
     out_dc = Path(cfg.output_dir) / "divideandconquer"
     out_st = Path(cfg.output_dir) / "divideandconquer_singletile"
     report = singletile_report(load_results(out_dc, "smc"),

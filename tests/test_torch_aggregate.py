@@ -224,6 +224,55 @@ def test_merge_matches_jax(axis):
     np.testing.assert_array_equal(pm.weights.numpy(), np.asarray(jm.weights))
 
 
+@functools.cache
+def _merged_4x4(level):
+    """JAX's merge at level 2 (axis 0: the 2x2 grid of 16x16 tiles, 32
+    slots, into 32x16 tiles with 64) or 3 (axis 1: the 1x2 grid of 32x16
+    tiles into the 32x32 image with 128 slots) of a 4x4 grid of 8x8
+    tiles."""
+    _, model, _ = _jax_setup()
+    axis, dims, M = {2: (0, (2, 2, 16, 16), 32), 3: (1, (1, 2, 32, 16), 64)}[
+        level]
+    js = _grid_state(*dims, N=24, M=M, seed=10 + level)
+    model_new = model.replace(height=32, width=16 if level == 2 else 32)
+    cfg = jagg.AggregateConfig(resample_method="multinomial")
+    key = jax.random.key(7 + level)
+    merged = jax.jit(lambda k, s: jagg._merge(
+        k, s, axis, dims, 2 * M, cfg, model_new=model_new))(key, js)
+    idx = jagg.resample_indices(key, js.weights, js.counts.shape[-1],
+                                "multinomial")
+    return js, axis, dims, M, model_new, idx, merged
+
+
+@pytest.mark.parametrize("level", [2, 3])
+def test_merge_matches_jax_at_the_upper_levels_of_a_4x4_grid(level):
+    """Levels 2 and 3 of a 4x4 grid, given JAX's resample indices: the
+    joined data, counts, catalogs, origin tags (one per slot, past the 32
+    a bit mask holds) and normalising constants equal JAX's; the ghost
+    rate to rtol 1e-5 (f32 renders summed in the same order)."""
+    js, axis, dims, M, jmodel_new, idx, (jm, jside, jghost) = _merged_4x4(
+        level)
+    model_new = port_model(jmodel_new)
+    cfg = tagg.AggregateConfig(resample_method="multinomial")
+    pm, pside, pghost = tagg._merge(None, _to_port_state(js), axis, dims,
+                                    2 * M, cfg, model_new,
+                                    idx=t(idx, torch.int64))
+    assert pm.locs.shape[-2] == pside.shape[-1] == 2 * M
+    assert int(np.asarray(jm.counts).max()) > 32  # tags past a 32-bit mask
+    # level 3's even member holds up to 64 stars: even tags past slot 32
+    assert float(np.asarray(jside)[..., 32:].max()) == float(level == 3)
+    for name in ("data", "counts", "locs", "fluxes"):
+        np.testing.assert_array_equal(getattr(pm, name).numpy(),
+                                      np.asarray(getattr(jm, name)), name)
+    np.testing.assert_array_equal(pside.numpy(), np.asarray(jside))
+    assert float(np.abs(np.asarray(jghost)).max()) > 0.0  # stars dropped
+    np.testing.assert_allclose(pghost.numpy(), np.asarray(jghost), rtol=RTOL,
+                               atol=1e-3)
+    np.testing.assert_allclose(pm.log_z.numpy(), np.asarray(jm.log_z),
+                               rtol=RTOL)
+    np.testing.assert_array_equal(pm.weights.numpy(), np.asarray(jm.weights))
+
+
 # ----------------------------------------------------------------------
 # _temper_reweight
 # ----------------------------------------------------------------------
@@ -301,7 +350,13 @@ def _bridge(mode, ghost=True, N=64):
 @pytest.mark.parametrize("mode", ["tag", "location"])
 @pytest.mark.parametrize("ghost", [True, False])
 def test_bridge_context_rates_and_logliks_match_jax(mode, ghost):
-    jctx, pctx, counts, locs, fluxes = _bridge(mode, ghost)
+    _check_bridge_context(*_bridge(mode, ghost))
+
+
+def _check_bridge_context(jctx, pctx, counts, locs, fluxes):
+    """The port's bridge context against JAX's on one merged state: the
+    parent and child rates, the log-likelihood terms and the tempered
+    target to rtol 1e-5."""
     jrate, jchild = jax.jit(jctx.init_rates)(locs, fluxes)
     prate, pchild = pctx.init_rates(t(locs), t(fluxes))
     np.testing.assert_allclose(prate.numpy(), np.asarray(jrate), rtol=RTOL)
@@ -317,6 +372,49 @@ def test_bridge_context_rates_and_logliks_match_jax(mode, ghost):
     np.testing.assert_allclose(
         pctx.combine(lp, *pll).numpy(),
         np.asarray(jctx.combine(jnp.asarray(lp.numpy()), *jll)), rtol=RTOL)
+
+
+@functools.cache
+def _bridge_4x4(level, mode):
+    """The bridge problem of level 2 or 3 of a 4x4 grid from JAX's merge
+    (``_merged_4x4``: 64 or 128 slots, its origin tags and ghost rate): the
+    JAX and the port contexts at temperature 0.4, counts, locs and
+    fluxes."""
+    js, axis, dims, M, jmodel_new, idx, (jm, jside, jghost) = _merged_4x4(
+        level)
+    prior, _, _ = _jax_setup()
+    Th, Tw, H, W = dims
+    shape = (Th // 2, Tw, 2 * H, W) if axis == 0 else (Th, Tw // 2, H, 2 * W)
+    bound = H if axis == 0 else W
+    rng = np.random.default_rng(12 + level)
+    image = rng.poisson(160.0, shape).astype(np.float32)
+    temp = np.full(shape[:2] + (1,), 0.4, np.float32)
+    jctx = JaxCtx(prior=jagg.expand_prior(prior, *shape[2:], 2 * M),
+                  model=jmodel_new, image=jnp.asarray(image)[:, :, None],
+                  temperature=jnp.asarray(temp), child_model=jmodel_new,
+                  child_side_mask=jagg._side_mask_fn(axis, bound, *shape[2:]),
+                  child_slot_side=jside if mode == "tag" else None,
+                  child_ghost_rate=jghost)
+    pmodel = port_model(jmodel_new)
+    pctx = TargetContext(
+        tagg.expand_prior(port_prior(prior), *shape[2:], 2 * M), pmodel,
+        t(image)[:, :, None], t(temp), child_model=pmodel,
+        child_side_mask=tagg.SideMask(axis, bound, *shape[2:]),
+        child_slot_side=t(jside) if mode == "tag" else None,
+        child_ghost_rate=t(jghost))
+    return jctx, pctx, jm.counts, jm.locs, jm.fluxes
+
+
+@pytest.mark.parametrize("mode", ["tag", "location"])
+@pytest.mark.parametrize("level", [2, 3])
+def test_bridge_context_at_the_upper_levels_of_a_4x4_grid_matches_jax(
+        level, mode):
+    """The bridge target that levels 2 and 3 of a 4x4 grid build from
+    their merge (origin tags one per slot past 32, the ghost rate of the
+    dropped stars, the seam at row 16 or column 16): the parent and child
+    rates, the log-likelihood terms and the tempered target equal JAX's to
+    rtol 1e-5, elementwise."""
+    _check_bridge_context(*_bridge_4x4(level, mode))
 
 
 def _port_state(js):
@@ -528,6 +626,154 @@ def test_aggregate_count_posterior_matches_jax(aggregated):
     jmean = float(jaggr.posterior_mean_count()[0, 0])
     pmean = float(paggr.posterior_mean_count()[0, 0])
     assert abs(pmean - jmean) <= 0.5, (pmean, jmean)
+
+
+# six stars on a 32x32 image: four bright, and two at the detection
+# threshold (600) on seams, one at row 8 (level 0) and one at row 16
+# (level 2), so that runs differ in the root's pruned count
+TRUE_LOCS_4X4 = np.asarray([[3.0, 3.5], [12.5, 4.0], [8.0, 11.5],
+                            [20.5, 24.0], [27.0, 16.0], [15.8, 29.0]])
+TRUE_FLUXES_4X4 = np.asarray([2000.0, 2200.0, 590.0, 2100.0, 2300.0,
+                              610.0])
+# independent whole-tree runs of the image: the port's and JAX's
+TREE_RUNS_4X4 = (4, 8)
+# the pruned counts a root pmf is kept over
+TREE_COUNTS_4X4 = 12
+
+
+def _tree_grid(sampler, result, copies):
+    """A finished sampler's posterior over ``copies`` 32x32 images stacked
+    on the image's rows, as ``Aggregate.from_smc`` lays it out, with the
+    copies on a leading axis: ``[copies, 4, 4, ...]``."""
+    td, CN = sampler.tile_dim, result.counts.shape[-1]
+    M = result.fluxes.shape[-1]
+    g = (copies, 4, 4)
+    return dict(data=sampler.tiled_image.reshape(g + (td, td)),
+                counts=result.counts.reshape(g + (CN,)),
+                locs=result.locs.reshape(g + (CN, M, 2)),
+                fluxes=result.fluxes.reshape(g + (CN, M)),
+                weights=result.weights.reshape(g + (CN,)),
+                log_z=result.log_normalizing_constant.reshape(g + (-1,)))
+
+
+def _root_pmf(pruned):
+    return np.bincount(pruned, minlength=TREE_COUNTS_4X4)[
+        :TREE_COUNTS_4X4] / pruned.size
+
+
+@pytest.fixture(scope="module")
+def tree_runs_4x4():
+    """``TREE_RUNS_4X4`` independent runs of each package's whole pipeline
+    on the 32x32 image, a 4x4 grid of 8x8 tiles, on the plain path:
+    per-tile CS-SMC with N = 16 and 5 sweeps (every run's 16 tiles in one
+    sampler run, the copies of the image stacked on its rows), then each
+    run's four aggregation levels (16x8, 16x16, 32x16 and 32x32 with 6, 12,
+    24 and 48 slots) and the final resample and prune. The port runs
+    ``Aggregate.run``; JAX runs ``Aggregate.run``'s steps (its
+    ``_run_level`` per level, ``resample_indices``, ``prune_catalog``)
+    under one ``vmap`` over the runs, so that they compile once. Returns
+    the port's aggregations and both packages' root pmfs ``[runs, K]``."""
+    from smcdet_tpu.inference.smc import SMCSampler as JaxSampler
+    from smcdet_tpu.ops.catalogs import prune_catalog, slot_mask
+    from smcdet_tpu.ops.resampling import gather_particles
+    from smcdet_tpu_torch.inference.smc import SMCSampler
+
+    prior, model, kernel = _jax_setup(num_iters=5)
+    image = model.replace(height=32, width=32).sample(
+        jax.random.key(9), jnp.asarray(TRUE_LOCS_4X4, jnp.float32),
+        jnp.asarray(TRUE_FLUXES_4X4, jnp.float32))
+    sampler = dict(_SAMPLER, num_catalogs=16)
+    agg = dict(flux_detection_threshold=600.0, resample_method="systematic",
+               max_smc_iters=60)
+    n_port, n_jax = TREE_RUNS_4X4
+
+    js = JaxSampler(image=jnp.concatenate([image] * n_jax), Prior=prior,
+                    ImageModel=model, MutationKernel=kernel, **sampler)
+    js.run(jax.random.key(1))
+    cfg = jagg.AggregateConfig(**agg)
+
+    def tree(key, state):
+        Th, Tw, H, W = 4, 4, 8, 8
+        temps = []
+        for level in range(4):
+            key, k_level = jax.random.split(key)
+            state, diag = jagg._run_level(k_level, state, prior, model,
+                                          kernel, cfg, level % 2,
+                                          (Th, Tw, H, W))
+            temps.append(diag["temperature"].min())
+            Th, H, Tw, W = ((Th // 2, 2 * H, Tw, W) if level % 2 == 0
+                            else (Th, H, Tw // 2, 2 * W))
+        key, k_final = jax.random.split(key)
+        idx = jagg.resample_indices(k_final, state.weights,
+                                    state.counts.shape[-1],
+                                    cfg.resample_method)
+        counts, locs, fluxes = gather_particles(
+            idx, state.counts, state.locs, state.fluxes, particle_axis=2)
+        pruned, _, _ = prune_catalog(
+            locs, fluxes, height=H, width=W,
+            flux_threshold=cfg.flux_detection_threshold,
+            mask=slot_mask(counts, fluxes.shape[-1]))
+        return pruned[0, 0], jnp.stack(temps)
+
+    pruned, temps = jax.jit(jax.vmap(tree))(
+        jax.random.split(jax.random.key(2), n_jax),
+        jagg.AggregateState(**_tree_grid(js, js.result, n_jax)))
+    assert bool((temps == 1.0).all()), temps  # every level of every run
+    jpmf = np.stack([_root_pmf(p) for p in np.asarray(pruned)])
+
+    pp, pm, pk = port_prior(prior), port_model(model), port_kernel(kernel)
+    ps = SMCSampler(image=t(jnp.concatenate([image] * n_port)), Prior=pp,
+                    ImageModel=pm, MutationKernel=pk, **sampler)
+    gen = torch.Generator().manual_seed(1)
+    ps.run(gen)
+    grid = _tree_grid(ps, ps.result, n_port)
+    runs = []
+    for r in range(n_port):
+        a = tagg.Aggregate(
+            Prior=pp, ImageModel=pm, MutationKernel=pk,
+            log_normalizing_constant=grid["log_z"][r],
+            **{k: v[r] for k, v in grid.items() if k != "log_z"}, **agg)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # no level may exit at the cap
+            a.run(gen)
+        runs.append(a)
+    ppmf = np.stack([_root_pmf(a.pruned_counts[0, 0].numpy()) for a in runs])
+    return runs, ppmf, jpmf
+
+
+def test_aggregate_4x4_grid_runs_four_levels(tree_runs_4x4):
+    runs, _, _ = tree_runs_4x4
+    for agg in runs:
+        assert agg.num_aggregation_levels == 4
+        assert agg.state.data.shape == (1, 1, 32, 32)
+        for d in agg.diagnostics:
+            assert torch.all(d["temperature"] == 1.0), d
+            assert 0 <= d["iterations"] < 60
+        np.testing.assert_allclose(agg.state.weights.sum(-1).numpy(), 1.0,
+                                   rtol=1e-5)
+        assert torch.isfinite(agg.state.log_z.max())
+        assert agg.state.locs.shape[-2] == 48  # 3 -> 6 -> 12 -> 24 -> 48
+
+
+def test_aggregate_4x4_root_count_pmf_matches_jax(tree_runs_4x4):
+    """Different random streams: the root's pruned-count pmf pooled over
+    the port's 4 runs within the spread of JAX's pooled over 8. At N = 16
+    a run's root collapses onto one or two counts, and runs differ: on this
+    image 64 JAX runs and 60 port runs (made as here, other seeds) put
+    0.1235 and 0.0958 of their mass on 5 and the rest on 4 (11% and 10% of
+    runs with mode 5). Drawing a pool of 4 and one of 8 from those 124
+    runs 20,000 times gives a TVD of 0.105 at the median, 0.438 at the
+    99th percentile and 0.594 at the 99.9th: the limit is 0.6. This holds
+    the tree's law only coarsely; the level-2 and -3 merge and bridge
+    target are held elementwise above (faulty tags or ghost rates at
+    those levels left this statistic within its spread over 12 runs)."""
+    _, ppmf, jpmf = tree_runs_4x4
+    tvd = 0.5 * np.abs(ppmf.mean(0) - jpmf.mean(0)).sum()
+    assert tvd <= 0.6, (ppmf.mean(0), jpmf.mean(0))
+    # every run of both packages finds the four bright stars and at most
+    # the two faint ones
+    assert ppmf[:, 4:7].sum() == len(ppmf) and jpmf[:, 4:7].sum() == len(
+        jpmf), (ppmf, jpmf)
 
 
 def test_aggregate_cap_exit_warns():

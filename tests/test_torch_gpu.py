@@ -1,5 +1,5 @@
-"""Kernels K1 to K5 on the card (CUDA only; every test skips without a
-card).
+"""Kernels K1 to K5, K2g, K3g and K4g on the card (CUDA only; every test
+skips without a card).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -101,6 +101,20 @@ def _target(dev, k2=False, T=2, N=1000, max_objects=6, name=None):
     return kernel, ctx, counts, locs, fluxes
 
 
+def _zero_launch(run, kernel, prior, model, M, G=2, N=8):
+    """``run`` (a sweep wrapper) on zero inputs of ``G`` x ``N`` particles
+    with ``M`` slots on ``model``'s tile, 5 sweeps."""
+    HW = model.height * model.width
+    dev = kernel.fluxes_min.device
+    z = torch.zeros
+    return run(z(2, dtype=torch.int64, device=dev), kernel.proposal(prior),
+               prior, model, z((G, HW), device=dev), z(G, device=dev),
+               z((G, N), dtype=torch.int32, device=dev),
+               z((G, N, M, 2), device=dev), z((G, N, M), device=dev),
+               torch.ones((G, N, HW), device=dev), z((G, N), device=dev),
+               z((G, N), device=dev), 5)
+
+
 def test_cuda_tensor_never_reaches_plain_version(dev, monkeypatch):
     kernel, ctx, counts, locs, fluxes = _target(dev)
 
@@ -126,16 +140,25 @@ def test_cuda_tensor_never_reaches_plain_version(dev, monkeypatch):
     assert mh_sweep.mh_sweeps.launches == before + 1
     assert torch.isfinite(st.parent_ll).all() and float(acc.mean()) > 0.0
 
-    # a target neither kernel covers raises instead of running the plain path
+    # a 32x32 tile launches K2g; a shape whose block needs more shared
+    # memory than the card has raises instead of running the plain path
     big = ImageModel(32, 32, 6, GaussianPSF(1.4, device=dev),
                      noise="poisson", background=50.0, device=dev)
     ctx = TargetContext(ctx.prior, big, torch.ones((2, 1, 1, 32, 32),
                                                    device=dev),
                         ctx.temperature)
-    with pytest.raises(NotImplementedError, match="32x32"):
-        kernel.run(torch.Generator(device=dev).manual_seed(0), ctx, counts,
-                   locs, fluxes)
+    k2g_before = mh_sweep.mh_sweeps.k2g_launches
+    st, _ = kernel.run(torch.Generator(device=dev).manual_seed(0), ctx,
+                       counts, locs, fluxes)
+    torch.cuda.synchronize()
+    assert mh_sweep.mh_sweeps.k2g_launches == k2g_before + 1
+    assert torch.isfinite(st.parent_ll).all()
+    huge = ImageModel(128, 128, 6, GaussianPSF(1.4, device=dev),
+                      noise="poisson", background=50.0, device=dev)
+    with pytest.raises(NotImplementedError, match="232448-byte limit"):
+        _zero_launch(mh_sweep.mh_sweeps, kernel, ctx.prior, huge, 1200)
     assert mh_sweep.mh_sweeps.k2_launches == k2_before + 1
+    assert mh_sweep.mh_sweeps.k2g_launches == k2g_before + 1
 
 
 @pytest.mark.parametrize("max_objects", [1, 6, 8, 16])
@@ -486,16 +509,21 @@ def test_k3_lane_groups_match_plain_version(dev, shape, mode, M, N,
 
 
 def test_k3_raises_for_an_unbuilt_joined_tile(dev):
-    """A bridge on a joined tile K3 is not built for (the 32x16 tile of a
-    4x4 grid) raises on the card instead of running the plain version."""
+    """A bridge on a joined tile whose block needs more shared memory than
+    the card has (128x64 with 2000 slots) raises on the card instead of
+    running the plain version; a joined tile K3 is not built for (the 32x16
+    tile of a 4x4 grid) goes to K3g."""
     kernel, ctx, *_ = _bridge_target(dev, shape=(16, 8))
-    wide = ctx.model.with_shape(32, 16)
-    G, N, M, HW = 2, 64, 16, 512
+    assert mh_sweep.sweep_kernel(ctx.prior, ctx.model.with_shape(32, 16), 64,
+                                 child=True) == "K3g"
+    wide = ctx.model.with_shape(128, 64)
+    G, N, M, HW = 2, 64, 2000, 128 * 64
     z = torch.zeros
     child = mh_sweep.ChildTerm(torch.ones((G, N, HW), device=dev),
                                z((G, N), device=dev),
-                               z((G, N, M), device=dev), 0, 16)
-    with pytest.raises(NotImplementedError, match="32x16"):
+                               z((G, N, M), device=dev), 0, 64)
+    before = mh_sweep.mh_sweeps.k3g_launches
+    with pytest.raises(NotImplementedError, match="128x64"):
         mh_sweep.mh_sweeps(
             z(2, dtype=torch.int64, device=dev), kernel.proposal(ctx.prior),
             ctx.prior, wide, z((G, HW), device=dev), z(G, device=dev),
@@ -503,6 +531,102 @@ def test_k3_raises_for_an_unbuilt_joined_tile(dev):
             z((G, N, M, 2), device=dev), z((G, N, M), device=dev),
             torch.ones((G, N, HW), device=dev), z((G, N), device=dev),
             z((G, N), device=dev), 5, child=child)
+    assert mh_sweep.mh_sweeps.k3g_launches == before
+
+
+def _generic_tile_target(dev, shape, M, N, num_iters, name="m71"):
+    """A tile target at any shape for K2g and K4g, with counts that vary
+    per particle as ``_mixed_counts_target``'s (every third particle and
+    particles 64..127 of each group empty): ``name`` "m71" (the
+    divideandconquer suite's model and prior on an ``H x W`` image: Gaussian
+    noise, SDSS beta = 3, truncated Pareto) or "poisson" (Poisson noise,
+    Gaussian PSF, Normal flux)."""
+    h, w = shape
+    if name == "m71":
+        prior = M71Prior(0, M, 0.012, h, w, 0.214, 7.0, 1804.679, pad=1.0,
+                         device=dev)
+        model = M71ImageModel(h, w, 865.0, 856.0,
+                              (1.51, 4.85, 1.32, 3.0, 0.09, 0.002), 8,
+                              0.001, 1.94, device=dev)
+        kernel = SingleComponentMH(num_iters, 0.25, 5.0, 7.0, 1804.679,
+                                   device=dev)
+    else:
+        prior = PointProcessPrior(
+            0, M, h, w, pad=1.0, counts=UniformCounts(0, M),
+            flux=NormalFlux(2000.0, 300.0, device=dev), device=dev)
+        kernel = SingleComponentMH(num_iters, 0.25, 60.0, 500.0, 5000.0,
+                                   device=dev)
+        model = ImageModel(h, w, 4, GaussianPSF(1.0, device=dev),
+                           noise="poisson", background=100.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    counts = torch.randint(1, M + 1, (2, 3, N), generator=g, device=dev,
+                           dtype=torch.int32)
+    counts[..., ::3] = 0
+    counts[..., 64:128] = 0
+    locs, fluxes = prior.sample_marks(g, counts, (2, 3, N))
+    images = model.sample(g, locs[:, 0, 1], fluxes[:, 0, 1]).abs()
+    ctx = TargetContext(prior, model, images[:, None, None],
+                        torch.full((2, 1, 1), 0.8, device=dev))
+    return kernel, ctx, counts, init_kernel_state(ctx, counts, locs, fluxes)
+
+
+# (kernel, name, shape, bridge mode, M, N, sweeps, (noise, PSF) kind): the
+# launch shapes of a 4x4 grid of 8x8 tiles and its 32x32 single tile, a
+# shape off that path (24x24 with 20 slots), slot counts past K1's, K3's and
+# K4's, ragged N, sweeps that end inside a Philox draw-ahead batch, and each
+# noise and PSF kind on the bridge
+_GENERIC_CASES = [
+    ("K2g", "m71", (32, 32), None, 32, 999, 37, None),
+    ("K2g", "m71", (24, 24), None, 20, 257, 20, None),
+    ("K2g", "poisson", (8, 8), None, 17, 1001, 20, None),
+    ("K3g", "m71", (32, 16), "tag", 64, 1001, 37, ("gaussian", "sdss3")),
+    ("K3g", "m71", (32, 32), "tag", 128, 999, 20, ("gaussian", "sdss3")),
+    ("K3g", "m71", (32, 16), "location", 64, 999, 37,
+     ("poisson", "gaussian")),
+    ("K3g", "m71", (32, 32), "tag", 128, 513, 20, ("poisson", "sdss")),
+    ("K3g", "m71", (16, 16), "tag", 33, 1001, 20, None),
+    ("K4g", "m71", (32, 32), None, 32, 999, 37, None),
+    ("K4g", "poisson", (24, 24), None, 20, 257, 20, None),
+    ("K4g", "m71", (32, 16), "tag", 64, 1001, 37, None),
+    ("K4g", "m71", (32, 32), "tag", 128, 999, 20, None),
+    ("K4g", "m71", (32, 16), "location", 64, 999, 20, None),
+]
+
+
+@pytest.mark.parametrize("kid,name,shape,mode,M,N,num_iters,kind",
+                         _GENERIC_CASES)
+def test_generic_kernels_match_plain_version(dev, kid, name, shape, mode, M,
+                                             N, num_iters, kind):
+    """K2g, K3g and K4g against their plain versions on one launch each:
+    the empty particles (every third, whole warps of them) pass through
+    bit-exactly with acceptance 0, the launch counter goes up by one, and
+    on the same key >= 99% of the occupied particles agree to rtol 1e-4 in
+    every output (the rest are accept flips on the boundary and, under
+    MALA, tail proposals and masses in Phi's f32 tail)."""
+    bridge = mode is not None
+    if bridge:
+        mh, ctx, counts, locs, fluxes = _bridge_target(
+            dev, name, shape, mode, N, M, mixed=True, kind=kind)
+        state = init_kernel_state(ctx, counts, locs, fluxes)
+    else:
+        mh, ctx, counts, state = _generic_tile_target(dev, shape, M, N,
+                                                      num_iters, name)
+    if kid == "K4g":
+        kernel = _mala(mh, f"{name} bridge" if bridge else name)
+        assert mala_sweep.mala_kernel(ctx.prior, ctx.model, M,
+                                      child=bridge) == "K4g"
+        run, plain = mala_sweep.mala_sweeps, mala_sweep.mala_sweeps_reference
+        counter = "k4g_bridge_launches" if bridge else "k4g_launches"
+        launches = lambda: getattr(mala_sweep.mala_sweeps, counter)  # noqa
+    else:
+        kernel = mh
+        assert mh_sweep.sweep_kernel(ctx.prior, ctx.model, M,
+                                     child=bridge) == kid
+        run, plain = mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference
+        counter = f"{kid.lower()}_launches"
+        launches = lambda: getattr(mh_sweep.mh_sweeps, counter)  # noqa
+    args, child = _launch_args(kernel, ctx, counts, state, num_iters)
+    _lane_groups_agree(run, plain, launches, args, child)
 
 
 # MALA's steps on each target: those of tests/test_torch_mala.py's matching
@@ -655,10 +779,16 @@ def test_mala_on_cuda_never_reaches_plain_version(dev, monkeypatch):
     ctx = TargetContext(ctx.prior, big, torch.ones((2, 1, 1, 32, 32),
                                                    device=dev),
                         ctx.temperature)
-    with pytest.raises(NotImplementedError, match="32x32"):
-        kernel.run(torch.Generator(device=dev).manual_seed(0), ctx, counts,
-                   locs, fluxes)
+    k4g_before = mala_sweep.mala_sweeps.k4g_launches
+    st, _ = kernel.run(torch.Generator(device=dev).manual_seed(0), ctx,
+                       counts, locs, fluxes)
+    torch.cuda.synchronize()
+    assert mala_sweep.mala_sweeps.k4g_launches == k4g_before + 1
+    assert torch.isfinite(st.parent_ll).all()
+    with pytest.raises(NotImplementedError, match="232448-byte limit"):
+        _zero_launch(mala_sweep.mala_sweeps, kernel, ctx.prior, big, 5000)
     assert mala_sweep.mala_sweeps.launches == before + 1
+    assert mala_sweep.mala_sweeps.k4g_launches == k4g_before + 1
 
 
 @pytest.mark.parametrize("kind", roofline.KINDS)

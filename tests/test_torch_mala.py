@@ -253,7 +253,8 @@ def test_slot_gradient_three_ways(target):
         p_ctx.prior, p_ctx.model, p_ctx.image_flat, p_ctx.temperature,
         pactive, torch.where(pactive, pf, prop.flux_lo),
         mala_sweep.psf_and_deriv(p_ctx.model, ploc), pstate.rate,
-        None if child is None else child.rate, window)
+        pstate.fluxes.shape[-1], None if child is None else child.rate,
+        window)
     assert float(np.abs(jgl).max()) > 1.0  # the likelihood does pull
     for got in ((agl, agf), (cgl, cgf)):
         np.testing.assert_allclose(got[0].numpy(), jgl, rtol=2e-2, atol=2e-4)
@@ -283,7 +284,8 @@ def test_gradients_finite_on_zero_counts_and_low_rates():
     cgl, cgf = mala_sweep.slot_gradient(
         p_ctx.prior, p_ctx.model, p_ctx.image_flat, p_ctx.temperature,
         active, torch.where(active, f_j, prop.flux_lo),
-        mala_sweep.psf_and_deriv(p_ctx.model, loc_j), st.rate)
+        mala_sweep.psf_and_deriv(p_ctx.model, loc_j), st.rate,
+        st.fluxes.shape[-1])
     assert torch.isfinite(cgl).all() and torch.isfinite(cgf).all()
     out, applied = p_kernel.sweep(torch.Generator().manual_seed(0), p_ctx,
                                   pcounts, st)
@@ -585,8 +587,9 @@ def test_auto_backend_on_cpu_runs_plain_version():
 
 
 def test_mala_kernel_routes_and_names_missing_shapes():
-    """K4 covers K2's tile shapes and K3's joined tiles; any other shape
-    raises, naming it."""
+    """K4 covers K2's tile shapes and K3's joined tiles, K4g every other
+    shape and slot count; a shape whose block needs more shared memory than
+    the card has raises, naming the limit."""
     from smcdet_tpu_torch.models.imaging import ImageModel
     from smcdet_tpu_torch.models.psf import GaussianPSF
 
@@ -595,21 +598,21 @@ def test_mala_kernel_routes_and_names_missing_shapes():
         pp, pm = port_prior(prior), port_model(model)
         assert mala_sweep.mala_kernel(pp, pm, 8) == "K4"
         assert mala_sweep.mala_kernel(pp, pm.with_shape(16, 16), 16) == "K4"
-        with pytest.raises(NotImplementedError, match="8x8 tiles with M=17"):
-            mala_sweep.mala_kernel(pp, pm, 17)
+        assert mala_sweep.mala_kernel(pp, pm, 17) == "K4g"
         for (h, w), m in (((16, 8), 16), ((16, 16), 32)):
             joined = pm.with_shape(h, w)
             assert mala_sweep.mala_kernel(pp, joined, m, child=True) == "K4"
-            with pytest.raises(NotImplementedError, match=f"{h}x{w}"):
-                mala_sweep.mala_kernel(pp, joined, m + 1, child=True)
+            assert mala_sweep.mala_kernel(pp, joined, m + 1,
+                                          child=True) == "K4g"
         for h, w in ((8, 8), (32, 16), (32, 32)):
-            with pytest.raises(NotImplementedError,
-                               match=f"bridge kernel for {h}x{w}"):
-                mala_sweep.mala_kernel(pp, pm.with_shape(h, w), 4,
-                                       child=True)
+            assert mala_sweep.mala_kernel(pp, pm.with_shape(h, w), 4,
+                                          child=True) == "K4g"
     big = ImageModel(32, 32, 6, GaussianPSF(1.4, device="cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="32x32"):
-        mala_sweep.mala_kernel(pp, big, 4)
+    assert mala_sweep.mala_kernel(pp, big, 4) == "K4g"
+    with pytest.raises(NotImplementedError,
+                       match="MALA bridge kernel for 32x32 tiles with "
+                             "M=5000: .* 232448-byte"):
+        mala_sweep.mala_kernel(pp, big, 5000, child=True)
     with pytest.raises(NotImplementedError, match="PSF"):
         mala_sweep.mala_kernel(pp, ImageModel(8, 8, 4, object(),
                                               device="cpu"), 4)
@@ -688,4 +691,4 @@ def test_lane_sum_adds_in_the_kernels_order(target):
     from smcdet_tpu_torch.models.psf import GaussianPSF
 
     model = ImageModel(h, w, 4, GaussianPSF(1.0, device="cpu"), device="cpu")
-    assert mala_sweep.k4_lanes(model, bridge) == L
+    assert mala_sweep.k4_lanes(model, bridge, 16) == L

@@ -363,10 +363,10 @@ def test_auto_backend_on_cpu_runs_plain_version(noise):
 
 
 def test_k1_coverage_names_missing_kernel():
-    """``sweep_kernel`` routes each CUDA target to K1 or K2, and names
-    what is missing for a target neither covers. K1 takes the M71 8x8
-    target (Gaussian noise, SDSS beta = 3) with 1..16 slots, as K2 takes
-    its targets."""
+    """``sweep_kernel`` routes each CUDA target to K1 or K2, and every
+    other shape or slot count to K2g; it names the limit where a block's
+    shared memory is too small. K1 takes the M71 8x8 target (Gaussian
+    noise, SDSS beta = 3) with 1..16 slots, as K2 takes its targets."""
     from smcdet_tpu_torch.models.imaging import ImageModel
     from smcdet_tpu_torch.models.psf import GaussianPSF
 
@@ -376,8 +376,7 @@ def test_k1_coverage_names_missing_kernel():
     assert mh_sweep.sweep_kernel(pp, pm, 8) == "K1"
     assert mh_sweep.sweep_kernel(pp, pm, 12) == "K1"
     assert mh_sweep.sweep_kernel(pp, pm, 16) == "K1"
-    with pytest.raises(NotImplementedError, match="1..16 slots"):
-        mh_sweep.sweep_kernel(pp, pm, 17)
+    assert mh_sweep.sweep_kernel(pp, pm, 17) == "K2g"
     for target, M in (("poisson", 4), ("wing", 4), ("cells", 12),
                       ("gauss16", 6)):
         prior, model, *_ = _jax_setup(target, **_SWEEP_TARGETS[target])
@@ -385,17 +384,20 @@ def test_k1_coverage_names_missing_kernel():
                                      M) == "K2", target
     prior, model, *_ = _jax_setup("cells", **_SWEEP_TARGETS["cells"])
     pp = port_prior(prior)
-    with pytest.raises(NotImplementedError, match="16 slots"):
-        mh_sweep.sweep_kernel(pp, port_model(model), 17)
+    assert mh_sweep.sweep_kernel(pp, port_model(model), 17) == "K2g"
     big = ImageModel(32, 32, 6, GaussianPSF(1.4, device="cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="32x32"):
-        mh_sweep.sweep_kernel(pp, big, 12)
+    assert mh_sweep.sweep_kernel(pp, big, 12) == "K2g"
+    huge = ImageModel(128, 128, 6, GaussianPSF(1.4, device="cpu"),
+                      device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="128x128 tiles with M=1200: .* 232448-byte"):
+        mh_sweep.sweep_kernel(pp, huge, 1200)
 
 
 def test_sweep_kernel_routes_the_bridge_to_k3():
     """A child term (the aggregation bridge) goes to K3 on the joined tiles
-    of a 2x2 grid, whatever the noise, PSF and flux prior; any other joined
-    tile raises, naming the shape."""
+    of a 2x2 grid, whatever the noise, PSF and flux prior, and to K3g on
+    any other joined tile or slot count."""
     from smcdet_tpu_torch.models.imaging import ImageModel
 
     for target, M in (("gaussian", 4), ("poisson", 4)):
@@ -404,11 +406,11 @@ def test_sweep_kernel_routes_the_bridge_to_k3():
         for (h, w), m in (((16, 8), 16), ((16, 16), 32)):
             joined = pm.with_shape(h, w)
             assert mh_sweep.sweep_kernel(pp, joined, m, child=True) == "K3"
-            with pytest.raises(NotImplementedError, match=f"{h}x{w}"):
-                mh_sweep.sweep_kernel(pp, joined, m + 1, child=True)
+            assert mh_sweep.sweep_kernel(pp, joined, m + 1,
+                                         child=True) == "K3g"
         for h, w in ((8, 8), (32, 16), (32, 32)):
-            with pytest.raises(NotImplementedError, match=f"{h}x{w} tiles"):
-                mh_sweep.sweep_kernel(pp, pm.with_shape(h, w), M, child=True)
+            assert mh_sweep.sweep_kernel(pp, pm.with_shape(h, w), M,
+                                         child=True) == "K3g"
         # the tile target of the same shapes is not K3's
         assert mh_sweep.sweep_kernel(pp, pm.with_shape(16, 16), M) == "K2"
     big = ImageModel(16, 8, 6, object(), device="cpu")

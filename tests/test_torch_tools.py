@@ -164,6 +164,12 @@ def test_compare_fails_only_on_kernels_it_was_not_asked_about():
     fewer = {n: b for n, b in earlier.items() if n != names["k2"]}
     assert differ(fewer, {"K1", "K4"}) == [names["k2"]]
     assert differ(fewer, {"K2"}) == []
+    # a kernel added since (an id the earlier build has no function of)
+    # does not, unlike a new instantiation of a kernel the earlier one has
+    more = dict(earlier, **{"mh_sweep_k3g_kernel<0,1>": body})
+    assert differ(more, {"K1"}) == []
+    more = dict(earlier, **{"mh_sweep_k2_kernel<16,16,16,0,1>": body})
+    assert differ(more, {"K1"}) == ["mh_sweep_k2_kernel<16,16,16,0,1>"]
 
 
 def test_k3_lanes_fit_the_kernels_layout():
@@ -266,8 +272,10 @@ def test_build_of_a_variant_compiles_every_source_with_its_flags(fake_nvcc):
     full = _build.build()
     default = _compiles(fake_nvcc)[len(variant):]
     assert full["path"] != info["path"]
-    assert [Path(c[-1]).name for c in default if "-fmad=false" in c] == [
-        "mala_sweep_k4.cu"]
+    assert sorted(Path(c[-1]).name for c in default
+                  if "-fmad=false" in c) == [
+        "mala_sweep_k4.cu", "mala_sweep_k4g.cu", "mh_sweep_k2g.cu",
+        "mh_sweep_k3g.cu"]
 
     again = _build.build(source_flags=flags)
     assert again["path"] == info["path"] and again["seconds"] == 0.0
@@ -295,10 +303,10 @@ def basic_launch():
 def test_launch_agreement_of_a_version_with_itself(basic_launch):
     from smcdet_tpu_torch.ops import mh_sweep
 
-    share = chip_smoke.launch_agreement(
+    share, err = chip_smoke.launch_agreement(
         mh_sweep.mh_sweeps, mh_sweep.mh_sweeps_reference, basic_launch,
         sweeps=3)
-    assert share == 1.0
+    assert share == 1.0 and err == 0.0
 
 
 @pytest.mark.parametrize("fault, message", [
@@ -358,6 +366,11 @@ def test_binomial_floor_is_the_lower_tail_at_the_reference_rate():
     assert chip_smoke.binomial_floor(40, 32) == 27
     assert chip_smoke.binomial_floor(40, 32, alpha=1.0) == 40
     assert chip_smoke.binomial_floor(40, 0, alpha=1e-12) == 0
+    # a reference of another size: its rule-of-succession rate (11 / 12,
+    # 8 / 10), held over 100 trials
+    assert chip_smoke.binomial_floor(100, 10, n_ref=10) == 87
+    assert chip_smoke.binomial_floor(100, 7, n_ref=8) == 73
+    assert chip_smoke.binomial_floor(40, 32, n_ref=40) == 27
 
 
 def _fake_dnc_runs(within, converged):

@@ -215,9 +215,12 @@ def kernels_that_differ(earlier: dict, new: dict, asked, label,
                         kernel_id) -> list:
     """The kernel functions outside ``asked`` (K-ids) whose SASS is not the
     same in the two builds (``{name: body}`` each), or that one build
-    lacks."""
+    lacks; a kernel whose id the earlier build has no function of (a kernel
+    added since) is not among them."""
+    added = ({kernel_id(label(n)) for n in new}
+             - {kernel_id(label(n)) for n in earlier} - {None})
     return [name for name in sorted(set(earlier) | set(new))
-            if kernel_id(label(name)) not in asked
+            if kernel_id(label(name)) not in asked | added
             and earlier.get(name) != new.get(name)]
 
 
@@ -233,10 +236,11 @@ def compare_sass(builds: dict, asked, label, kernel_id) -> list:
     for name in sorted(set(earlier) | set(new)):
         if kernel_id(label(name)) in asked:
             continue
+        state = ("DIFFERENT from" if name in differ else "identical to"
+                 if name in earlier else "added since")
         print(f"[sass] {label(name)}: "
               f"{sass.instructions(new.get(name, []))} instructions, "
-              f"{'DIFFERENT from' if name in differ else 'identical to'} "
-              f"the earlier build's")
+              f"{state} the earlier build's")
     for lib, functions in dumps.items():
         for name in sorted(n for n in functions
                            if kernel_id(label(n)) in asked):
@@ -346,8 +350,8 @@ def time_kernels(dev, wrappers, use, peaks, kernels) -> None:
                 use(name)
                 geo[name] = cs.launch_geometry(
                     lambda: run(name)(*args, child=child))
-                share[name] = cs.launch_agreement(run(name), plain(name),
-                                                  args, child)
+                share[name], _ = cs.launch_agreement(
+                    run(name), plain(name), args, child)
             G, N = args[6].shape
             shape = (f"{G} groups x {N}, {model.height}x{model.width}, "
                      f"M={M}, {sweeps} sweeps")

@@ -25,6 +25,14 @@ through ``run_csmc`` on the tiles sorted by summed pixel value, in chunks of
     JAX_PLATFORMS=cpu python tests/torch_reference_bars.py bench \
         --num-images 16 --seeds 1 2
 
+``--tiles`` runs the first ``--num-images`` images of a tiles file
+instead, such as the 32x32 divideandconquer draw (configs from
+``smcdet_tpu_torch.studies.dnc_grid``):
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_bars.py \
+        /tmp/dnc4/config.yaml --num-images 8 --seeds 5 \
+        --tiles tests/data/divideandconquer32_tiles.npz
+
 For each seed it prints the share of images whose posterior-mean pruned
 count lies within +-1 of the true pruned count, the mean acceptance rate
 (``acc_rate``) and the SMC iterations of each batch (``num_iters``) and, for
@@ -124,6 +132,9 @@ def main():
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     parser.add_argument("--set", nargs="*", default=[],
                         help="overrides such as kernel.kind=mala")
+    parser.add_argument("--tiles", default=None,
+                        help="run on the first --num-images images of this "
+                             "tiles.npz instead of simulating them")
     args = parser.parse_args()
 
     import jax
@@ -141,7 +152,10 @@ def main():
 
     pcfg = load_suite_config(args.config)
     pcfg.num_images = args.num_images
-    if semisynthetic.renders_fixture(pcfg):
+    if args.tiles is not None:
+        with np.load(args.tiles) as t:
+            tiles = {k: t[k][:args.num_images] for k in t.files}
+    elif semisynthetic.renders_fixture(pcfg):
         tiles = semisynthetic.render_tiles(pcfg, "padded", args.num_images,
                                            device="cpu")
     else:
