@@ -1084,9 +1084,9 @@ def sweep_bound(prior, model, counts, rate, M, sweeps, child=False,
     with ``child``, the bridge's; MH sweeps, or with ``mala`` MALA's.
     ``peaks`` are the FP32 (flop/s) and SFU (results/s) rates: the data
     sheet's, or K5's measured ones. The same function, so the same bound,
-    whichever kernel computes it (K2g, K3g and K4g's reads of the caches
-    they keep in device memory are their design's traffic, not the
-    function's)."""
+    whichever kernel computes it (K4g's reads of the caches it keeps in
+    device memory, and those of K2g's and K3g's wide route, are their
+    design's traffic, not the function's)."""
     from smcdet_tpu_torch.distributions import TruncatedPareto
     from smcdet_tpu_torch.models.priors import ParetoFlux
     from smcdet_tpu_torch.models.psf import GaussianPSF

@@ -6,25 +6,58 @@
 // 16x16 tiles with up to 16 slots) are not built for the shape: the
 // single-tile run of a whole image, such as the 32x32 yardstick of a 4x4
 // tile grid. Every noise, PSF and flux-prior variant of K2. The sweep loop
-// is mh_sweep_generic.cuh's body (its design, shared with K3g), without the
-// child term.
+// is mh_sweep_classes.cuh's body (its design, shared with K3g), without the
+// child term, one kernel per pixel class and noise and PSF kind; tiles above
+// 1024 pixels take the wide route (mh_sweep_wide.cu).
 
-#include "mh_sweep_generic.cuh"
+#include "mh_sweep_classes.cuh"
 
 namespace {
 
 using namespace smcdet;
 
-template <int NOISE, int PSF>
-__global__ void __launch_bounds__(kGenericBlock)
+// Lanes per particle by pixel class (the class of 64 pixels holds an 8x8
+// tile, 128 16x8, 256 16x16, 512 32x16, 1024 32x32 and 24x24, 2048 40x40,
+// 4096 64x64): one warp from 512 pixels; below, K1's and K2's lanes at the
+// same pixel counts (PERF.md); ops/mh_sweep.py:GENERIC_MH_LANES repeats
+// them.
+constexpr int kLanesTile64 = 4;
+constexpr int kLanesTile128 = 8;
+constexpr int kLanesTile256 = 16;
+constexpr int kLanesTile512 = 32;
+constexpr int kLanesTile1024 = 32;
+constexpr int kLanesTile2048 = 32;
+constexpr int kLanesTile4096 = 32;
+// The blocks of kClassBlock threads an SM that __launch_bounds__ names (at
+// most 128 registers a thread) and the pixels a lane's loop unrolls, as
+// timed on the H100 (PERF.md)
+constexpr int kMinBlocks = 2;
+constexpr int kUnroll = 4;
+
+template <int CAP, int L, int NOISE, int PSF>
+__global__ void __launch_bounds__(kClassBlock, kMinBlocks)
 mh_sweep_k2g_kernel(const GenericBuffers B, int N, int M, int H, int W,
                     int num_iters, const GenericParams Q) {
-  mh_sweep_generic_body<NOISE, PSF, false>(B, N, M, H, W, num_iters, Q);
+  mh_sweep_classed_body<L, CAP / L, NOISE, PSF, false, kUnroll>(
+      B, N, M, H, W, num_iters, Q);
 }
 
 struct Kernels {
-  template <int NOISE, int PSF>
-  static constexpr auto get() { return mh_sweep_k2g_kernel<NOISE, PSF>; }
+  static constexpr int lanes(int cap) {
+    return cap == 64     ? kLanesTile64
+           : cap == 128  ? kLanesTile128
+           : cap == 256  ? kLanesTile256
+           : cap == 512  ? kLanesTile512
+           : cap == 1024 ? kLanesTile1024
+           : cap == 2048 ? kLanesTile2048
+                         : kLanesTile4096;
+  }
+  // the rate cache and its proposals: 2 CAP floats a particle
+  static constexpr int extra(int cap) { return 2 * cap; }
+  template <int CAP, int NOISE, int PSF>
+  static constexpr auto get() {
+    return mh_sweep_k2g_kernel<CAP, lanes(CAP), NOISE, PSF>;
+  }
 };
 
 }  // namespace
@@ -33,7 +66,8 @@ struct Kernels {
 // temperature [G], counts [G, N] int32, locs [G, N, M, 2], fluxes [G, N, M],
 // rate [G, N, H*W], pll / lp / acc [G, N], key int64 [2]; the child buffers
 // and tags are null (child_axis -1). Returns the CUDA error of the launch
-// (0 on success; mh_sweep_generic.cuh: launch_generic_kinds).
+// (0 on success; cudaErrorInvalidConfiguration where 8 particles' catalogs
+// and the image exceed the card's shared memory per block).
 extern "C" int smcdet_mh_sweeps_k2g_launch(
     const void* key, const void* image, const void* temperature,
     const void* counts, const void* locs_in, const void* fluxes_in,
@@ -43,7 +77,7 @@ extern "C" int smcdet_mh_sweeps_k2g_launch(
     void* lp_out, void* acc_out, void* crate_out, void* cll_out, int G,
     int N, int M, int H, int W, int num_iters, GenericParams params,
     void* stream) {
-  return launch_generic_kinds<Kernels>(
+  return launch_classes<Kernels>(
       key, image, temperature, counts, locs_in, fluxes_in, rate_in, pll_in,
       lp_in, crate_in, cll_in, tags, locs_out, fluxes_out, rate_out, pll_out,
       lp_out, acc_out, crate_out, cll_out, G, N, M, H, W, num_iters, params,

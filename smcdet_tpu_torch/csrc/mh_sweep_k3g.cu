@@ -11,25 +11,59 @@
 // joined tile; the child rate renders each star into its own child tile's
 // window, of the slot's origin tag (one uint8 per slot) or of the side of its
 // location. Every noise, PSF and flux-prior variant of K2. The sweep loop is
-// mh_sweep_generic.cuh's body (its design, shared with K2g), with the child
-// term.
+// mh_sweep_classes.cuh's body (its design, shared with K2g), with the child
+// term, one kernel per pixel class and noise and PSF kind; joined tiles above
+// 1024 pixels take the wide route (mh_sweep_wide.cu).
 
-#include "mh_sweep_generic.cuh"
+#include "mh_sweep_classes.cuh"
 
 namespace {
 
 using namespace smcdet;
 
-template <int NOISE, int PSF>
-__global__ void __launch_bounds__(kGenericBlock)
+// Lanes per particle by pixel class (64: 8x8, 128: 16x8, 256: 16x16, 512:
+// 32x16, 1024: 32x32 and 24x24, 2048: 64x32, 4096: 64x64): one warp from
+// 256 pixels, 16 lanes at 32x16 being slower by time on the H100; below,
+// K3's lanes at the same pixel counts (PERF.md);
+// ops/mh_sweep.py:GENERIC_MH_LANES repeats them.
+constexpr int kLanesBridge64 = 8;
+constexpr int kLanesBridge128 = 16;
+constexpr int kLanesBridge256 = 32;
+constexpr int kLanesBridge512 = 32;
+constexpr int kLanesBridge1024 = 32;
+constexpr int kLanesBridge2048 = 32;
+constexpr int kLanesBridge4096 = 32;
+// The blocks of kClassBlock threads an SM that __launch_bounds__ names (at
+// most 128 registers a thread) and the pixels a lane's loop unrolls, as
+// timed on the H100 (PERF.md)
+constexpr int kMinBlocks = 2;
+constexpr int kUnroll = 4;
+
+template <int CAP, int L, int NOISE, int PSF>
+__global__ void __launch_bounds__(kClassBlock, kMinBlocks)
 mh_sweep_k3g_kernel(const GenericBuffers B, int N, int M, int H, int W,
                     int num_iters, const GenericParams Q) {
-  mh_sweep_generic_body<NOISE, PSF, true>(B, N, M, H, W, num_iters, Q);
+  mh_sweep_classed_body<L, CAP / L, NOISE, PSF, true, kUnroll>(
+      B, N, M, H, W, num_iters, Q);
 }
 
 struct Kernels {
-  template <int NOISE, int PSF>
-  static constexpr auto get() { return mh_sweep_k3g_kernel<NOISE, PSF>; }
+  static constexpr int lanes(int cap) {
+    return cap == 64     ? kLanesBridge64
+           : cap == 128  ? kLanesBridge128
+           : cap == 256  ? kLanesBridge256
+           : cap == 512  ? kLanesBridge512
+           : cap == 1024 ? kLanesBridge1024
+           : cap == 2048 ? kLanesBridge2048
+                         : kLanesBridge4096;
+  }
+  // the rate and child rate caches and their proposals: 4 CAP floats a
+  // particle
+  static constexpr int extra(int cap) { return 4 * cap; }
+  template <int CAP, int NOISE, int PSF>
+  static constexpr auto get() {
+    return mh_sweep_k3g_kernel<CAP, lanes(CAP), NOISE, PSF>;
+  }
 };
 
 }  // namespace
@@ -39,7 +73,8 @@ struct Kernels {
 // rate and child rate [G, N, H*W], pll / lp / child ll / acc [G, N], origin
 // tags uint8 [G, N, M] (1 = the even child; null in location mode), key
 // int64 [2]. Returns the CUDA error of the launch (0 on success;
-// mh_sweep_generic.cuh: launch_generic_kinds).
+// cudaErrorInvalidConfiguration where 8 particles' catalogs and the image
+// exceed the card's shared memory per block).
 extern "C" int smcdet_mh_sweeps_k3g_launch(
     const void* key, const void* image, const void* temperature,
     const void* counts, const void* locs_in, const void* fluxes_in,
@@ -49,7 +84,7 @@ extern "C" int smcdet_mh_sweeps_k3g_launch(
     void* lp_out, void* acc_out, void* crate_out, void* cll_out, int G,
     int N, int M, int H, int W, int num_iters, GenericParams params,
     void* stream) {
-  return launch_generic_kinds<Kernels>(
+  return launch_classes<Kernels>(
       key, image, temperature, counts, locs_in, fluxes_in, rate_in, pll_in,
       lp_in, crate_in, cll_in, tags, locs_out, fluxes_out, rate_out, pll_out,
       lp_out, acc_out, crate_out, cll_out, G, N, M, H, W, num_iters, params,

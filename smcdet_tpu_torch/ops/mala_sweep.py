@@ -98,8 +98,9 @@ K4_LANES = {((8, 8), False): 4, ((16, 16), False): 16,
 def k4_lanes(model, bridge: bool, M: int):
     """The lanes per particle of the kernel that runs ``model``'s tile with
     ``M`` slots (the tile target, or with ``bridge`` the aggregation
-    bridge's): ``GENERIC_LANES`` where K4g runs it, else K4's."""
-    if generic_lanes(model, M, bridge):
+    bridge's): ``GENERIC_LANES`` where K4g runs it, else K4's. K4g keeps
+    32 lanes whatever K2g's and K3g's pixel classes take."""
+    if generic_lanes(model, M, bridge) is not None:
         return GENERIC_LANES
     return K4_LANES[((model.height, model.width), bridge)]
 

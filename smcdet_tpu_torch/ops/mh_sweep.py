@@ -11,12 +11,15 @@ its instantiation for that one kind with launches counted apart; K3
 (``csrc/mh_sweep_k3.cu``, the aggregation bridge target with its child
 term, on the joined 16x8 and 16x16 tiles of a 2x2 grid); or, at every other
 shape and slot count, K2g (``csrc/mh_sweep_k2g.cu``, the tile target) and
-K3g (``csrc/mh_sweep_k3g.cu``, the bridge), one warp per particle at any
-H, W and M up to what a block's shared memory holds
-(``generic_smem_bytes``). ``sweep_kernel`` picks one or raises. On a CPU
-tensor it runs the plain PyTorch version, ``mh_sweeps_reference``, which
-sums a particle's pixels in K2g's and K3g's order at their shapes
-(``lane_sum`` with ``GENERIC_LANES``). There is no fallback from one to the
+K3g (``csrc/mh_sweep_k3g.cu``, the bridge), at any H, W and M up to what a
+block's shared memory holds (``generic_smem_bytes``): a tile of up to 4096
+pixels takes the kernel of its pixel class (``generic_pixel_class``: 64,
+128, ..., 4096 pixels; lanes per particle ``GENERIC_MH_LANES``, the caches
+in shared memory), a larger one the wide route (one warp per particle, the
+caches in device memory). ``sweep_kernel`` picks one or raises. On a
+CPU tensor it runs the plain PyTorch version, ``mh_sweeps_reference``,
+which sums a particle's pixels in K2g's and K3g's order at their shapes
+(``lane_sum`` with ``generic_lanes``). There is no fallback from one to the
 other.
 
 Both versions draw the same random stream: Philox4x32-10 with a 64-bit key
@@ -54,12 +57,17 @@ from smcdet_tpu_torch.models.priors import NormalFlux, ParetoFlux
 from smcdet_tpu_torch.models.psf import SDSSPSF, GaussianPSF
 
 __all__ = [
+    "GENERIC_CLASS_MAX_PIXELS",
     "GENERIC_LANES",
+    "GENERIC_MH_LANES",
     "GENERIC_SMEM_LIMIT",
     "ChildTerm",
     "MHProposal",
     "even_pixels",
     "flux_prior_delta",
+    "generic_class",
+    "generic_lanes",
+    "generic_pixel_class",
     "generic_smem_bytes",
     "lane_sum",
     "launch",
@@ -249,7 +257,7 @@ def sweep_with_uniforms(u_j, u_loc, u_f, u_acc, *, prior, model, proposal,
     and ``[..., N]``. Returns ``(locs, fluxes, rate, pll, lp, applied)``,
     and with ``child`` also ``(child_rate, cll)``. The pixels are summed in
     the order of the kernel that runs the target on the card: ``lane_sum``
-    with ``GENERIC_LANES`` where that is K2g or K3g.
+    with ``generic_lanes`` where that is K2g or K3g.
     """
     onehot, active, loc_j, f_j = select_slot(u_j, counts, locs, fluxes)
     lanes = generic_lanes(model, fluxes.shape[-1], child is not None)
@@ -370,19 +378,44 @@ K2_MAX_SLOTS = 16
 # K3's joined tiles and the most slots each is built for
 # (csrc/mh_sweep_k3.cu): the two levels of a 2x2 tile grid of 8x8 tiles
 K3_TILES = {(16, 8): 16, (16, 16): 32}
-# K2g, K3g and K4g (csrc/mh_sweep_generic.cuh): one warp per particle, and a
-# block's 8 particles' catalogs beside the image and lgamma(image + 1) in
-# dynamic shared memory, which holds at most 227 KB a block on the H100
+# K4g and the wide route of K2g and K3g (csrc/mh_sweep_generic.cuh): one
+# warp per particle, and a block's 8 particles' catalogs beside the image and
+# lgamma(image + 1) in dynamic shared memory, which holds at most 227 KB a
+# block on the H100. K2g's and K3g's pixel classes fit wherever that does
+# (csrc/mh_sweep_classes.cuh: launch_classed takes fewer particles a block).
 GENERIC_LANES = 32
 GENERIC_PARTICLES_PER_BLOCK = 8
 GENERIC_SMEM_LIMIT = 227 * 1024
+# K2g's and K3g's pixel classes (csrc/mh_sweep_classes.cuh) up to 4096
+# pixels, and their lanes per particle by (class, bridge target), as
+# csrc/mh_sweep_k2g.cu's kLanesTile* and csrc/mh_sweep_k3g.cu's
+# kLanesBridge* constants
+GENERIC_CLASS_MAX_PIXELS = 4096
+GENERIC_MH_LANES = {(64, False): 4, (128, False): 8, (256, False): 16,
+                    (512, False): 32, (1024, False): 32, (2048, False): 32,
+                    (4096, False): 32,
+                    (64, True): 8, (128, True): 16, (256, True): 32,
+                    (512, True): 32, (1024, True): 32, (2048, True): 32,
+                    (4096, True): 32}
 
 
 def generic_smem_bytes(height: int, width: int, M: int) -> int:
-    """The dynamic shared memory of one block of K2g, K3g or K4g: the image
-    and lgamma(image + 1) (``2 H W`` floats) and 8 particles' catalogs
-    (``3 M`` floats each)."""
+    """The dynamic shared memory of one block of K4g or of K2g's and K3g's
+    wide route: the image and lgamma(image + 1) (``2 H W`` floats) and 8
+    particles' catalogs (``3 M`` floats each)."""
     return 4 * (2 * height * width + GENERIC_PARTICLES_PER_BLOCK * 3 * M)
+
+
+def generic_pixel_class(pixels: int):
+    """The smallest of K2g's and K3g's pixel classes (64, 128, ..., 4096
+    pixels) that holds a tile of ``pixels``; None above 4096 (the wide
+    route)."""
+    cap = 64
+    while cap <= GENERIC_CLASS_MAX_PIXELS:
+        if pixels <= cap:
+            return cap
+        cap *= 2
+    return None
 
 
 def _fixed_shape(shape, M: int, child: bool) -> bool:
@@ -408,12 +441,31 @@ def _check_generic(shape, M: int, what: str):
             f"(GENERIC_SMEM_LIMIT, 227 KB a block on the H100)")
 
 
+def generic_class(height: int, width: int, M: int, child: bool = False):
+    """The pixel class whose kernel K2g or K3g launches for an ``H x W``
+    tile with ``M`` slots (csrc/mh_sweep_classes.cuh: launch_classes): the
+    smallest that holds the tile, None for the wide route, which takes
+    tiles above 4096 pixels and those where not even one warp of particles'
+    catalogs, caches and proposals (``3 M + 2 CAP`` floats a particle, the
+    bridge's ``3 M + 4 CAP``) fit ``GENERIC_SMEM_LIMIT`` beside the image."""
+    cap = generic_pixel_class(height * width)
+    if cap is None:
+        return None
+    per_particle = 3 * M + (4 if child else 2) * cap
+    warp = 32 // GENERIC_MH_LANES[cap, child]
+    need = 4 * (2 * height * width + warp * per_particle)
+    return cap if need <= GENERIC_SMEM_LIMIT else None
+
+
 def generic_lanes(model, M: int, child: bool = False):
-    """``GENERIC_LANES`` where K2g or K3g runs the target (the order the
-    plain version sums a particle's pixels in), None where K1, K2 or K3
-    does."""
-    fixed = _fixed_shape((model.height, model.width), M, child)
-    return None if fixed else GENERIC_LANES
+    """The lanes per particle of K2g or K3g where one runs the target (the
+    order the plain version sums a particle's pixels in): its pixel class's
+    ``GENERIC_MH_LANES`` (``generic_class``), or ``GENERIC_LANES`` on the
+    wide route; None where K1, K2 or K3 does."""
+    if _fixed_shape((model.height, model.width), M, child):
+        return None
+    cap = generic_class(model.height, model.width, M, child)
+    return GENERIC_LANES if cap is None else GENERIC_MH_LANES[cap, child]
 
 
 class _K2Params(ctypes.Structure):
@@ -446,10 +498,12 @@ def sweep_kernel(prior, model, M: int, child: bool = False) -> str:
     tiles with 1..16 slots), for the aggregation bridge (``child``)
     ``"K3"`` (the joined 16x8 tile with 1..16 slots and 16x16 with 1..32),
     and at every other shape and slot count ``"K2g"`` (the tile target) or
-    ``"K3g"`` (the bridge). Raises ``NotImplementedError`` naming what is
-    missing for a PSF or flux prior none covers, and naming the limit for a
-    shape whose block needs more shared memory than ``GENERIC_SMEM_LIMIT``
-    (``generic_smem_bytes``)."""
+    ``"K3g"`` (the bridge): the kernel of the tile's pixel class up to 4096
+    pixels, otherwise (a 128x128 tile, say) their wide route, which keeps
+    the caches in device memory (``generic_class``). Raises
+    ``NotImplementedError`` naming what is missing for a PSF or flux prior
+    none covers, and naming the limit for a shape whose block needs more
+    shared memory than ``GENERIC_SMEM_LIMIT`` (``generic_smem_bytes``)."""
     pareto = isinstance(prior.flux, (TruncatedPareto, ParetoFlux))
     shape = (model.height, model.width)
     _check_target(prior, model, pareto)

@@ -2,11 +2,12 @@
 ``sweep_kernel`` / ``mala_kernel`` (K1-K4 at the shapes they are built for,
 K2g, K3g and K4g beyond, a raise above the shared-memory limit), and the
 plain versions of K2g, K3g and K4g (``ops/mh_sweep.py``,
-``ops/mala_sweep.py``, which sum a particle's pixels in those kernels'
-32-lane order) against the JAX package's MH and MALA sweeps given the same
-uniforms, on the tile and the bridge target at the joined shapes of a 4x4
-grid of 8x8 tiles (32x16 with 64 slots, 32x32 with 128) and off it (24x24
-with 20 slots).
+``ops/mala_sweep.py``, which sum a particle's pixels in those kernels' lane
+order: K2g's and K3g's lanes by pixel class, K4g's 32) against the JAX
+package's MH and MALA sweeps given the same uniforms, on the tile and the
+bridge target (tag and location mode) at the joined shapes of a 4x4 grid of
+8x8 tiles (32x16 with 64 slots, 32x32 with 128), its 32x32 single tile (32
+slots), and off it (24x24 with 20 slots, 8x8 with 17).
 
 The CUDA kernels themselves run only on the card: see
 tests/test_torch_gpu.py.
@@ -90,10 +91,12 @@ def test_kernels_route_every_shape(shape, M, bridge, mh, mala):
     model = model.with_shape(*shape)
     assert mh_sweep.sweep_kernel(prior, model, M, child=bridge) == mh
     assert mala_sweep.mala_kernel(prior, model, M, child=bridge) == mala
-    # the plain versions sum in the order of the kernel that runs the shape
+    # the plain versions sum in the order of the kernel that runs the shape:
+    # K2g's and K3g's lanes by pixel class, K4g's 32 whatever the class
     generic = mh.endswith("g")
+    cap = mh_sweep.generic_pixel_class(shape[0] * shape[1])
     assert mh_sweep.generic_lanes(model, M, bridge) == (
-        mh_sweep.GENERIC_LANES if generic else None)
+        mh_sweep.GENERIC_MH_LANES[cap, bridge] if generic else None)
     assert mala_sweep.k4_lanes(model, bridge, M) == (
         mh_sweep.GENERIC_LANES if generic
         else mala_sweep.K4_LANES[(shape, bridge)])
@@ -122,6 +125,51 @@ def test_kernels_raise_above_the_shared_memory_limit(shape, M, bridge):
             mh_sweep.GENERIC_SMEM_LIMIT
         assert mh_sweep.sweep_kernel(prior, model, free, child=bridge) in (
             "K2g", "K3g")
+
+
+@pytest.mark.parametrize("bridge", [False, True])
+def test_every_shape_routed_before_still_launches_a_kernel(bridge):
+    """Every (shape, M, target) that K2g or K3g took before their pixel
+    classes (wherever K1-K3 are not built and a block of 8 particles'
+    catalogs with the image fits 227 KB) is still theirs, and none raises
+    that did not: a tile of up to 1024 pixels takes its class's kernel,
+    whose smallest block (one warp of particles with their caches and
+    proposals in shared memory) fits, and a larger one, or one whose
+    smallest block does not fit (a few pixels with thousands of slots), the
+    wide route; every other shape raises as before."""
+    _, _, poisson = _targets()
+    prior, _, _ = _targets()
+    limit = mh_sweep.GENERIC_SMEM_LIMIT
+    fixed = {(8, 8): 16, (16, 16): 16} if not bridge else {(16, 8): 16,
+                                                           (16, 16): 32}
+    for h in (1, 3, 8, 12, 16, 24, 32, 40, 64, 72, 128):
+        for w in (1, 8, 16, 20, 32, 48):
+            model = poisson.with_shape(h, w)
+            for M in (1, 9, 16, 17, 32, 33, 64, 128, 1000, 2400):
+                if M <= fixed.get((h, w), 0):
+                    assert mh_sweep.sweep_kernel(
+                        prior, model, M, child=bridge) in ("K1", "K2", "K3")
+                    continue
+                if 4 * (2 * h * w + 8 * 3 * M) > limit:
+                    with pytest.raises(NotImplementedError):
+                        mh_sweep.sweep_kernel(prior, model, M, child=bridge)
+                    continue
+                assert mh_sweep.sweep_kernel(prior, model, M,
+                                             child=bridge) == (
+                    "K3g" if bridge else "K2g")
+                lanes = mh_sweep.generic_lanes(model, M, bridge)
+                cap = mh_sweep.generic_pixel_class(h * w)
+                wide = cap is None
+                if not wide:
+                    L = mh_sweep.GENERIC_MH_LANES[cap, bridge]
+                    extra = (4 if bridge else 2) * cap
+                    wide = 4 * (2 * h * w + (32 // L) * (3 * M + extra)) \
+                        > limit
+                    assert h * w <= cap and (wide or lanes == L)
+                assert wide == (mh_sweep.generic_class(h, w, M, bridge)
+                                is None)
+                if wide:
+                    assert lanes == mh_sweep.GENERIC_LANES
 
 
 def test_kernels_raise_without_a_slot():
@@ -153,8 +201,11 @@ def test_lane_sum_pads_a_ragged_tile(HW, lanes):
 # ----------------------------------------------------------------------
 # One plain sweep against JAX's given the same uniforms
 # ----------------------------------------------------------------------
-# (shape, slots): the levels 2 and 3 of a 4x4 grid, and a shape off it
-_SHAPES = [((32, 16), 64), ((32, 32), 128), ((24, 24), 20)]
+# (shape, slots): the levels 2 and 3 of a 4x4 grid, a shape off it, the
+# grid's 32x32 single tile, and an 8x8 tile past K1's slots (K2g's and K3g's
+# pixel classes of 512, 1024 and 64 pixels)
+_SHAPES = [((32, 16), 64), ((32, 32), 128), ((24, 24), 20), ((32, 32), 32),
+           ((8, 8), 17)]
 _N = 24  # particles a group; 2 groups
 _STEPS = (0.02, 20.0)  # MALA's location and flux steps
 
@@ -166,7 +217,8 @@ def _problem(shape, M, bridge):
     fluxes) at temperature 0.4, 2 groups x ``_N`` particles with counts
     drawn over 0..M and random catalogs, an image drawn from the first
     particle's rate; on the bridge the child term of a split along the rows
-    at H / 2 with random origin tags and a ghost rate."""
+    at H / 2 with random origin tags (``bridge`` True) or the side of each
+    star's location (``bridge`` "location"), and a ghost rate."""
     h, w = shape
     rng = np.random.default_rng(h * 1000 + w + M)
     jprior = JaxPrior(
@@ -187,11 +239,11 @@ def _problem(shape, M, bridge):
                       4000.0) * active).astype(np.float32)
     kw = {}
     if bridge:
+        tags = jnp.asarray((rng.uniform(size=counts.shape + (M,)) < 0.5)
+                           .astype(np.float32))
         kw = dict(child_model=jmodel,
                   child_side_mask=jagg._side_mask_fn(0, h // 2, h, w),
-                  child_slot_side=jnp.asarray(
-                      (rng.uniform(size=counts.shape + (M,)) < 0.5)
-                      .astype(np.float32)),
+                  child_slot_side=None if bridge == "location" else tags,
                   child_ghost_rate=jnp.asarray(
                       rng.uniform(0.0, 50.0, counts.shape + (h * w,))
                       .astype(np.float32)))
@@ -209,7 +261,8 @@ def _problem(shape, M, bridge):
     if bridge:
         pkw = dict(child_model=pmodel,
                    child_side_mask=tagg.SideMask(0, h // 2, h, w),
-                   child_slot_side=t(kw["child_slot_side"]),
+                   child_slot_side=None if bridge == "location"
+                   else t(kw["child_slot_side"]),
                    child_ghost_rate=t(kw["child_ghost_rate"]))
     pctx = TargetContext(port_prior(jprior), pmodel, t(image), t(temp),
                          **pkw)
@@ -234,10 +287,11 @@ _FIELDS = ("locs", "fluxes", "rate", "parent_ll", "logprior", "child_rate",
 
 
 @pytest.mark.parametrize("kind", ["mh", "mala"])
-@pytest.mark.parametrize("bridge", [False, True])
+@pytest.mark.parametrize("bridge", [False, True, "location"])
 @pytest.mark.parametrize("shape,M", _SHAPES)
 def test_one_plain_sweep_matches_jax(shape, M, bridge, kind):
-    """One plain sweep (the kernels' 32-lane pixel sums) given JAX's
+    """One plain sweep (the pixel sums in K2g's and K3g's lane order by
+    pixel class, K4g's 32 lanes under MALA) given JAX's
     uniforms against JAX's sweep. Tolerance: rtol 1e-4 on every output,
     atol 1e-3 on the caches and log-likelihoods, 1e-4 on the rest (f32
     exp / log / ndtri rounding, the pixel-sum order and, under MALA, the
@@ -248,6 +302,9 @@ def test_one_plain_sweep_matches_jax(shape, M, bridge, kind):
     masses below 1e-3 (``mala_sweep.smallest_box_mass``); at most 2 of the
     48 particles."""
     jctx, pctx, counts, locs, fluxes = _problem(shape, M, bridge)
+    assert mh_sweep.generic_lanes(pctx.model, M, bool(bridge)) == \
+        mh_sweep.GENERIC_MH_LANES[mh_sweep.generic_pixel_class(
+            shape[0] * shape[1]), bool(bridge)]
     kernel = _kernel(kind)
     state = jax.jit(jax_init_state)(jctx, counts, locs, fluxes)
     key = jax.random.key(11)

@@ -585,6 +585,19 @@ _GENERIC_CASES = [
      ("poisson", "gaussian")),
     ("K3g", "m71", (32, 32), "tag", 128, 513, 20, ("poisson", "sdss")),
     ("K3g", "m71", (16, 16), "tag", 33, 1001, 20, None),
+    # every other pixel class of K2g and K3g (64 to 512 pixels; 2048 in
+    # shared memory), a ragged tile inside its class (12x20 in 256), and the
+    # wide route past 4096 pixels, on both targets
+    ("K2g", "poisson", (16, 8), None, 16, 1001, 37, None),
+    ("K2g", "m71", (16, 16), None, 17, 999, 20, None),
+    ("K2g", "poisson", (32, 16), None, 40, 513, 20, None),
+    ("K2g", "m71", (12, 20), None, 10, 257, 37, None),
+    ("K2g", "poisson", (40, 40), None, 12, 257, 20, None),
+    ("K3g", "m71", (8, 8), "tag", 9, 1001, 37, ("poisson", "gaussian")),
+    ("K3g", "m71", (16, 8), "location", 17, 999, 20, None),
+    ("K3g", "m71", (48, 32), "tag", 40, 257, 20, None),
+    ("K2g", "poisson", (72, 64), None, 12, 129, 20, None),
+    ("K3g", "m71", (72, 64), "location", 20, 129, 20, None),
     ("K4g", "m71", (32, 32), None, 32, 999, 37, None),
     ("K4g", "poisson", (24, 24), None, 20, 257, 20, None),
     ("K4g", "m71", (32, 16), "tag", 64, 1001, 37, None),

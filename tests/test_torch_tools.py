@@ -21,6 +21,8 @@ from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 import chip_smoke
 from smcdet_tpu_torch import _build
 
+ROOT_PKG = Path(variant.__file__).resolve().parents[1] / "smcdet_tpu_torch"
+
 SASS = """
 Fatbin elf code:
 ================
@@ -116,6 +118,11 @@ def test_sass_branch_to_an_address_becomes_a_label():
     ("mh_sweep_k3_kernel<16,8,16>", "K3"),
     ("mala_sweep_k4_kernel<8,8,4,0,0,1>", "K4"),
     ("chain_k5_kernel<2>", "K5"),
+    ("mh_sweep_k2g_kernel<1024,32,0,1>", "K2g"),
+    ("mh_sweep_k2g_kernel_wide<1,0>", "K2g"),
+    ("mh_sweep_k3g_kernel<512,32,0,1>", "K3g"),
+    ("mh_sweep_k3g_kernel_wide<0,2>", "K3g"),
+    ("mala_sweep_k4g_kernel<0,1,true>", "K4g"),
     ("at::native::vectorized_elementwise_kernel<4>", None)])
 def test_kernel_ids_of_kernel_names(name, kid):
     assert chip_smoke.kernel_id(name) == kid
@@ -202,6 +209,81 @@ def test_lane_variant_sets_k3_lanes(tmp_path):
         variant.main([str(tmp_path), "--k3", "bridge8x8=4"])
 
 
+def test_generic_lanes_fit_the_kernels_layout():
+    """K2g's and K3g's ``constexpr int kLanesTile<CAP>`` and
+    ``kLanesBridge<CAP>`` lines, read by the lane variant's parser, are
+    ``ops/mh_sweep.py:GENERIC_MH_LANES`` (the plain version's lane order);
+    each divides a warp and its class, holds the three proposal lanes and
+    leaves at most 32 pixels a lane up to 1024 pixels (a lane's registers;
+    the larger classes keep their caches in shared memory). K4g keeps one
+    warp a particle at every class."""
+    from smcdet_tpu_torch.models.imaging import ImageModel
+    from smcdet_tpu_torch.models.psf import GaussianPSF
+    from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
+
+    lanes = variant.generic_source_lanes()
+    assert lanes == mh_sweep.GENERIC_MH_LANES
+    assert {cap for cap, _ in lanes} == set(variant.GENERIC_CLASSES)
+    for (cap, bridge), L in lanes.items():
+        assert 32 % L == 0 and L >= 4 and cap % L == 0
+        assert cap // L <= 32 or cap > 1024
+    model = ImageModel(8, 8, 4, GaussianPSF(1.0, device="cpu"),
+                       noise="poisson", background=100.0, device="cpu")
+    for (h, w) in ((8, 8), (16, 8), (16, 16), (32, 16), (32, 32), (24, 24),
+                   (48, 32)):
+        for bridge in (False, True):
+            m = model.with_shape(h, w)
+            cap = mh_sweep.generic_pixel_class(h * w)
+            want = 32 if cap is None else lanes[cap, bridge]
+            assert mh_sweep.generic_lanes(m, 40, bridge) == want
+            assert mala_sweep.k4_lanes(m, bridge, 40) == 32
+    k4g = (ROOT_PKG / "csrc" / "mala_sweep_k4g.cu").read_text()
+    assert "const int lane = threadIdx.x % 32;" in k4g
+
+
+def test_lane_variant_sets_generic_lanes(tmp_path):
+    """``--k2g`` and ``--k3g`` change K2g's and K3g's class lanes in the
+    copy's sources and its ``GENERIC_MH_LANES``, ``--set`` any other
+    constant of a source (here K3g's ``kUnroll`` and K2g's
+    ``kMinBlocks``), ``--contract`` the copy's ``SOURCE_FLAGS``; nothing
+    else of the kernels' sources changes."""
+    import importlib.util
+
+    pkg = variant.write_variant(
+        tmp_path, k2g={512: 16, 64: 8}, k3g={512: 16},
+        contract=["mh_sweep_k3g.cu"],
+        constants=[("mh_sweep_k2g.cu", "kMinBlocks", 3),
+                   ("mh_sweep_k3g.cu", "kUnroll", 8)])
+    want = dict(variant.generic_source_lanes())
+    want.update({(512, False): 16, (64, False): 8, (512, True): 16})
+    assert variant.generic_source_lanes(pkg) == want
+    spec = importlib.util.spec_from_file_location(
+        "variant_mh_sweep", pkg / "ops" / "mh_sweep.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.GENERIC_MH_LANES == want
+    k3g = (pkg / "csrc" / "mh_sweep_k3g.cu").read_text()
+    assert "constexpr int kUnroll = 8;" in k3g
+    k2g = variant._constants((pkg / "csrc" / "mh_sweep_k2g.cu").read_text())
+    assert k2g["kMinBlocks"] == 3
+    spec = importlib.util.spec_from_file_location(
+        "variant_build", pkg / "_build.py")
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    want_flags = dict(_build.SOURCE_FLAGS)
+    del want_flags["mh_sweep_k3g.cu"]
+    assert build.SOURCE_FLAGS == want_flags
+    for src in sorted((ROOT_PKG / "csrc").iterdir()):
+        if src.name not in ("mh_sweep_k2g.cu", "mh_sweep_k3g.cu"):
+            assert (pkg / "csrc" / src.name).read_text() == src.read_text()
+    assert variant.k4_source_lanes(pkg) == variant.k4_source_lanes()
+    assert variant.k3_source_lanes(pkg) == variant.k3_source_lanes()
+    with pytest.raises(SystemExit):
+        variant.main([str(tmp_path), "--k2g", "8192=32"])
+    with pytest.raises(SystemExit):
+        variant.main([str(tmp_path), "--set", "kMinBlocks=3"])
+
+
 def test_lane_variant_sets_the_kernels_and_the_plain_versions_lanes(
         tmp_path):
     import importlib.util
@@ -275,7 +357,7 @@ def test_build_of_a_variant_compiles_every_source_with_its_flags(fake_nvcc):
     assert sorted(Path(c[-1]).name for c in default
                   if "-fmad=false" in c) == [
         "mala_sweep_k4.cu", "mala_sweep_k4g.cu", "mh_sweep_k2g.cu",
-        "mh_sweep_k3g.cu"]
+        "mh_sweep_k3g.cu", "mh_sweep_wide.cu"]
 
     again = _build.build(source_flags=flags)
     assert again["path"] == info["path"] and again["seconds"] == 0.0

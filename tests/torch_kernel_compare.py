@@ -7,7 +7,8 @@ in one process.
 ``DIR`` holds an earlier checkout of the repository (``git archive`` of a
 commit unpacked into a directory that ``.gitignore`` lists, such as
 ``.scratch/parent``), or a copy of this one with a constant changed (a
-variant). ``--kernel`` names the kernels under comparison (K1 to K5). The
+variant). ``--kernel`` names the kernels under comparison (K1 to K5, K2g,
+K3g). The
 script builds that checkout's kernel library with its own ``_build.py`` and
 this checkout's library, both at once, and runs each library through its
 own checkout's wrappers (``ops/mh_sweep.py`` and ``ops/mala_sweep.py``, with
@@ -29,7 +30,9 @@ their plain versions), everything else from this checkout. Then it prints:
   (``chip_smoke.launch_agreement``);
 - with ``--end-to-end``: the paths of the named kernels (``END_TO_END``)
   under the earlier library and this checkout's (earlier, this, this,
-  earlier; the cells batch earlier, this);
+  earlier; the cells batch earlier, this); K2g's and K3g's are one image of
+  chip_smoke.py's ``[dnc4]``: through the single 32x32 tile, cut to
+  ``DNC4_SINGLE_ITERS`` SMC iterations, and through the 4x4 tree;
 - with ``--dnc-seeds S ...``: chip_smoke.py's batch of 4 divideandconquer
   images (the images of the config's seed) with the sampler seeded by each
   S, under MH if K1 or K3 is named and under MALA if K4 is, under both
@@ -60,9 +63,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K2g", "K3g")
 # The launch shapes each kernel is timed at: the paths whose launches
-# chip_smoke.py's [paths] counts (K5, the chains, has none)
+# chip_smoke.py's [paths] counts (K5, the chains, has none); K2g's and
+# K3g's are the first launches of one [dnc4] image (dnc4_captures)
 SHAPES = {
     "K1": ("quick cell", "divideandconquer tile"),
     "K2": ("cells", "basic"),
@@ -70,7 +74,13 @@ SHAPES = {
     "K4": ("basic under MALA", "divideandconquer tile under MALA",
            "bridge level 0 under MALA", "bridge level 1 under MALA",
            "cells under MALA"),
+    "K2g": ("dnc4 single tile", "off-path 16x16 tile"),
+    "K3g": ("dnc4 bridge level 2", "dnc4 bridge level 3",
+            "off-path 16x16 bridge"),
 }
+# A class of K2g and K3g below those the paths launch (which keep their
+# caches in registers): (height, width, slots), on [dnc4]'s model and prior
+OFF_PATH = {"K2g": (16, 16, 24), "K3g": (16, 16, 48)}
 # MALA's steps on the cells target (tests/test_torch_mala.py: _STEPS); no
 # path runs cells under MALA, but it is K4's 16x16 tile target at a
 # suite's launch shape
@@ -81,7 +91,11 @@ END_TO_END = {
     "K2": ("cells", "basic", "m71"),
     "K3": ("divideandconquer image",),
     "K4": ("basic under MALA", "divideandconquer image under MALA"),
+    "K2g": ("dnc4 single tile run",),
+    "K3g": ("dnc4 image",),
 }
+# [dnc4]'s bridge levels 2 and 3: (height, width, slots)
+DNC4_LEVELS = {2: (32, 16, 64), 3: (32, 32, 128)}
 _OPS = ("mh_sweep", "mala_sweep")
 
 
@@ -266,6 +280,93 @@ def compare_sass(builds: dict, asked, label, kernel_id) -> list:
     return differ
 
 
+def _dnc4_configs(tmp: str, images: int) -> dict:
+    """chip_smoke.py's ``[dnc4]`` configs under ``tmp``, with the first
+    ``images`` of its images staged where they read them."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from smcdet_tpu_torch.studies.dnc_grid import derived_configs
+
+    cfgs = derived_configs(f"{tmp}/configs", cs.DNC4_DIM, output_dir=tmp,
+                           mala_steps=cs.MALA_DNC_STEPS)
+    with np.load(cs.DNC4_TILES) as t:
+        tiles = {k: t[k][:images] for k in t.files}
+    staged = Path(tmp) / "divideandconquer" / "tiles.npz"
+    staged.parent.mkdir(exist_ok=True)
+    np.savez(staged, **tiles)
+    return cfgs
+
+
+def dnc4_run(dev, tmp, single: bool, iters=None, capture=None):
+    """One ``[dnc4]`` image, through the 4x4 tree under MH or with
+    ``single`` through the single 32x32 tile cut to ``iters`` SMC
+    iterations, its mutate calls captured into ``capture``; returns the
+    wall per image (the runner's)."""
+    import chip_smoke as cs
+    from smcdet_tpu_torch.run_experiment import load_suite_config
+
+    cfgs = _dnc4_configs(tmp, 1)
+    cfg = load_suite_config(str(cfgs["singletile" if single else "dnc"]))
+    cfg.num_images = cfg.batch_size = 1
+    if single:
+        cfg.sampler.max_smc_iters = iters
+        _, _, res = cs._entry_batch(dev, cfg, "dnc4 single tile", tmp,
+                                    capture, tempered=False)
+        return float(res["runtime"][0])
+    _, res, _, _ = cs._aggregation_batch(dev, cfg, "dnc4", capture)
+    return float(res["runtime_per_image"].mean())
+
+
+def off_path_problem(dev, kid, key):
+    """``(args, child)`` of a launch of K2g or K3g at ``OFF_PATH[kid]``:
+    [dnc4]'s model and prior on that tile, 4 tiles of prior catalogs at
+    2048 particles a stratum (K2g), or 4 groups of 4608 particles with
+    counts and origin tags drawn uniformly and a split at the middle row,
+    as chip_smoke.py's off-path 24x24 bridge (K3g)."""
+    import chip_smoke as cs
+    from smcdet_tpu_torch.inference.aggregate import SideMask, expand_prior
+    from smcdet_tpu_torch.inference.kernels import (
+        TargetContext,
+        init_kernel_state,
+    )
+
+    h, w, M = OFF_PATH[kid]
+    _, tprior, tmodel, mh, _ = cs._dnc_problem(dev)
+    prior, model = expand_prior(tprior, h, w, M), tmodel.with_shape(h, w)
+    ctx, counts, state = cs._kernel_inputs(dev, prior, model, 4, 2048, 3)
+    if kid == "K2g":
+        return cs._sweep_args(key, mh, ctx, counts, state,
+                              mh.num_iters), None
+    g = torch.Generator(device=dev).manual_seed(4)
+    shape = (1, 4, 4608)
+    counts = torch.randint(0, M + 1, shape, generator=g, device=dev,
+                           dtype=torch.int32)
+    locs, fluxes = prior.sample_marks(g, counts, shape)
+    tags = (torch.rand(shape + (M,), generator=g, device=dev) < 0.5).float()
+    ctx = TargetContext(prior, model, ctx.image[:1, :1].expand(1, 4, 1, h, w),
+                        torch.full((1, 4, 1), 0.5, device=dev),
+                        child_model=model,
+                        child_side_mask=SideMask(0, h // 2, h, w),
+                        child_slot_side=tags)
+    state = init_kernel_state(ctx, counts, locs, fluxes)
+    return (cs._sweep_args(key, mh, ctx, counts, state, mh.num_iters),
+            cs._flat_child(ctx, counts, state))
+
+
+def dnc4_captures(dev):
+    """The first launch of each shape of one ``[dnc4]`` image: ``(tree,
+    single)``, chip_smoke.py's captures (``{(kind, bridge, H, W, M):
+    (kernel, ctx, counts, state)}``) of the 4x4 tree under MH and of one
+    SMC iteration of the single 32x32 tile."""
+    tree, single = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dnc4_run(dev, tmp, False, capture=tree)
+    with tempfile.TemporaryDirectory() as tmp:
+        dnc4_run(dev, tmp, True, iters=1, capture=single)
+    return tree, single
+
+
 def launch_problems(dev, kernels) -> dict:
     """``{(kernel, path): (args, child, mala)}``: the flattened launch
     arguments of each named kernel at each of its paths' shapes."""
@@ -311,6 +412,23 @@ def launch_problems(dev, kernels) -> dict:
                         cs._flat_child(ctx, counts, state), counts.shape[1])
                     out[kid, f"bridge level {i}{suffix}"] = (args, child,
                                                              kid == "K4")
+    if {"K2g", "K3g"} & set(kernels):
+        tree, single = dnc4_captures(dev)
+        if "K2g" in kernels:
+            kernel, ctx, counts, state = single[("mh", False, 32, 32, 32)]
+            out["K2g", "dnc4 single tile"] = (cs._sweep_args(
+                key, kernel, ctx, counts, state, kernel.num_iters), None,
+                False)
+        if "K3g" in kernels:
+            for level, (h, w, M) in DNC4_LEVELS.items():
+                kernel, ctx, counts, state = tree[("mh", True, h, w, M)]
+                out["K3g", f"dnc4 bridge level {level}"] = (
+                    cs._sweep_args(key, kernel, ctx, counts, state,
+                                   kernel.num_iters),
+                    cs._flat_child(ctx, counts, state), False)
+        for kid in {"K2g", "K3g"} & set(kernels):
+            out[kid, f"off-path 16x16 {'bridge' if kid == 'K3g' else 'tile'}"
+                ] = (*off_path_problem(dev, kid, key), False)
     return out
 
 
@@ -372,7 +490,9 @@ def end_to_end(dev, use, kernels) -> None:
     """The named kernels' paths (``END_TO_END``) under the earlier library
     and the new one: the wall of the quick cell, of one batch of basic,
     cells or basic under MALA, of one divideandconquer image under MH or
-    MALA, and per tile of the first 8 m71 fixture tiles."""
+    MALA, per tile of the first 8 m71 fixture tiles, and of one ``[dnc4]``
+    image through the tree or through the single tile cut to
+    ``DNC4_SINGLE_ITERS`` SMC iterations."""
     import chip_smoke as cs
 
     paths = []
@@ -385,6 +505,9 @@ def end_to_end(dev, use, kernels) -> None:
         with tempfile.TemporaryDirectory() as tmp:
             if path == "quick cell":
                 return cs.phase_main_path(dev)[1]
+            if path.startswith("dnc4"):
+                return dnc4_run(dev, tmp, "single tile" in path,
+                                iters=cs.DNC4_SINGLE_ITERS)
             mala = path.endswith("under MALA")
             suite = path.split()[0]
             steps = None
