@@ -4,8 +4,10 @@
 
 ``SEED_WORKERS`` worker processes of this script start with it and run the
 seeds after the first of the divideandconquer (MH and MALA) and
-m71semisynthetic batches while the first runs here; the script ends them
-before it exits.
+m71semisynthetic batches while the first runs here, and ``EQ_WORKERS``
+more run the equilibrium checks of phases 4-7 while the divideandconquer
+batches run (``_defer_equilibrium``); the script ends them before it
+exits.
 
 Phases (a failing phase raises; there is no CPU fallback):
 
@@ -28,7 +30,8 @@ Phases (a failing phase raises; there is no CPU fallback):
    the boundary or an accepted tail proposal within the f32 rounding of
    the inverse CDF, the time of 100 sweeps of both against the bound, and
    equilibrium statistics and rate-cache drift over 800 sweeps on two
-   tiles;
+   tiles (``_defer_equilibrium``: in the equilibrium worker, as for K2-K4
+   below);
 5. K2 against plain, the same checks at the shapes of the ``basic`` suite
    (20 8x8 tiles, M = 8, C = 9, N = 512) and the ``cells`` suite (10
    16x16 tiles, M = 12, C = 13, N = 4096), both built from the suites'
@@ -227,8 +230,9 @@ Phases (a failing phase raises; there is no CPU fallback):
     96 s) and ``compare_singletile`` on it; every tree level and tile at
     temperature 1;
     K2g, K3g and K4g held against their plain versions at each launch
-    shape of the path and at a 24x24 tile with 20 slots off it
-    (``launch_agreement``, the bound), and K3g over 800 sweeps at level 2.
+    shape of the path, K4g also at the single tile's first groups under
+    MALA, and at a 24x24 tile with 20 slots off it (``launch_agreement``,
+    the bound), and K3g and K4g over 800 sweeps at level 2.
 
 Then, per path, each kernel's launches in the run, its launch shape, time
 and bound, and launches x (time - bound) ranked by kernel. The last two
@@ -580,11 +584,11 @@ def _version(module):
 def _kernel_label(mangled):
     """``name<args>`` of a mangled kernel template instantiation, e.g.
     ``mala_sweep_k4_kernel<16,8,16,1,0,1>`` (H, W, lanes, bridge, noise
-    kind, PSF kind)."""
-    m = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
+    kind, PSF kind) or a wide route's ``mh_sweep_k2g_kernel_wide<1,2>``."""
+    m = re.search(r"_kernel(?:_wide)?I((?:L[ib]\d+E)+)E", mangled)
     if m is None:
         return mangled[:60]
-    end = m.start() + len("_kernel")
+    end = m.start(1) - 1  # the name ends before the template's "I"
     for start in range(end - 1, 0, -1):  # the closest length prefix
         digits = re.search(r"\d+$", mangled[:start])
         if digits and any(int(digits.group()[k:]) == end - start
@@ -921,12 +925,14 @@ def _single_sweep_steps(dev, kernel, ctx, counts, state, sweeps=20):
     return n_flip, n_tail, worst_flip, worst_tail
 
 
-def _equilibrium(dev, label, kernel, ctx, counts, state, sweeps=800):
+def _equilibrium(dev, label, kernel, ctx, counts, state, sweeps=800,
+                 cache_tol=2e-3):
     """``sweeps`` sweeps of each on different streams: tempered-target
     q50/q75 within 5% + 5 nats, acceptance within 0.02 (the bounds of
     tests/test_pallas.py:107-154, at its 800 sweeps), and the kernel's
     caches (the rate, and the child rate on the bridge) against a fresh
-    render."""
+    render: their largest relative difference below ``cache_tol``, the
+    log-likelihoods' below 2e-3."""
     from smcdet_tpu_torch.inference.kernels import init_kernel_state
 
     saved, res = kernel.num_iters, {}
@@ -961,10 +967,46 @@ def _equilibrium(dev, label, kernel, ctx, counts, state, sweeps=800):
         ll_drift = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
         print(f"[{label}] {cache} cache vs fresh render: max rel "
               f"{drift:.3e}; {ll} max rel {ll_drift:.3e}")
-        assert drift < 2e-3 and ll_drift < 2e-3
+        assert drift < cache_tol and ll_drift < 2e-3, (drift, ll_drift)
     lp_err = float((stk.logprior - fresh.logprior).abs().max())
     print(f"[{label}] logprior max abs {lp_err:.3e}")
     assert lp_err < 0.01
+
+
+# The equilibrium checks of K1-K4 (phases 4-7) are saved where phases 4-7
+# make them and run in EQ_WORKERS processes of this script (``--worker``,
+# apart from the seed workers) while [dnc] and [mala dnc] run here: the
+# plain version's 800 sweeps are host-bound (10-15 ms each; the 14 checks
+# took about 190 s in this process on a slow host), and those two phases,
+# which time no kernel, share the card with the seed workers already. A
+# check's draws depend only on its inputs and seeds, so a worker's is the
+# one this process would make. ``main`` sets the directory; unset, a check
+# runs here at once.
+EQ_WORKERS = 2
+_DEFERRED = {"dir": None, "jobs": []}
+
+
+def _owned(x):
+    """``x`` with each tensor in it, and in its NamedTuple fields, copied
+    out of any larger storage, so that ``torch.save`` writes its elements
+    alone."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_owned, x))
+    return x
+
+
+def _defer_equilibrium(dev, label, kernel, ctx, counts, state):
+    """``_equilibrium`` over 800 sweeps: saved for the equilibrium worker
+    (``_DEFERRED``), or run here at once when no worker takes it."""
+    if _DEFERRED["dir"] is None:
+        _equilibrium(dev, label, kernel, ctx, counts, state)
+        return
+    path = Path(_DEFERRED["dir"]) / f"eq{len(_DEFERRED['jobs'])}.pt"
+    torch.save({"label": label, "kernel": kernel, "ctx": _owned(ctx),
+                "counts": counts.clone(), "state": _owned(state)}, path)
+    _DEFERRED["jobs"].append((path, label))
 
 
 def _print_steps(label, counts, steps):
@@ -1020,7 +1062,7 @@ def kernel_vs_plain(dev, label, name, prior, model, kernel, num_tiles, N,
     del ctx, counts, state, args
     # equilibrium on two tiles (the size of tests/test_pallas.py:107-154)
     ctx, counts, state = _kernel_inputs(dev, prior, model, 2, N, 0)
-    _equilibrium(dev, label, kernel, ctx, counts, state)
+    _defer_equilibrium(dev, label, kernel, ctx, counts, state)
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "measured_bound_ms": measured_ms,
@@ -1263,8 +1305,8 @@ def bridge_vs_plain(dev, label, kernel, ctx, counts, state, peaks,
     passthrough, same-stream agreement over 20 sweeps, 20 single-sweep
     steps, the time of ``sweeps`` sweeps at one image's launch and at 64
     groups of the same shape (a batch that fills the card), and the
-    equilibrium over 800 sweeps on the first 512 particles of each group.
-    Returns the record of the one-image launch."""
+    equilibrium over 800 sweeps on the first 512 particles of each group
+    (``_defer_equilibrium``). Returns the record of the one-image launch."""
     from smcdet_tpu_torch.ops import mh_sweep
 
     Th, Tw, N = counts.shape
@@ -1308,8 +1350,8 @@ def bridge_vs_plain(dev, label, kernel, ctx, counts, state, peaks,
                           bound_by=bound_by, measured_bound_ms=measured_ms,
                           shape=f"{groups} groups x {N}, {shape}, "
                                 f"{sweeps} sweeps")
-    _equilibrium(dev, label, kernel, *_first_particles(ctx, counts, state,
-                                                         512))
+    _defer_equilibrium(dev, label, kernel,
+                       *_first_particles(ctx, counts, state, 512))
     return record
 
 
@@ -1505,7 +1547,8 @@ def mala_vs_plain(dev, label, kernel, ctx, counts, state, sweeps, eq_problem,
     passthrough, same-stream agreement over 20 sweeps, 20 single-sweep
     steps, the time of ``sweeps`` sweeps beside the bound (the data sheet's
     and at K5's measured ``peaks``), and the equilibrium over 800 sweeps on
-    ``eq_problem`` (a cut of the same target). Returns its record."""
+    ``eq_problem`` (a cut of the same target; ``_defer_equilibrium``).
+    Returns its record."""
     from smcdet_tpu_torch.ops import mala_sweep
 
     M = state.fluxes.shape[-1]
@@ -1551,7 +1594,7 @@ def mala_vs_plain(dev, label, kernel, ctx, counts, state, sweeps, eq_problem,
           f"{_geometry_text(geo)}), plain {plain_ms:.3f} ms, bound "
           f"{bound[0][0]:.4f} ms ({bound[0][1]}; at K5's measured rates "
           f"{bound[1][0]:.4f} ms, {bound[1][1]})")
-    _equilibrium(dev, label, kernel, *eq_problem)
+    _defer_equilibrium(dev, label, kernel, *eq_problem)
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0][0], "bound_by": bound[0][1],
             "measured_bound_ms": bound[1][0], "shape": shape}
@@ -2273,7 +2316,7 @@ def _stage_runs(cfg, tiles, seeds, label, workers):
     """Stage ``tiles`` as the batch of one run per sampler seed, each in a
     directory of its own under ``cfg.output_dir`` (``run_experiment`` skips
     a batch it finds done), and hand every seed but the first to
-    ``workers`` (``_SeedWorkers``; none: every run in this process).
+    ``workers`` (``_Workers``; none: every run in this process).
     Returns ``{seed: job}``."""
     from smcdet_tpu_torch.config import save_config
 
@@ -2302,12 +2345,13 @@ def _stage_runs(cfg, tiles, seeds, label, workers):
 SEED_WORKERS = 3
 
 
-class _SeedWorkers:
-    """``SEED_WORKERS`` worker processes (``_worker``), each taking the
-    jobs ``submit`` hands it in turn; ``result`` prints a job's lines and
-    returns its ``_aggregation_batch`` launches, levels and posterior
-    means, and raises if the job or its worker failed. ``close`` ends
-    them."""
+class _Workers:
+    """``n`` worker processes (``_worker``), each taking the jobs
+    ``submit`` hands it in turn (a batch's config, or with ``kind``
+    "equilibrium" a check ``_defer_equilibrium`` saved); ``result`` prints
+    a job's lines and returns what it returned (a batch's
+    ``_aggregation_batch`` launches, levels and posterior means), and
+    raises if the job or its worker failed. ``close`` ends them."""
 
     def __init__(self, n):
         self.procs = [subprocess.Popen(
@@ -2316,11 +2360,11 @@ class _SeedWorkers:
             for _ in range(n)]
         self.jobs, self.done = 0, {}
 
-    def submit(self, config, label):
+    def submit(self, config, label, kind="batch"):
         job, proc = self.jobs, self.procs[self.jobs % len(self.procs)]
         self.jobs += 1
         proc.stdin.write(json.dumps({"id": job, "config": str(config),
-                                     "label": label}) + "\n")
+                                     "label": label, "kind": kind}) + "\n")
         proc.stdin.flush()
         return job
 
@@ -2354,11 +2398,13 @@ class _SeedWorkers:
 
 
 def _worker():
-    """``--worker``: ``_aggregation_batch`` on the card for each job read
-    from standard input (a config file and a label, one JSON line), and
-    one JSON line of its result on standard output: the launches, the
-    levels, each image's posterior mean pruned count, and the lines the
-    run printed (``"log"``), or the traceback (``"error"``)."""
+    """``--worker``: for each job read from standard input (a file, a label
+    and a kind, one JSON line) ``_aggregation_batch`` on the card of the
+    config file, or ``_equilibrium`` of the check saved there (kind
+    "equilibrium"), and one JSON line of its result on standard output:
+    a batch's launches, levels and each image's posterior mean pruned
+    count, and the lines the job printed (``"log"``), or the traceback
+    (``"error"``)."""
     import contextlib
     import io
     import traceback
@@ -2371,13 +2417,22 @@ def _worker():
         job = json.loads(line)
         out, log = {"id": job["id"]}, io.StringIO()
         try:
-            with contextlib.redirect_stdout(log):
-                launches, res, levels, _ = _aggregation_batch(
-                    dev, load_config(job["config"]), job["label"])
-            out.update(launches=launches, levels=[
-                [(int(it), t, acc) for it, t, acc in lv] for lv in levels],
-                means=(res["weights"] * res["pruned_counts"]).sum(-1)
-                .tolist())
+            if job["kind"] == "equilibrium":
+                saved = torch.load(job["config"], map_location=dev,
+                                   weights_only=False)
+                with contextlib.redirect_stdout(log):
+                    _equilibrium(dev, saved["label"], saved["kernel"],
+                                 saved["ctx"], saved["counts"],
+                                 saved["state"])
+            else:
+                with contextlib.redirect_stdout(log):
+                    launches, res, levels, _ = _aggregation_batch(
+                        dev, load_config(job["config"]), job["label"])
+                out.update(launches=launches, levels=[
+                    [(int(it), t, acc) for it, t, acc in lv]
+                    for lv in levels],
+                    means=(res["weights"] * res["pruned_counts"]).sum(-1)
+                    .tolist())
         except Exception:
             out["error"] = traceback.format_exc()
         out["log"] = log.getvalue()
@@ -4940,7 +4995,7 @@ DNC4_SINGLE_GROUPS = 2
 # the shape off the path: a 24x24 tile with 20 slots, 256 particles a
 # stratum on one tile (the bridge: 2 groups of 256)
 DNC4_OFF_PATH = ((24, 24), 20, 256)
-# particles a group of the 800-sweep equilibrium on the bridge
+# particles a group of the 800-sweep equilibria on the bridge (K3g, K4g)
 DNC4_EQ_PARTICLES = 256
 
 
@@ -5026,8 +5081,11 @@ def phase_dnc4(dev, peaks):
     new kernel against its plain version at each launch shape of the path
     (its first launch there, captured; ``time_launch``: the zero-count
     passthrough bit for bit, >= 99% agreement after 20 sweeps, time beside
-    the bound), at the shape off the path and K4g on the single tile
-    (``launch_agreement`` alone), and K3g over 800 sweeps at level 2.
+    the bound), K4g also at the single tile's first groups under MALA (no
+    path runs it: the MH run's state), at the shape off the path
+    (``launch_agreement`` alone), and K3g and K4g over 800 sweeps at level
+    2 (q50/q75 and acceptance against the plain version, the caches against
+    a fresh render).
     (The profile of a tree image is ``tests/torch_synthetic_suites.py
     --dnc4``'s, which has the time.) Returns the launches of the runs, the
     records of the kernels line and the ``[paths]`` rows."""
@@ -5155,21 +5213,27 @@ def phase_dnc4(dev, peaks):
         f"dnc4 single tile's first {DNC4_SINGLE_GROUPS} groups", "K2g",
         args, peaks, label="dnc4")
     kernel, ctx, counts, state = first[("mh", False, 32, 32, 32)]
-    records["K4g tile"] = _dnc4_agree(
-        f"the single tile's first {DNC4_SINGLE_GROUPS} groups under MALA "
-        f"(off the path)", "K4g",
+    records["K4g tile"] = time_launch(
+        f"single tile's first {DNC4_SINGLE_GROUPS} groups under MALA (off "
+        f"the path)", "K4g",
         _groups(_sweep_args(key, mala, ctx, counts, state, mala.num_iters),
-                None, DNC4_SINGLE_GROUPS)[0])
+                None, DNC4_SINGLE_GROUPS)[0], peaks, label="dnc4")
     records.update({f"off-path {k}": v for k, v in _dnc4_off_path(
         dev, kernel, mala).items()})
     print(f"[dnc4] kernel checks in {time.perf_counter() - mark:.1f} s")
     mark = time.perf_counter()
 
-    # 800 sweeps at level 2 on K3g's first particles
-    kernel, ctx, counts, state = mh_first[("mh", True, 32, 16, 64)]
-    _equilibrium(dev, "dnc4 K3g level 2", kernel,
-                 *_first_particles(ctx, counts, state, DNC4_EQ_PARTICLES))
-    print(f"[dnc4] equilibrium in {time.perf_counter() - mark:.1f} s")
+    # 800 sweeps at level 2 on K3g's and K4g's first particles; K4g's
+    # caches held within 1e-6 of a fresh render (K3g's were 6.1e-7)
+    for name, capture, kind, tol in (("K3g", mh_first, "mh", 2e-3),
+                                     ("K4g", mala_first, "mala", 1e-6)):
+        kernel, ctx, counts, state = capture[(kind, True, 32, 16, 64)]
+        _equilibrium(dev, f"dnc4 {name} level 2", kernel,
+                     *_first_particles(ctx, counts, state, DNC4_EQ_PARTICLES),
+                     cache_tol=tol)
+        print(f"[dnc4] {name} equilibrium in "
+              f"{time.perf_counter() - mark:.1f} s")
+        mark = time.perf_counter()
     return launches, records, paths
 
 
@@ -5234,14 +5298,18 @@ def main():
     dev = torch.device("cuda")
     import smcdet_tpu_torch  # noqa: F401  (fails outside the repository)
 
-    workers = _SeedWorkers(SEED_WORKERS)
+    workers = _Workers(SEED_WORKERS)
+    eq_workers = _Workers(EQ_WORKERS)
     try:
-        _phases(smi, dev, workers)
+        with tempfile.TemporaryDirectory() as eq_dir:
+            _DEFERRED["dir"] = eq_dir
+            _phases(smi, dev, workers, eq_workers)
     finally:
         workers.close()
+        eq_workers.close()
 
 
-def _phases(smi, dev, workers):
+def _phases(smi, dev, workers, eq_workers):
     """Phases 2-32 (the module's docstring), then the paths, the kernels
     line and the device line."""
     start = time.perf_counter()
@@ -5271,12 +5339,23 @@ def _phases(smi, dev, workers):
                                                scored["cells"])
     k2_entry.update(k2_pair)
     launches["K4"] = mala_basic = phase_mala_entry(dev, mh_basic)
+    eq_jobs = [eq_workers.submit(path, label, kind="equilibrium")
+               for path, label in _DEFERRED["jobs"]]
+    eq_start = time.perf_counter()
     dnc, m71, m71_share = phase_aggregation(dev, workers)
     launches["K1"] += dnc["K1"] + m71["K1"]
     launches["K2"] = sum(k2_entry.values()) + dnc["K2"] + m71["K2"]
     launches["K3"] = dnc["K3"] + m71["K3"]
     mala_dnc = phase_mala_dnc(dev, workers)
     launches["K4"] += mala_dnc["K4 tile"] + mala_dnc["K4 bridge"]
+    mark = time.perf_counter()
+    print(f"[time] dnc and mala dnc in {mark - eq_start:.1f} s")
+    for job in eq_jobs:
+        eq_workers.result(job)
+    print(f"[time] K1-K4's {len(eq_jobs)} equilibria in {EQ_WORKERS} "
+          f"workers: {time.perf_counter() - eq_start:.1f} s, "
+          f"{time.perf_counter() - mark:.1f} s of it waited for after "
+          f"[mala dnc]")
     phase_profile(dev)
     phase_profile_pair(dev, work.name)
     # the cells_pair batch ran on the cells batch's tiles
@@ -5473,7 +5552,8 @@ def _phases(smi, dev, workers):
           "shapes; K2g's at the 32x32 single tile's first "
           f"{DNC4_SINGLE_GROUPS} groups, K3g's and K4g's at one 32x32 "
           "image's level-3 launch (max_abs_err: the largest over [dnc4]'s "
-          "checks)")
+          "checks; K4g's time at level 2 and at the single tile's first "
+          "groups under MALA in [dnc4]'s lines)")
     for name in ("K2g", "K3g", "K4g"):
         records[name] = dict(
             dnc4_records["K2g single tile" if name == "K2g"

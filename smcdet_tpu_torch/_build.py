@@ -33,17 +33,18 @@ NVCC_FLAGS = [
 # its plain version's separate tensor ops do (no contraction into FMAs), so
 # that MALA's drift, which amplifies last-bit differences over the sweeps,
 # starts from the plain version's bits (csrc/mala_sweep_k4.cu). What that
-# costs K4 is measured by tests/torch_k4_contraction.py (PERF.md). K4g and
-# the wide route of K2g and K3g round so too: they work a proposal's caches
-# out twice, in the pass that sums its likelihood and in the one that writes
-# it on accept, and the two must give the same bits
-# (csrc/mh_sweep_generic.cuh). K2g's and K3g's pixel classes render once a
-# sweep; they round so for their caches: contracted, the 800-sweep caches
-# drifted 7.1e-7 from a fresh render against 6.1e-7, for 6-9% of time
-# (PERF.md).
+# costs K4 is measured by tests/torch_k4_contraction.py (PERF.md). K4g's
+# pixel classes round so for the same reason. The wide routes of K2g, K3g
+# and K4g round so too: they work a proposal's caches out twice, in the pass
+# that sums its likelihood and in the one that writes it on accept, and the
+# two must give the same bits (csrc/mh_sweep_generic.cuh). K2g's and K3g's
+# pixel classes render once a sweep; they round so for their caches:
+# contracted, the 800-sweep caches drifted 7.1e-7 from a fresh render
+# against 6.1e-7, for 6-9% of time (PERF.md).
 SOURCE_FLAGS = {name: ["-fmad=false"] for name in (
     "mala_sweep_k4.cu", "mh_sweep_k2g.cu", "mh_sweep_k3g.cu",
-    "mh_sweep_wide.cu", "mala_sweep_k4g.cu")}
+    "mh_sweep_wide.cu", "mala_sweep_k4g.cu", "mala_sweep_k4g_bridge.cu",
+    "mala_sweep_wide.cu")}
 
 
 def nvcc_path() -> str:

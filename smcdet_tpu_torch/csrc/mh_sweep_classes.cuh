@@ -16,7 +16,7 @@
 //
 // - Pixel classes. A tile of H W pixels takes the smallest class of
 //   CAP = 64, 128, ..., 4096 pixels that holds it. A class has its
-//   lanes per particle L (each kernel's kLanes* constants) and PPL = CAP / L
+//   lanes per particle L (class_lanes) and PPL = CAP / L
 //   pixels per lane, both template arguments: lane l holds pixels p = l +
 //   L k, k < PPL, and the pixel loop is unrolled UNROLL pixels at a time, so
 //   the compiler interleaves the pixels' independent work as in K1-K3. A
@@ -98,6 +98,49 @@ inline int pixel_class(int HW) {
 inline size_t classed_smem_bytes(int HW, int M, int ppb, int extra) {
   return sizeof(float) *
          (2 * (size_t)HW + (size_t)ppb * (3 * (size_t)M + (size_t)extra));
+}
+
+// Lanes per particle by pixel class, of K2g's and K4g's tile target
+// (kLanesTile*) and of K3g's and K4g's bridge (kLanesBridge*). The class of
+// 64 pixels holds an 8x8 tile, 128 16x8, 256 16x16, 512 32x16, 1024 32x32
+// and 24x24, 2048 40x40 (64x32 on the bridge), 4096 64x64. One warp from 512
+// pixels on the tile target and from 256 on the bridge, 16 lanes at 32x16
+// being slower by time on the H100; below, K1's, K2's and K3's lanes at the
+// same pixel counts (PERF.md). ops/mh_sweep.py:GENERIC_CLASS_LANES repeats
+// them.
+constexpr int kLanesTile64 = 4;
+constexpr int kLanesTile128 = 8;
+constexpr int kLanesTile256 = 16;
+constexpr int kLanesTile512 = 32;
+constexpr int kLanesTile1024 = 32;
+constexpr int kLanesTile2048 = 32;
+constexpr int kLanesTile4096 = 32;
+constexpr int kLanesBridge64 = 8;
+constexpr int kLanesBridge128 = 16;
+constexpr int kLanesBridge256 = 32;
+constexpr int kLanesBridge512 = 32;
+constexpr int kLanesBridge1024 = 32;
+constexpr int kLanesBridge2048 = 32;
+constexpr int kLanesBridge4096 = 32;
+
+// The lanes of class `cap` on the bridge (`child`) or the tile target.
+constexpr int class_lanes(int cap, bool child) {
+  if (child) {
+    return cap == 64     ? kLanesBridge64
+           : cap == 128  ? kLanesBridge128
+           : cap == 256  ? kLanesBridge256
+           : cap == 512  ? kLanesBridge512
+           : cap == 1024 ? kLanesBridge1024
+           : cap == 2048 ? kLanesBridge2048
+                         : kLanesBridge4096;
+  }
+  return cap == 64     ? kLanesTile64
+         : cap == 128  ? kLanesTile128
+         : cap == 256  ? kLanesTile256
+         : cap == 512  ? kLanesTile512
+         : cap == 1024 ? kLanesTile1024
+         : cap == 2048 ? kLanesTile2048
+                       : kLanesTile4096;
 }
 
 // NOISE and PSF fix K2Params' noise_kind and psf_kind at compile time; a
@@ -436,8 +479,18 @@ int launch_mh_wide(const GenericBuffers& B, int G, int N, int M, int H,
                    int W, int num_iters, const GenericParams& Q, bool child,
                    cudaStream_t stream);
 
-// The entry points' body (K2g: child false, K3g: true): check the launch,
-// then take the tile's class kernel or the wide route (mh_sweep_wide.cu):
+// The wide route of K2g's and K3g's Kernels (launch_classes).
+struct MhWideRoute {
+  static int wide(const GenericBuffers& B, int G, int N, int M, int H, int W,
+                  int num_iters, const GenericParams& Q, bool child,
+                  cudaStream_t s) {
+    return launch_mh_wide(B, G, N, M, H, W, num_iters, Q, child, s);
+  }
+};
+
+// The entry points' body (K2g and K4g's tile target: child false; K3g and
+// K4g's bridge: true): check the launch, then take the tile's class kernel
+// or the wide route, Kernels::wide (mh_sweep_wide.cu, mala_sweep_wide.cu):
 // above kClassMaxPixels, and where not even one warp of particles'
 // catalogs, caches and proposals fit a block (a few pixels with thousands
 // of slots), which the wide route's 8 catalogs may. Returns the CUDA error
@@ -509,7 +562,7 @@ int launch_classes(
       return (int)launch_class_kinds<Kernels, 4096>(B, G, N, M, H, W,
                                                     num_iters, Q, s);
   }
-  return launch_mh_wide(B, G, N, M, H, W, num_iters, Q, child, s);
+  return Kernels::wide(B, G, N, M, H, W, num_iters, Q, child, s);
 }
 
 }  // namespace smcdet

@@ -340,66 +340,47 @@ cudaError_t launch_generic(Kernel kernel, const GenericBuffers& B, int G,
   return cudaGetLastError();
 }
 
-// Check and launch the instantiation of `Kernels::get<NOISE, PSF>()` for the
-// parameters' noise and PSF kinds (one instantiation per kind, so that the
-// pixel loop branches on neither, as K2's launch_kinds); returns the CUDA
-// error (0 on success): cudaErrorInvalidConfiguration where one block's image
-// and catalogs exceed the card's shared memory per block. The pointers are
-// the entry points' (K2g, K3g, K4g), in their order.
-template <class Kernels>
-int launch_generic_kinds(
-    const void* key, const void* image, const void* temperature,
-    const void* counts, const void* locs_in, const void* fluxes_in,
-    const void* rate_in, const void* pll_in, const void* lp_in,
-    const void* crate_in, const void* cll_in, const void* tags,
-    void* locs_out, void* fluxes_out, void* rate_out, void* pll_out,
-    void* lp_out, void* acc_out, void* crate_out, void* cll_out, int G,
-    int N, int M, int H, int W, int num_iters, const GenericParams& Q,
-    bool child, void* stream) {
-  const GenericBuffers B{
-      static_cast<const int64_t*>(key),
-      static_cast<const float*>(image),
-      static_cast<const float*>(temperature),
-      static_cast<const int32_t*>(counts),
-      static_cast<const float*>(locs_in),
-      static_cast<const float*>(fluxes_in),
-      static_cast<const float*>(rate_in),
-      static_cast<const float*>(pll_in),
-      static_cast<const float*>(lp_in),
-      static_cast<const float*>(crate_in),
-      static_cast<const float*>(cll_in),
-      static_cast<const uint8_t*>(tags),
-      static_cast<float*>(locs_out),
-      static_cast<float*>(fluxes_out),
-      static_cast<float*>(rate_out),
-      static_cast<float*>(pll_out),
-      static_cast<float*>(lp_out),
-      static_cast<float*>(acc_out),
-      static_cast<float*>(crate_out),
-      static_cast<float*>(cll_out),
-  };
-  cudaError_t err = check_generic(G, N, M, H, W, num_iters, Q, child, B);
-  if (err != cudaSuccess) return (int)err;
-  auto s = static_cast<cudaStream_t>(stream);
+// Launch the wide kernel `Wide::get<NOISE, PSF, CHILD>()` of the
+// parameters' noise and PSF kinds and of the target (one instantiation
+// each, so that the pixel loop branches on neither, as K2's launch_kinds):
+// the wide routes of K2g and K3g (mh_sweep_wide.cu) and of K4g
+// (mala_sweep_wide.cu). Returns the CUDA error (0 on success).
+template <class Wide, int NOISE, int PSF>
+cudaError_t launch_wide_kind(const GenericBuffers& B, int G, int N, int M,
+                             int H, int W, int num_iters,
+                             const GenericParams& Q, bool child,
+                             cudaStream_t s) {
+  if (child) {
+    return launch_generic(Wide::template get<NOISE, PSF, true>(), B, G, N,
+                          M, H, W, num_iters, Q, s);
+  }
+  return launch_generic(Wide::template get<NOISE, PSF, false>(), B, G, N, M,
+                        H, W, num_iters, Q, s);
+}
+
+template <class Wide>
+int launch_wide_kinds(const GenericBuffers& B, int G, int N, int M, int H,
+                      int W, int num_iters, const GenericParams& Q,
+                      bool child, cudaStream_t s) {
   switch (Q.base.noise_kind * 3 + Q.base.psf_kind) {
     case 0:
-      return (int)launch_generic(Kernels::template get<0, 0>(), B, G, N, M,
-                                 H, W, num_iters, Q, s);
+      return (int)launch_wide_kind<Wide, 0, 0>(B, G, N, M, H, W, num_iters,
+                                               Q, child, s);
     case 1:
-      return (int)launch_generic(Kernels::template get<0, 1>(), B, G, N, M,
-                                 H, W, num_iters, Q, s);
+      return (int)launch_wide_kind<Wide, 0, 1>(B, G, N, M, H, W, num_iters,
+                                               Q, child, s);
     case 2:
-      return (int)launch_generic(Kernels::template get<0, 2>(), B, G, N, M,
-                                 H, W, num_iters, Q, s);
+      return (int)launch_wide_kind<Wide, 0, 2>(B, G, N, M, H, W, num_iters,
+                                               Q, child, s);
     case 3:
-      return (int)launch_generic(Kernels::template get<1, 0>(), B, G, N, M,
-                                 H, W, num_iters, Q, s);
+      return (int)launch_wide_kind<Wide, 1, 0>(B, G, N, M, H, W, num_iters,
+                                               Q, child, s);
     case 4:
-      return (int)launch_generic(Kernels::template get<1, 1>(), B, G, N, M,
-                                 H, W, num_iters, Q, s);
+      return (int)launch_wide_kind<Wide, 1, 1>(B, G, N, M, H, W, num_iters,
+                                               Q, child, s);
     case 5:
-      return (int)launch_generic(Kernels::template get<1, 2>(), B, G, N, M,
-                                 H, W, num_iters, Q, s);
+      return (int)launch_wide_kind<Wide, 1, 2>(B, G, N, M, H, W, num_iters,
+                                               Q, child, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,7 @@
 // tile grid. Every noise, PSF and flux-prior variant of K2. The sweep loop
 // is mh_sweep_classes.cuh's body (its design, shared with K3g), without the
 // child term, one kernel per pixel class and noise and PSF kind; tiles above
-// 1024 pixels take the wide route (mh_sweep_wide.cu).
+// 4096 pixels take the wide route (mh_sweep_wide.cu).
 
 #include "mh_sweep_classes.cuh"
 
@@ -16,18 +16,6 @@ namespace {
 
 using namespace smcdet;
 
-// Lanes per particle by pixel class (the class of 64 pixels holds an 8x8
-// tile, 128 16x8, 256 16x16, 512 32x16, 1024 32x32 and 24x24, 2048 40x40,
-// 4096 64x64): one warp from 512 pixels; below, K1's and K2's lanes at the
-// same pixel counts (PERF.md); ops/mh_sweep.py:GENERIC_MH_LANES repeats
-// them.
-constexpr int kLanesTile64 = 4;
-constexpr int kLanesTile128 = 8;
-constexpr int kLanesTile256 = 16;
-constexpr int kLanesTile512 = 32;
-constexpr int kLanesTile1024 = 32;
-constexpr int kLanesTile2048 = 32;
-constexpr int kLanesTile4096 = 32;
 // The blocks of kClassBlock threads an SM that __launch_bounds__ names (at
 // most 128 registers a thread) and the pixels a lane's loop unrolls, as
 // timed on the H100 (PERF.md)
@@ -42,16 +30,9 @@ mh_sweep_k2g_kernel(const GenericBuffers B, int N, int M, int H, int W,
       B, N, M, H, W, num_iters, Q);
 }
 
-struct Kernels {
-  static constexpr int lanes(int cap) {
-    return cap == 64     ? kLanesTile64
-           : cap == 128  ? kLanesTile128
-           : cap == 256  ? kLanesTile256
-           : cap == 512  ? kLanesTile512
-           : cap == 1024 ? kLanesTile1024
-           : cap == 2048 ? kLanesTile2048
-                         : kLanesTile4096;
-  }
+// the wide route: mh_sweep_generic.cuh's body (mh_sweep_wide.cu)
+struct Kernels : MhWideRoute {
+  static constexpr int lanes(int cap) { return class_lanes(cap, false); }
   // the rate cache and its proposals: 2 CAP floats a particle
   static constexpr int extra(int cap) { return 2 * cap; }
   template <int CAP, int NOISE, int PSF>

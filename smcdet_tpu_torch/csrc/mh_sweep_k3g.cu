@@ -13,7 +13,7 @@
 // location. Every noise, PSF and flux-prior variant of K2. The sweep loop is
 // mh_sweep_classes.cuh's body (its design, shared with K2g), with the child
 // term, one kernel per pixel class and noise and PSF kind; joined tiles above
-// 1024 pixels take the wide route (mh_sweep_wide.cu).
+// 4096 pixels take the wide route (mh_sweep_wide.cu).
 
 #include "mh_sweep_classes.cuh"
 
@@ -21,18 +21,6 @@ namespace {
 
 using namespace smcdet;
 
-// Lanes per particle by pixel class (64: 8x8, 128: 16x8, 256: 16x16, 512:
-// 32x16, 1024: 32x32 and 24x24, 2048: 64x32, 4096: 64x64): one warp from
-// 256 pixels, 16 lanes at 32x16 being slower by time on the H100; below,
-// K3's lanes at the same pixel counts (PERF.md);
-// ops/mh_sweep.py:GENERIC_MH_LANES repeats them.
-constexpr int kLanesBridge64 = 8;
-constexpr int kLanesBridge128 = 16;
-constexpr int kLanesBridge256 = 32;
-constexpr int kLanesBridge512 = 32;
-constexpr int kLanesBridge1024 = 32;
-constexpr int kLanesBridge2048 = 32;
-constexpr int kLanesBridge4096 = 32;
 // The blocks of kClassBlock threads an SM that __launch_bounds__ names (at
 // most 128 registers a thread) and the pixels a lane's loop unrolls, as
 // timed on the H100 (PERF.md)
@@ -47,16 +35,9 @@ mh_sweep_k3g_kernel(const GenericBuffers B, int N, int M, int H, int W,
       B, N, M, H, W, num_iters, Q);
 }
 
-struct Kernels {
-  static constexpr int lanes(int cap) {
-    return cap == 64     ? kLanesBridge64
-           : cap == 128  ? kLanesBridge128
-           : cap == 256  ? kLanesBridge256
-           : cap == 512  ? kLanesBridge512
-           : cap == 1024 ? kLanesBridge1024
-           : cap == 2048 ? kLanesBridge2048
-                         : kLanesBridge4096;
-  }
+// the wide route: mh_sweep_generic.cuh's body (mh_sweep_wide.cu)
+struct Kernels : MhWideRoute {
+  static constexpr int lanes(int cap) { return class_lanes(cap, true); }
   // the rate and child rate caches and their proposals: 4 CAP floats a
   // particle
   static constexpr int extra(int cap) { return 4 * cap; }

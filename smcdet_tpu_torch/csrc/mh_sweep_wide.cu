@@ -1,5 +1,6 @@
 // The wide route of kernels K2g and K3g (mh_sweep_k2g.cu, mh_sweep_k3g.cu):
-// tiles above 1024 pixels, whose rate caches no lane's registers hold.
+// tiles above 4096 pixels, and shapes where not even one warp of particles'
+// caches and proposals fits a block's shared memory beside the image.
 //
 // Replaces, with them, the TPU kernel
 // smcdet_tpu/ops/pallas_sweep.py:_make_kernel at those shapes. The sweep loop
@@ -31,17 +32,17 @@ mh_sweep_k3g_kernel_wide(const GenericBuffers B, int N, int M, int H, int W,
   mh_sweep_generic_body<NOISE, PSF, true>(B, N, M, H, W, num_iters, Q);
 }
 
-template <int NOISE, int PSF>
-cudaError_t launch_kind(const GenericBuffers& B, int G, int N, int M, int H,
-                        int W, int num_iters, const GenericParams& Q,
-                        bool child, cudaStream_t s) {
-  if (child) {
-    return launch_generic(mh_sweep_k3g_kernel_wide<NOISE, PSF>, B, G, N, M,
-                          H, W, num_iters, Q, s);
+// the kernel of a noise and PSF kind on the bridge (CHILD) or the tile target
+struct Wide {
+  template <int NOISE, int PSF, bool CHILD>
+  static constexpr auto get() {
+    if constexpr (CHILD) {
+      return mh_sweep_k3g_kernel_wide<NOISE, PSF>;
+    } else {
+      return mh_sweep_k2g_kernel_wide<NOISE, PSF>;
+    }
   }
-  return launch_generic(mh_sweep_k2g_kernel_wide<NOISE, PSF>, B, G, N, M, H,
-                        W, num_iters, Q, s);
-}
+};
 
 }  // namespace
 
@@ -50,21 +51,7 @@ namespace smcdet {
 int launch_mh_wide(const GenericBuffers& B, int G, int N, int M, int H,
                    int W, int num_iters, const GenericParams& Q, bool child,
                    cudaStream_t s) {
-  switch (Q.base.noise_kind * 3 + Q.base.psf_kind) {
-    case 0:
-      return (int)launch_kind<0, 0>(B, G, N, M, H, W, num_iters, Q, child, s);
-    case 1:
-      return (int)launch_kind<0, 1>(B, G, N, M, H, W, num_iters, Q, child, s);
-    case 2:
-      return (int)launch_kind<0, 2>(B, G, N, M, H, W, num_iters, Q, child, s);
-    case 3:
-      return (int)launch_kind<1, 0>(B, G, N, M, H, W, num_iters, Q, child, s);
-    case 4:
-      return (int)launch_kind<1, 1>(B, G, N, M, H, W, num_iters, Q, child, s);
-    case 5:
-      return (int)launch_kind<1, 2>(B, G, N, M, H, W, num_iters, Q, child, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_wide_kinds<Wide>(B, G, N, M, H, W, num_iters, Q, child, s);
 }
 
 }  // namespace smcdet

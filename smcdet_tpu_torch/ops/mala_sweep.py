@@ -4,9 +4,12 @@ version.
 ``mala_sweeps`` runs ``num_iters`` MALA sweeps over a batch of particles, on
 the tile target or, with a ``ChildTerm``, the aggregation bridge's. On a
 CUDA tensor it launches K4 (``csrc/mala_sweep_k4.cu``) on the shapes of K2
-and K3, and K4g (``csrc/mala_sweep_k4g.cu``: one warp per particle, any
-shape and slot count up to what a block's shared memory holds) on every
-other; together they replace
+and K3, and K4g on every other, at any shape and slot count up to what a
+block's shared memory holds: a tile of up to 4096 pixels takes the kernel
+of its pixel class (``csrc/mala_sweep_k4g.cu``; ``mh_sweep.generic_class``,
+the caches in shared memory), a larger one the wide route
+(``csrc/mala_sweep_wide.cu``: one warp per particle, the caches in device
+memory); together they replace
 ``smcdet_tpu/ops/pallas_sweep.py:_make_mala_kernel``. ``mala_kernel`` names
 the kernel and raises above the shared-memory limit. On a CPU tensor it runs
 the plain PyTorch version, ``mala_sweeps_reference``. There is no fallback
@@ -31,7 +34,8 @@ Both versions draw the stream of K1-K3 (``mh_sweep.philox_uniforms``): draw
 are those of ``mh_sweep``. MALA's drift amplifies a last-bit difference
 over the sweeps, so the plain version follows K4 (and K4g) operation by
 operation: it sums the pixels in the kernel's lane order (``lane_sum`` with
-``K4_LANES``, or ``GENERIC_LANES`` where K4g runs),
+``k4_lanes``: ``K4_LANES`` where K4 runs, K4g's ``GENERIC_CLASS_LANES`` by
+pixel class, ``GENERIC_LANES`` on its wide route),
 works out K4's reciprocals (the PSF's widths and normalisers, and one
 reciprocal of the variance or rate per pixel and point that the likelihood
 and its derivative share: ``psf_and_deriv``, ``noise_recip``,
@@ -57,7 +61,6 @@ from smcdet_tpu_torch.models.priors import NormalFlux, ParetoFlux
 from smcdet_tpu_torch.models.psf import SDSSPSF
 from smcdet_tpu_torch.ops import mh_sweep
 from smcdet_tpu_torch.ops.mh_sweep import (
-    GENERIC_LANES,
     ChildTerm,
     flux_prior_delta,
     generic_lanes,
@@ -98,10 +101,12 @@ K4_LANES = {((8, 8), False): 4, ((16, 16), False): 16,
 def k4_lanes(model, bridge: bool, M: int):
     """The lanes per particle of the kernel that runs ``model``'s tile with
     ``M`` slots (the tile target, or with ``bridge`` the aggregation
-    bridge's): ``GENERIC_LANES`` where K4g runs it, else K4's. K4g keeps
-    32 lanes whatever K2g's and K3g's pixel classes take."""
-    if generic_lanes(model, M, bridge) is not None:
-        return GENERIC_LANES
+    bridge's): K4g's where it runs it, which are K2g's and K3g's
+    (``generic_lanes``: its pixel class's ``GENERIC_CLASS_LANES``, or
+    ``GENERIC_LANES`` on its wide route), else K4's (``K4_LANES``)."""
+    lanes = generic_lanes(model, M, bridge)
+    if lanes is not None:
+        return lanes
     return K4_LANES[((model.height, model.width), bridge)]
 
 
@@ -413,7 +418,8 @@ def mala_kernel(prior, model, M: int, child: bool = False) -> str:
     built for it (the tile target on K2's tiles, 8x8 and 16x16 with 1..16
     slots; the aggregation bridge, ``child``, on K3's joined tiles, 16x8
     with 1..16 slots and 16x16 with 1..32), ``"K4g"`` at every other shape
-    and slot count; every noise, PSF and flux prior of K2. Raises
+    and slot count (its pixel class's kernel, ``mh_sweep.generic_class``, or
+    its wide route); every noise, PSF and flux prior of K2. Raises
     ``NotImplementedError`` naming what is missing for a PSF or flux prior
     none covers, and naming the limit where a block needs more shared
     memory than ``mh_sweep.GENERIC_SMEM_LIMIT``."""

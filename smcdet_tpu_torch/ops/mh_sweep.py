@@ -14,7 +14,7 @@ shape and slot count, K2g (``csrc/mh_sweep_k2g.cu``, the tile target) and
 K3g (``csrc/mh_sweep_k3g.cu``, the bridge), at any H, W and M up to what a
 block's shared memory holds (``generic_smem_bytes``): a tile of up to 4096
 pixels takes the kernel of its pixel class (``generic_pixel_class``: 64,
-128, ..., 4096 pixels; lanes per particle ``GENERIC_MH_LANES``, the caches
+128, ..., 4096 pixels; lanes per particle ``GENERIC_CLASS_LANES``, the caches
 in shared memory), a larger one the wide route (one warp per particle, the
 caches in device memory). ``sweep_kernel`` picks one or raises. On a
 CPU tensor it runs the plain PyTorch version, ``mh_sweeps_reference``,
@@ -59,10 +59,11 @@ from smcdet_tpu_torch.models.psf import SDSSPSF, GaussianPSF
 __all__ = [
     "GENERIC_CLASS_MAX_PIXELS",
     "GENERIC_LANES",
-    "GENERIC_MH_LANES",
+    "GENERIC_CLASS_LANES",
     "GENERIC_SMEM_LIMIT",
     "ChildTerm",
     "MHProposal",
+    "class_fits",
     "even_pixels",
     "flux_prior_delta",
     "generic_class",
@@ -378,37 +379,38 @@ K2_MAX_SLOTS = 16
 # K3's joined tiles and the most slots each is built for
 # (csrc/mh_sweep_k3.cu): the two levels of a 2x2 tile grid of 8x8 tiles
 K3_TILES = {(16, 8): 16, (16, 16): 32}
-# K4g and the wide route of K2g and K3g (csrc/mh_sweep_generic.cuh): one
-# warp per particle, and a block's 8 particles' catalogs beside the image and
-# lgamma(image + 1) in dynamic shared memory, which holds at most 227 KB a
-# block on the H100. K2g's and K3g's pixel classes fit wherever that does
-# (csrc/mh_sweep_classes.cuh: launch_classed takes fewer particles a block).
+# The wide routes of K2g, K3g and K4g (csrc/mh_sweep_generic.cuh,
+# csrc/mala_sweep_wide.cu): one warp per particle, and a block's 8
+# particles' catalogs beside the image and lgamma(image + 1) in dynamic
+# shared memory, which holds at most 227 KB a block on the H100. Their pixel
+# classes fit wherever that does (csrc/mh_sweep_classes.cuh: launch_classed
+# takes fewer particles a block).
 GENERIC_LANES = 32
 GENERIC_PARTICLES_PER_BLOCK = 8
 GENERIC_SMEM_LIMIT = 227 * 1024
-# K2g's and K3g's pixel classes (csrc/mh_sweep_classes.cuh) up to 4096
-# pixels, and their lanes per particle by (class, bridge target), as
-# csrc/mh_sweep_k2g.cu's kLanesTile* and csrc/mh_sweep_k3g.cu's
-# kLanesBridge* constants
+# The pixel classes of K2g, K3g and K4g (csrc/mh_sweep_classes.cuh) up to
+# 4096 pixels, and their lanes per particle by (class, bridge target), as
+# that header's kLanesTile* and kLanesBridge* constants (K2g's and K4g's tile
+# target, K3g's and K4g's bridge)
 GENERIC_CLASS_MAX_PIXELS = 4096
-GENERIC_MH_LANES = {(64, False): 4, (128, False): 8, (256, False): 16,
-                    (512, False): 32, (1024, False): 32, (2048, False): 32,
-                    (4096, False): 32,
-                    (64, True): 8, (128, True): 16, (256, True): 32,
-                    (512, True): 32, (1024, True): 32, (2048, True): 32,
-                    (4096, True): 32}
+GENERIC_CLASS_LANES = {(64, False): 4, (128, False): 8, (256, False): 16,
+                       (512, False): 32, (1024, False): 32,
+                       (2048, False): 32, (4096, False): 32,
+                       (64, True): 8, (128, True): 16, (256, True): 32,
+                       (512, True): 32, (1024, True): 32, (2048, True): 32,
+                       (4096, True): 32}
 
 
 def generic_smem_bytes(height: int, width: int, M: int) -> int:
-    """The dynamic shared memory of one block of K4g or of K2g's and K3g's
-    wide route: the image and lgamma(image + 1) (``2 H W`` floats) and 8
+    """The dynamic shared memory of one block of the wide route of K2g, K3g
+    or K4g: the image and lgamma(image + 1) (``2 H W`` floats) and 8
     particles' catalogs (``3 M`` floats each)."""
     return 4 * (2 * height * width + GENERIC_PARTICLES_PER_BLOCK * 3 * M)
 
 
 def generic_pixel_class(pixels: int):
-    """The smallest of K2g's and K3g's pixel classes (64, 128, ..., 4096
-    pixels) that holds a tile of ``pixels``; None above 4096 (the wide
+    """The smallest of the pixel classes of K2g, K3g and K4g (64, 128, ...,
+    4096 pixels) that holds a tile of ``pixels``; None above 4096 (the wide
     route)."""
     cap = 64
     while cap <= GENERIC_CLASS_MAX_PIXELS:
@@ -441,31 +443,43 @@ def _check_generic(shape, M: int, what: str):
             f"(GENERIC_SMEM_LIMIT, 227 KB a block on the H100)")
 
 
+def class_fits(height: int, width: int, per_particle: int,
+               particles: int) -> bool:
+    """Whether a block of ``particles`` particles of a pixel-class kernel
+    (K2g, K3g, K4g), each with ``per_particle`` floats of catalog, caches
+    and proposals, fits ``GENERIC_SMEM_LIMIT`` beside the image and
+    lgamma(image + 1) (csrc/mh_sweep_classes.cuh: classed_smem_bytes)."""
+    return 4 * (2 * height * width + particles * per_particle) <= \
+        GENERIC_SMEM_LIMIT
+
+
 def generic_class(height: int, width: int, M: int, child: bool = False):
-    """The pixel class whose kernel K2g or K3g launches for an ``H x W``
-    tile with ``M`` slots (csrc/mh_sweep_classes.cuh: launch_classes): the
-    smallest that holds the tile, None for the wide route, which takes
+    """The pixel class whose kernel K2g, K3g or K4g launches for an ``H x
+    W`` tile with ``M`` slots (csrc/mh_sweep_classes.cuh: launch_classes):
+    the smallest that holds the tile, None for the wide route, which takes
     tiles above 4096 pixels and those where not even one warp of particles'
-    catalogs, caches and proposals (``3 M + 2 CAP`` floats a particle, the
-    bridge's ``3 M + 4 CAP``) fit ``GENERIC_SMEM_LIMIT`` beside the image."""
+    catalogs, caches and proposals fit ``GENERIC_SMEM_LIMIT`` beside the
+    image: ``3 M + 2 CAP`` floats a particle (its catalog, the rate cache and
+    its proposal), on the bridge ``3 M + 4 CAP`` (the child rate's too), for
+    the MH sweep and the MALA sweep alike."""
     cap = generic_pixel_class(height * width)
-    if cap is None:
+    if cap is None or not class_fits(
+            height, width, 3 * M + (4 if child else 2) * cap,
+            32 // GENERIC_CLASS_LANES[cap, child]):
         return None
-    per_particle = 3 * M + (4 if child else 2) * cap
-    warp = 32 // GENERIC_MH_LANES[cap, child]
-    need = 4 * (2 * height * width + warp * per_particle)
-    return cap if need <= GENERIC_SMEM_LIMIT else None
+    return cap
 
 
 def generic_lanes(model, M: int, child: bool = False):
-    """The lanes per particle of K2g or K3g where one runs the target (the
-    order the plain version sums a particle's pixels in): its pixel class's
-    ``GENERIC_MH_LANES`` (``generic_class``), or ``GENERIC_LANES`` on the
-    wide route; None where K1, K2 or K3 does."""
+    """The lanes per particle of K2g or K3g where one runs the target, and
+    of K4g under MALA (the order the plain version sums a particle's pixels
+    in): its pixel class's ``GENERIC_CLASS_LANES`` (``generic_class``), or
+    ``GENERIC_LANES`` on the wide route; None where K1, K2 or K3 (K4 under
+    MALA) does."""
     if _fixed_shape((model.height, model.width), M, child):
         return None
     cap = generic_class(model.height, model.width, M, child)
-    return GENERIC_LANES if cap is None else GENERIC_MH_LANES[cap, child]
+    return GENERIC_LANES if cap is None else GENERIC_CLASS_LANES[cap, child]
 
 
 class _K2Params(ctypes.Structure):

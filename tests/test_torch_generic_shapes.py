@@ -3,7 +3,7 @@
 K2g, K3g and K4g beyond, a raise above the shared-memory limit), and the
 plain versions of K2g, K3g and K4g (``ops/mh_sweep.py``,
 ``ops/mala_sweep.py``, which sum a particle's pixels in those kernels' lane
-order: K2g's and K3g's lanes by pixel class, K4g's 32) against the JAX
+order: their lanes by pixel class, 32 on the wide routes) against the JAX
 package's MH and MALA sweeps given the same uniforms, on the tile and the
 bridge target (tag and location mode) at the joined shapes of a 4x4 grid of
 8x8 tiles (32x16 with 64 slots, 32x32 with 128), its 32x32 single tile (32
@@ -92,13 +92,13 @@ def test_kernels_route_every_shape(shape, M, bridge, mh, mala):
     assert mh_sweep.sweep_kernel(prior, model, M, child=bridge) == mh
     assert mala_sweep.mala_kernel(prior, model, M, child=bridge) == mala
     # the plain versions sum in the order of the kernel that runs the shape:
-    # K2g's and K3g's lanes by pixel class, K4g's 32 whatever the class
+    # K2g's, K3g's and K4g's lanes by pixel class
     generic = mh.endswith("g")
     cap = mh_sweep.generic_pixel_class(shape[0] * shape[1])
     assert mh_sweep.generic_lanes(model, M, bridge) == (
-        mh_sweep.GENERIC_MH_LANES[cap, bridge] if generic else None)
+        mh_sweep.GENERIC_CLASS_LANES[cap, bridge] if generic else None)
     assert mala_sweep.k4_lanes(model, bridge, M) == (
-        mh_sweep.GENERIC_LANES if generic
+        mh_sweep.GENERIC_CLASS_LANES[cap, bridge] if generic
         else mala_sweep.K4_LANES[(shape, bridge)])
 
 
@@ -161,7 +161,7 @@ def test_every_shape_routed_before_still_launches_a_kernel(bridge):
                 cap = mh_sweep.generic_pixel_class(h * w)
                 wide = cap is None
                 if not wide:
-                    L = mh_sweep.GENERIC_MH_LANES[cap, bridge]
+                    L = mh_sweep.GENERIC_CLASS_LANES[cap, bridge]
                     extra = (4 if bridge else 2) * cap
                     wide = 4 * (2 * h * w + (32 // L) * (3 * M + extra)) \
                         > limit
@@ -170,6 +170,93 @@ def test_every_shape_routed_before_still_launches_a_kernel(bridge):
                                 is None)
                 if wide:
                     assert lanes == mh_sweep.GENERIC_LANES
+
+
+@pytest.mark.parametrize("bridge", [False, True])
+def test_every_mala_shape_takes_its_class_or_the_wide_route(bridge):
+    """Where K4 is not built, every shape and slot count that fits the
+    wide route's block (8 particles' catalogs beside the image) takes K4g,
+    the rest raise: a tile of up to 4096 pixels takes its pixel class's
+    kernel when one warp of particles' catalogs, caches and proposals (``3
+    M + 2 CAP`` floats a particle, ``3 M + 4 CAP`` on the bridge) fits
+    ``GENERIC_SMEM_LIMIT`` beside the image (``generic_class``), the
+    wide route otherwise; the plain version sums in that kernel's lanes."""
+    _, _, poisson = _targets()
+    prior, _, _ = _targets()
+    limit = mh_sweep.GENERIC_SMEM_LIMIT
+    fixed = {(8, 8): 16, (16, 16): 16} if not bridge else {(16, 8): 16,
+                                                           (16, 16): 32}
+    classes = set()
+    for h in (1, 3, 8, 12, 16, 24, 32, 40, 64, 72, 128):
+        for w in (1, 8, 16, 20, 32, 48):
+            model = poisson.with_shape(h, w)
+            for M in (1, 9, 16, 17, 32, 33, 64, 128, 1000, 2400):
+                if M <= fixed.get((h, w), 0):
+                    assert mala_sweep.mala_kernel(prior, model, M,
+                                                  child=bridge) == "K4"
+                    continue
+                if 4 * (2 * h * w + 8 * 3 * M) > limit:
+                    with pytest.raises(NotImplementedError):
+                        mala_sweep.mala_kernel(prior, model, M, child=bridge)
+                    continue
+                assert mala_sweep.mala_kernel(prior, model, M,
+                                              child=bridge) == "K4g"
+                cap = mh_sweep.generic_pixel_class(h * w)
+                wide = cap is None
+                if not wide:
+                    L = mh_sweep.GENERIC_CLASS_LANES[cap, bridge]
+                    extra = (4 if bridge else 2) * cap
+                    wide = 4 * (2 * h * w + (32 // L) * (3 * M + extra)) \
+                        > limit
+                    assert h * w <= cap
+                got = mh_sweep.generic_class(h, w, M, bridge)
+                assert got == (None if wide else cap)
+                assert mala_sweep.k4_lanes(model, bridge, M) == (
+                    mh_sweep.GENERIC_LANES if wide else L)
+                classes.add(got)
+    # every class and the wide route are reached, and the wide route also
+    # below 4096 pixels (a few pixels with thousands of slots)
+    assert classes == {64, 128, 256, 512, 1024, 2048, 4096, None}
+    assert mh_sweep.generic_class(8, 8, 2400, bridge) == (
+        64 if bridge else None)
+
+
+# (class, bridge target) of every K4g kernel, and the wide route (None),
+# with a tile shape each takes
+_K4G_CLASSES = [(cap, bridge, shape) for bridge in (False, True)
+                for cap, shape in ((64, (4, 16)), (128, (16, 8)),
+                                   (256, (32, 8)), (512, (32, 16)),
+                                   (1024, (24, 24)), (2048, (40, 40)),
+                                   (4096, (64, 64)), (None, (72, 64)))]
+
+
+@pytest.mark.parametrize("cap,bridge,shape", _K4G_CLASSES)
+def test_k4_lanes_follow_k4gs_pixel_classes(cap, bridge, shape):
+    """``k4_lanes`` returns K4g's ``GENERIC_CLASS_LANES`` at each of its
+    classes, 64 to 4096 pixels, and ``GENERIC_LANES`` on its wide route;
+    the plain version's gradient sums in that order."""
+    _, _, poisson = _targets()
+    model = poisson.with_shape(*shape)
+    M = 40 if bridge else 17
+    assert mh_sweep.generic_class(*shape, M, bridge) == cap
+    want = (mh_sweep.GENERIC_LANES if cap is None
+            else mh_sweep.GENERIC_CLASS_LANES[cap, bridge])
+    assert mala_sweep.k4_lanes(model, bridge, M) == want
+    rng = np.random.default_rng(shape[0] * shape[1])
+    x = torch.from_numpy(rng.normal(0.0, 100.0, (2, shape[0] * shape[1]))
+                         .astype(np.float32))
+    ones = torch.ones_like(x)
+    prior = _targets()[0]
+    # image 0 and rate 1 under Poisson noise: dll/drate = -1 at every pixel;
+    # psi = x, the rest 1; on the bridge a child term outside its window
+    kw = dict(child_rate=ones, window=torch.zeros_like(x)) if bridge else {}
+    _, gf = mala_sweep.slot_gradient(
+        prior, model, torch.zeros_like(x), torch.ones(2),
+        torch.ones(2, dtype=torch.bool), torch.ones(2), (x, ones, ones, ones),
+        ones, M, **kw)
+    assert torch.equal(gf, mh_sweep.lane_sum(-ones * x, want)
+                       * model.adu_per_nmgy
+                       + mala_sweep.flux_log_prob_grad(prior, torch.ones(2)))
 
 
 def test_kernels_raise_without_a_slot():
@@ -290,9 +377,9 @@ _FIELDS = ("locs", "fluxes", "rate", "parent_ll", "logprior", "child_rate",
 @pytest.mark.parametrize("bridge", [False, True, "location"])
 @pytest.mark.parametrize("shape,M", _SHAPES)
 def test_one_plain_sweep_matches_jax(shape, M, bridge, kind):
-    """One plain sweep (the pixel sums in K2g's and K3g's lane order by
-    pixel class, K4g's 32 lanes under MALA) given JAX's
-    uniforms against JAX's sweep. Tolerance: rtol 1e-4 on every output,
+    """One plain sweep (the pixel sums in K2g's, K3g's and K4g's lane order
+    by pixel class) given JAX's uniforms against JAX's sweep. Tolerance:
+    rtol 1e-4 on every output,
     atol 1e-3 on the caches and log-likelihoods, 1e-4 on the rest (f32
     exp / log / ndtri rounding, the pixel-sum order and, under MALA, the
     gradient's sum order inside the drifted means). A particle may differ
@@ -301,10 +388,37 @@ def test_one_plain_sweep_matches_jax(shape, M, bridge, kind):
     or, under MALA, where a drifted mean leaves one of the six truncation
     masses below 1e-3 (``mala_sweep.smallest_box_mass``); at most 2 of the
     48 particles."""
-    jctx, pctx, counts, locs, fluxes = _problem(shape, M, bridge)
+    _, pctx, *_ = _problem(shape, M, bridge)
     assert mh_sweep.generic_lanes(pctx.model, M, bool(bridge)) == \
-        mh_sweep.GENERIC_MH_LANES[mh_sweep.generic_pixel_class(
+        mh_sweep.GENERIC_CLASS_LANES[mh_sweep.generic_pixel_class(
             shape[0] * shape[1]), bool(bridge)]
+    _one_plain_sweep(shape, M, bridge, kind)
+
+
+# (shape, slots) of K4g off the paths: the 128-pixel class (16x8 with 17
+# slots: past K4's on the bridge) and the wide route (72x64, 4608 pixels)
+_MALA_SHAPES = [((16, 8), 17), ((72, 64), 8)]
+
+
+@pytest.mark.parametrize("bridge", [False, True, "location"])
+@pytest.mark.parametrize("shape,M", _MALA_SHAPES)
+def test_one_plain_mala_sweep_matches_jax_off_the_paths(shape, M, bridge):
+    """``test_one_plain_sweep_matches_jax`` under MALA at K4g's 128-pixel
+    class (its lanes, ``GENERIC_CLASS_LANES``) and on its wide route (32
+    lanes), at that test's tolerance."""
+    _, pctx, *_ = _problem(shape, M, bridge)
+    cap = mh_sweep.generic_class(*shape, M, bool(bridge))
+    assert mala_sweep.k4_lanes(pctx.model, bool(bridge), M) == (
+        mh_sweep.GENERIC_LANES if cap is None
+        else mh_sweep.GENERIC_CLASS_LANES[cap, bool(bridge)])
+    assert (cap is None) == (shape == (72, 64))
+    _one_plain_sweep(shape, M, bridge, "mala")
+
+
+def _one_plain_sweep(shape, M, bridge, kind):
+    """One plain sweep of ``kind`` against JAX's on ``_problem(shape, M,
+    bridge)``, held as ``test_one_plain_sweep_matches_jax`` says."""
+    jctx, pctx, counts, locs, fluxes = _problem(shape, M, bridge)
     kernel = _kernel(kind)
     state = jax.jit(jax_init_state)(jctx, counts, locs, fluxes)
     key = jax.random.key(11)

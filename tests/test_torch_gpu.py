@@ -603,6 +603,17 @@ _GENERIC_CASES = [
     ("K4g", "m71", (32, 16), "tag", 64, 1001, 37, None),
     ("K4g", "m71", (32, 32), "tag", 128, 999, 20, None),
     ("K4g", "m71", (32, 16), "location", 64, 999, 20, None),
+    # K4g's classes no path reaches (64, 128, 256 and 2048 pixels, on both
+    # targets) and its wide route past 4096 pixels
+    ("K4g", "poisson", (8, 8), None, 17, 1001, 37, None),
+    ("K4g", "poisson", (16, 8), None, 16, 1001, 37, None),
+    ("K4g", "m71", (16, 8), "location", 17, 999, 20, None),
+    ("K4g", "m71", (16, 16), "tag", 33, 1001, 20, None),
+    ("K4g", "m71", (8, 8), "tag", 9, 1001, 37, None),
+    ("K4g", "poisson", (40, 40), None, 12, 257, 20, None),
+    ("K4g", "m71", (48, 32), "tag", 40, 257, 20, None),
+    ("K4g", "poisson", (72, 64), None, 12, 129, 20, None),
+    ("K4g", "m71", (72, 64), "location", 20, 129, 20, None),
 ]
 
 

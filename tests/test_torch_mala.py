@@ -663,23 +663,42 @@ def test_run_csmc_with_mala_matches_jax():
     assert 0.5 * np.abs(pmfs[0] - pmfs[1]).sum() <= 0.05, pmfs
 
 
-@pytest.mark.parametrize("target", sorted(mala_sweep.K4_LANES))
+# K4g's targets beside K4's: ((height, width), bridge, slots), a tile of
+# each pixel class of both targets (40x40 a ragged one in the 2048 class)
+_K4G_TARGETS = [(shape, bridge, 16) for bridge, shapes in (
+    (False, ((4, 16), (16, 8), (32, 8), (32, 16), (32, 32), (40, 40),
+             (64, 64))),
+    (True, ((8, 8), (8, 16), (32, 8), (32, 16), (32, 32), (48, 32),
+            (64, 64)))) for shape in shapes]
+
+
+@pytest.mark.parametrize("target",
+                         sorted(mala_sweep.K4_LANES) + _K4G_TARGETS)
 def test_lane_sum_adds_in_the_kernels_order(target):
-    """``lane_sum`` is K4's sum, bit for bit, at the lane count K4 takes on
-    each target (``K4_LANES``): each of L lanes adds its pixels ``lane +
-    L k`` in turn from 0, then every lane adds its ``__shfl_xor_sync``
-    partner's total at offsets L/2, L/4, ..., 1 (all lanes end with the
-    same bits). ``K4_LANES`` repeats ``csrc/mala_sweep_k4.cu``'s
-    ``kLanes*`` constants."""
-    (h, w), bridge = target
-    hw, L = h * w, mala_sweep.K4_LANES[target]
-    assert torch_lane_variant.k4_source_lanes()[target] == L
+    """``lane_sum`` is K4's and K4g's sum, bit for bit, at the lane count
+    each takes on each target (``K4_LANES``; K4g's ``GENERIC_CLASS_LANES`` by
+    pixel class): each of L lanes adds its pixels ``lane + L k`` in turn
+    from 0 (0 past a ragged tile's last pixel), then every lane adds its
+    ``__shfl_xor_sync`` partner's total at offsets L/2, L/4, ..., 1 (all
+    lanes end with the same bits). ``K4_LANES`` repeats
+    ``csrc/mala_sweep_k4.cu``'s ``kLanes*`` constants,
+    ``GENERIC_CLASS_LANES`` ``csrc/mh_sweep_classes.cuh``'s."""
+    (h, w), bridge, *slots = target
+    hw = h * w
+    if slots:
+        cap = mh_sweep.generic_class(h, w, slots[0], bridge)
+        L = mh_sweep.GENERIC_CLASS_LANES[cap, bridge]
+        assert torch_lane_variant.generic_source_lanes()[cap, bridge] == L
+    else:
+        L = mala_sweep.K4_LANES[target]
+        assert torch_lane_variant.k4_source_lanes()[target] == L
     rng = np.random.default_rng(hw + L)
     x = (rng.standard_normal(hw) * 10.0 ** rng.uniform(-3, 3, hw)).astype(
         np.float32)
     lanes = [np.float32(0.0)] * L
-    for k in range(hw // L):
-        lanes = [lanes[i] + x[i + L * k] for i in range(L)]
+    for k in range(-(-hw // L)):
+        lanes = [lanes[i] + (x[i + L * k] if i + L * k < hw
+                             else np.float32(0.0)) for i in range(L)]
     off = L // 2
     while off:
         lanes = [lanes[i] + lanes[i ^ off] for i in range(L)]

@@ -7,6 +7,7 @@ and SASS verdict (``tests/torch_kernel_compare.py``), the lane-count variant
 ``chip_smoke.launch_agreement``'s bars and ``chip_smoke.print_paths``'
 ranking."""
 
+import re
 import sys
 from pathlib import Path
 
@@ -92,6 +93,27 @@ def test_sass_names_drop_the_anonymous_namespace_hash():
     assert sass.stable_name("_Z3fooPfi") == "_Z3fooPfi"
 
 
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN51_GLOBAL__N__7c0c995a_18_mala_sweep_wide_cu_d86c9e5826mala_sweep_"
+     "k4g_kernel_wideILi1ELi2ELb0EEEv14GenericBuffersiiiii13GenericParams",
+     "mala_sweep_k4g_kernel_wide<1,2,0>"),
+    ("_ZN49_GLOBAL__N__22055e90_16_mh_sweep_wide_cu_f9d0bc0724mh_sweep_k2g_"
+     "kernel_wideILi1ELi2EEEv14GenericBuffersiiiii13GenericParams",
+     "mh_sweep_k2g_kernel_wide<1,2>"),
+    ("_ZN_GLOBAL__N_21mala_sweep_k4g_kernelILi1024ELi32ELi0ELi1ELb1EEEv14"
+     "GenericBuffersiiiii13GenericParams",
+     "mala_sweep_k4g_kernel<1024,32,0,1,1>")])
+def test_kernel_labels_of_class_and_wide_kernels(mangled, label):
+    """A pixel-class kernel and a wide route's kernel, as ``nvcc -Xptxas
+    -v`` names them (with the anonymous namespace's hash) or as
+    ``torch_sass.stable_name`` leaves them, get their ``name<args>`` label,
+    whose kernel id is their kernel's."""
+    assert chip_smoke._kernel_label(mangled) == label
+    assert chip_smoke._kernel_label(sass.stable_name(mangled)) == label
+    assert chip_smoke.kernel_id(label) == (
+        "K4g" if label.startswith("mala") else "K2g")
+
+
 def test_sass_loops_and_loop_sizes():
     body = sass.functions(SASS.format(a=1, b=0, c=2, d=3))["_Z3fooPfi"]
     # the outer loop FADD .. @!P1 BRA (5 instructions), the inner FMUL ..
@@ -123,6 +145,8 @@ def test_sass_branch_to_an_address_becomes_a_label():
     ("mh_sweep_k3g_kernel<512,32,0,1>", "K3g"),
     ("mh_sweep_k3g_kernel_wide<0,2>", "K3g"),
     ("mala_sweep_k4g_kernel<0,1,true>", "K4g"),
+    ("mala_sweep_k4g_kernel<1024,32,0,1,true>", "K4g"),
+    ("mala_sweep_k4g_kernel_wide<1,2,false>", "K4g"),
     ("at::native::vectorized_elementwise_kernel<4>", None)])
 def test_kernel_ids_of_kernel_names(name, kid):
     assert chip_smoke.kernel_id(name) == kid
@@ -210,23 +234,29 @@ def test_lane_variant_sets_k3_lanes(tmp_path):
 
 
 def test_generic_lanes_fit_the_kernels_layout():
-    """K2g's and K3g's ``constexpr int kLanesTile<CAP>`` and
-    ``kLanesBridge<CAP>`` lines, read by the lane variant's parser, are
-    ``ops/mh_sweep.py:GENERIC_MH_LANES`` (the plain version's lane order);
-    each divides a warp and its class, holds the three proposal lanes and
-    leaves at most 32 pixels a lane up to 1024 pixels (a lane's registers;
-    the larger classes keep their caches in shared memory). K4g keeps one
-    warp a particle at every class."""
+    """The pixel classes' ``constexpr int kLanesTile<CAP>`` and
+    ``kLanesBridge<CAP>`` lines (``csrc/mh_sweep_classes.cuh``, the one
+    place that sets them for K2g, K3g and K4g), read by the lane variant's
+    parser, are ``ops/mh_sweep.py:GENERIC_CLASS_LANES`` (the plain
+    versions' lane order); each divides a warp and its class, holds the
+    three proposal lanes and leaves at most 32 pixels a lane up to 1024
+    pixels (a lane's registers; the larger classes keep their caches in
+    shared memory). ``generic_lanes`` and ``k4_lanes`` take them (32 on the
+    wide route)."""
     from smcdet_tpu_torch.models.imaging import ImageModel
     from smcdet_tpu_torch.models.psf import GaussianPSF
     from smcdet_tpu_torch.ops import mala_sweep, mh_sweep
 
     lanes = variant.generic_source_lanes()
-    assert lanes == mh_sweep.GENERIC_MH_LANES
+    assert lanes == mh_sweep.GENERIC_CLASS_LANES
     assert {cap for cap, _ in lanes} == set(variant.GENERIC_CLASSES)
     for (cap, bridge), L in lanes.items():
         assert 32 % L == 0 and L >= 4 and cap % L == 0
         assert cap // L <= 32 or cap > 1024
+    for src in sorted((ROOT_PKG / "csrc").iterdir()):
+        if src.name != variant.GENERIC_SOURCE:
+            assert not [name for name in variant._constants(src.read_text())
+                        if re.fullmatch(r"kLanes(Tile|Bridge)\d+", name)]
     model = ImageModel(8, 8, 4, GaussianPSF(1.0, device="cpu"),
                        noise="poisson", background=100.0, device="cpu")
     for (h, w) in ((8, 8), (16, 8), (16, 16), (32, 16), (32, 32), (24, 24),
@@ -236,15 +266,15 @@ def test_generic_lanes_fit_the_kernels_layout():
             cap = mh_sweep.generic_pixel_class(h * w)
             want = 32 if cap is None else lanes[cap, bridge]
             assert mh_sweep.generic_lanes(m, 40, bridge) == want
-            assert mala_sweep.k4_lanes(m, bridge, 40) == 32
-    k4g = (ROOT_PKG / "csrc" / "mala_sweep_k4g.cu").read_text()
-    assert "const int lane = threadIdx.x % 32;" in k4g
+            assert mala_sweep.k4_lanes(m, bridge, 40) == want
+    wide = (ROOT_PKG / "csrc" / "mala_sweep_wide.cu").read_text()
+    assert "const int lane = threadIdx.x % 32;" in wide
 
 
 def test_lane_variant_sets_generic_lanes(tmp_path):
-    """``--k2g`` and ``--k3g`` change K2g's and K3g's class lanes in the
-    copy's sources and its ``GENERIC_MH_LANES``, ``--set`` any other
-    constant of a source (here K3g's ``kUnroll`` and K2g's
+    """``--k2g`` and ``--k3g`` change the class lanes of the tile target
+    and the bridge in the copy's header and its ``GENERIC_CLASS_LANES``,
+    ``--set`` any other constant of a source (here K3g's ``kUnroll`` and K2g's
     ``kMinBlocks``), ``--contract`` the copy's ``SOURCE_FLAGS``; nothing
     else of the kernels' sources changes."""
     import importlib.util
@@ -261,7 +291,7 @@ def test_lane_variant_sets_generic_lanes(tmp_path):
         "variant_mh_sweep", pkg / "ops" / "mh_sweep.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    assert mod.GENERIC_MH_LANES == want
+    assert mod.GENERIC_CLASS_LANES == want
     k3g = (pkg / "csrc" / "mh_sweep_k3g.cu").read_text()
     assert "constexpr int kUnroll = 8;" in k3g
     k2g = variant._constants((pkg / "csrc" / "mh_sweep_k2g.cu").read_text())
@@ -274,7 +304,8 @@ def test_lane_variant_sets_generic_lanes(tmp_path):
     del want_flags["mh_sweep_k3g.cu"]
     assert build.SOURCE_FLAGS == want_flags
     for src in sorted((ROOT_PKG / "csrc").iterdir()):
-        if src.name not in ("mh_sweep_k2g.cu", "mh_sweep_k3g.cu"):
+        if src.name not in ("mh_sweep_k2g.cu", "mh_sweep_k3g.cu",
+                            variant.GENERIC_SOURCE):
             assert (pkg / "csrc" / src.name).read_text() == src.read_text()
     assert variant.k4_source_lanes(pkg) == variant.k4_source_lanes()
     assert variant.k3_source_lanes(pkg) == variant.k3_source_lanes()
@@ -356,8 +387,9 @@ def test_build_of_a_variant_compiles_every_source_with_its_flags(fake_nvcc):
     assert full["path"] != info["path"]
     assert sorted(Path(c[-1]).name for c in default
                   if "-fmad=false" in c) == [
-        "mala_sweep_k4.cu", "mala_sweep_k4g.cu", "mh_sweep_k2g.cu",
-        "mh_sweep_k3g.cu", "mh_sweep_wide.cu"]
+        "mala_sweep_k4.cu", "mala_sweep_k4g.cu", "mala_sweep_k4g_bridge.cu",
+        "mala_sweep_wide.cu", "mh_sweep_k2g.cu", "mh_sweep_k3g.cu",
+        "mh_sweep_wide.cu"]
 
     again = _build.build(source_flags=flags)
     assert again["path"] == info["path"] and again["seconds"] == 0.0

@@ -8,7 +8,7 @@ in one process.
 commit unpacked into a directory that ``.gitignore`` lists, such as
 ``.scratch/parent``), or a copy of this one with a constant changed (a
 variant). ``--kernel`` names the kernels under comparison (K1 to K5, K2g,
-K3g). The
+K3g, K4g). The
 script builds that checkout's kernel library with its own ``_build.py`` and
 this checkout's library, both at once, and runs each library through its
 own checkout's wrappers (``ops/mh_sweep.py`` and ``ops/mala_sweep.py``, with
@@ -30,9 +30,10 @@ their plain versions), everything else from this checkout. Then it prints:
   (``chip_smoke.launch_agreement``);
 - with ``--end-to-end``: the paths of the named kernels (``END_TO_END``)
   under the earlier library and this checkout's (earlier, this, this,
-  earlier; the cells batch earlier, this); K2g's and K3g's are one image of
-  chip_smoke.py's ``[dnc4]``: through the single 32x32 tile, cut to
-  ``DNC4_SINGLE_ITERS`` SMC iterations, and through the 4x4 tree;
+  earlier; the cells batch earlier, this); K2g's, K3g's and K4g's are one
+  image of chip_smoke.py's ``[dnc4]``: through the single 32x32 tile, cut
+  to ``DNC4_SINGLE_ITERS`` SMC iterations, and through the 4x4 tree under
+  MH and under MALA;
 - with ``--dnc-seeds S ...``: chip_smoke.py's batch of 4 divideandconquer
   images (the images of the config's seed) with the sampler seeded by each
   S, under MH if K1 or K3 is named and under MALA if K4 is, under both
@@ -63,10 +64,13 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K2g", "K3g")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K2g", "K3g", "K4g")
 # The launch shapes each kernel is timed at: the paths whose launches
-# chip_smoke.py's [paths] counts (K5, the chains, has none); K2g's and
-# K3g's are the first launches of one [dnc4] image (dnc4_captures)
+# chip_smoke.py's [paths] counts (K5, the chains, has none); K2g's, K3g's
+# and K4g's are the first launches of one [dnc4] image (dnc4_captures; K4g
+# at level 3 at the MH run's state where the MALA run launched nothing
+# there, and on the single tile's first groups at its MH state, as
+# chip_smoke.py's [dnc4])
 SHAPES = {
     "K1": ("quick cell", "divideandconquer tile"),
     "K2": ("cells", "basic"),
@@ -77,6 +81,8 @@ SHAPES = {
     "K2g": ("dnc4 single tile", "off-path 16x16 tile"),
     "K3g": ("dnc4 bridge level 2", "dnc4 bridge level 3",
             "off-path 16x16 bridge"),
+    "K4g": ("dnc4 bridge level 2 under MALA", "dnc4 bridge level 3 under MALA",
+            "dnc4 single tile's first groups under MALA"),
 }
 # A class of K2g and K3g below those the paths launch (which keep their
 # caches in registers): (height, width, slots), on [dnc4]'s model and prior
@@ -93,6 +99,7 @@ END_TO_END = {
     "K4": ("basic under MALA", "divideandconquer image under MALA"),
     "K2g": ("dnc4 single tile run",),
     "K3g": ("dnc4 image",),
+    "K4g": ("dnc4 image under MALA",),
 }
 # [dnc4]'s bridge levels 2 and 3: (height, width, slots)
 DNC4_LEVELS = {2: (32, 16, 64), 3: (32, 32, 128)}
@@ -298,18 +305,18 @@ def _dnc4_configs(tmp: str, images: int) -> dict:
     return cfgs
 
 
-def dnc4_run(dev, tmp, single: bool, iters=None, capture=None):
-    """One ``[dnc4]`` image, through the 4x4 tree under MH or with
-    ``single`` through the single 32x32 tile cut to ``iters`` SMC
-    iterations, its mutate calls captured into ``capture``; returns the
-    wall per image (the runner's)."""
+def dnc4_run(dev, tmp, config: str, iters=None, capture=None):
+    """One ``[dnc4]`` image of the derived ``config``: through the 4x4 tree
+    under MH ("dnc") or MALA ("mala"), or through the single 32x32 tile
+    ("singletile") cut to ``iters`` SMC iterations, its mutate calls
+    captured into ``capture``; returns the wall per image (the runner's)."""
     import chip_smoke as cs
     from smcdet_tpu_torch.run_experiment import load_suite_config
 
     cfgs = _dnc4_configs(tmp, 1)
-    cfg = load_suite_config(str(cfgs["singletile" if single else "dnc"]))
+    cfg = load_suite_config(str(cfgs[config]))
     cfg.num_images = cfg.batch_size = 1
-    if single:
+    if config == "singletile":
         cfg.sampler.max_smc_iters = iters
         _, _, res = cs._entry_batch(dev, cfg, "dnc4 single tile", tmp,
                                     capture, tempered=False)
@@ -354,16 +361,18 @@ def off_path_problem(dev, kid, key):
             cs._flat_child(ctx, counts, state))
 
 
-def dnc4_captures(dev):
+def dnc4_captures(dev, mala=False):
     """The first launch of each shape of one ``[dnc4]`` image: ``(tree,
     single)``, chip_smoke.py's captures (``{(kind, bridge, H, W, M):
-    (kernel, ctx, counts, state)}``) of the 4x4 tree under MH and of one
-    SMC iteration of the single 32x32 tile."""
+    (kernel, ctx, counts, state)}``) of the 4x4 tree under MH (and with
+    ``mala`` under MALA, into the same dict) and of one SMC iteration of
+    the single 32x32 tile."""
     tree, single = {}, {}
+    for config in ("dnc", "mala") if mala else ("dnc",):
+        with tempfile.TemporaryDirectory() as tmp:
+            dnc4_run(dev, tmp, config, capture=tree)
     with tempfile.TemporaryDirectory() as tmp:
-        dnc4_run(dev, tmp, False, capture=tree)
-    with tempfile.TemporaryDirectory() as tmp:
-        dnc4_run(dev, tmp, True, iters=1, capture=single)
+        dnc4_run(dev, tmp, "singletile", iters=1, capture=single)
     return tree, single
 
 
@@ -412,8 +421,8 @@ def launch_problems(dev, kernels) -> dict:
                         cs._flat_child(ctx, counts, state), counts.shape[1])
                     out[kid, f"bridge level {i}{suffix}"] = (args, child,
                                                              kid == "K4")
-    if {"K2g", "K3g"} & set(kernels):
-        tree, single = dnc4_captures(dev)
+    if {"K2g", "K3g", "K4g"} & set(kernels):
+        tree, single = dnc4_captures(dev, mala="K4g" in kernels)
         if "K2g" in kernels:
             kernel, ctx, counts, state = single[("mh", False, 32, 32, 32)]
             out["K2g", "dnc4 single tile"] = (cs._sweep_args(
@@ -426,6 +435,21 @@ def launch_problems(dev, kernels) -> dict:
                     cs._sweep_args(key, kernel, ctx, counts, state,
                                    kernel.num_iters),
                     cs._flat_child(ctx, counts, state), False)
+        if "K4g" in kernels:
+            mala = tree[("mala", False, 8, 8, 8)][0]
+            for level, (h, w, M) in DNC4_LEVELS.items():
+                # the MH run's state where the MALA run launched nothing
+                _, ctx, counts, state = tree.get(("mala", True, h, w, M),
+                                                 tree[("mh", True, h, w, M)])
+                out["K4g", f"dnc4 bridge level {level} under MALA"] = (
+                    cs._sweep_args(key, mala, ctx, counts, state,
+                                   mala.num_iters),
+                    cs._flat_child(ctx, counts, state), True)
+            _, ctx, counts, state = single[("mh", False, 32, 32, 32)]
+            out["K4g", "dnc4 single tile's first groups under MALA"] = (
+                cs._groups(cs._sweep_args(key, mala, ctx, counts, state,
+                                          mala.num_iters),
+                           None, cs.DNC4_SINGLE_GROUPS)[0], None, True)
         for kid in {"K2g", "K3g"} & set(kernels):
             out[kid, f"off-path 16x16 {'bridge' if kid == 'K3g' else 'tile'}"
                 ] = (*off_path_problem(dev, kid, key), False)
@@ -506,8 +530,9 @@ def end_to_end(dev, use, kernels) -> None:
             if path == "quick cell":
                 return cs.phase_main_path(dev)[1]
             if path.startswith("dnc4"):
-                return dnc4_run(dev, tmp, "single tile" in path,
-                                iters=cs.DNC4_SINGLE_ITERS)
+                config = ("singletile" if "single tile" in path else "mala"
+                          if path.endswith("under MALA") else "dnc")
+                return dnc4_run(dev, tmp, config, iters=cs.DNC4_SINGLE_ITERS)
             mala = path.endswith("under MALA")
             suite = path.split()[0]
             steps = None

@@ -16,9 +16,10 @@ and K4's ``kLanes*`` (``csrc/mala_sweep_k4.cu``) set as asked, and
 ``ops/mala_sweep.py:K4_LANES`` set to match, so that the copy's plain
 version sums in its kernel's lane order (the plain MH version sums with
 ``.sum``, whatever K3's lanes). ``--k2g`` and ``--k3g`` set the lanes of
-K2g's and K3g's pixel classes (``kLanesTile<CAP>`` of
-``csrc/mh_sweep_k2g.cu``, ``kLanesBridge<CAP>`` of ``csrc/mh_sweep_k3g.cu``)
-and ``ops/mh_sweep.py:GENERIC_MH_LANES`` with them; ``--contract``
+the pixel classes of the tile target (K2g and K4g) and of the bridge (K3g
+and K4g): ``kLanesTile<CAP>`` and ``kLanesBridge<CAP>`` of
+``csrc/mh_sweep_classes.cuh``, and ``ops/mh_sweep.py:GENERIC_CLASS_LANES``
+with them; ``--contract``
 compiles the named sources (``mh_sweep_k2g.cu`` ...) without their
 ``-fmad=false`` (``_build.py:SOURCE_FLAGS``), so that multiplies and adds
 contract into FMAs; ``--set`` sets any other ``constexpr int`` of a source in
@@ -26,8 +27,8 @@ contract into FMAs; ``--set`` sets any other ``constexpr int`` of a source in
 an SM that ``__launch_bounds__`` names, the pixels K2g's and K3g's loop
 unrolls, ``kUnroll``). It fails if a constant is not where it expects it.
 ``k3_source_lanes``, ``k4_source_lanes`` and ``generic_source_lanes`` read
-K3's, K4's and K2g's and K3g's constants; ``K4_LANES`` must repeat K4's
-and ``GENERIC_MH_LANES`` K2g's and K3g's.
+K3's, K4's and the pixel classes' constants; ``K4_LANES`` must repeat K4's
+and ``GENERIC_CLASS_LANES`` the classes'.
 """
 
 from __future__ import annotations
@@ -47,10 +48,11 @@ K4_TARGETS = {"8x8": ("kLanes8x8", ((8, 8), False)),
               "16x16": ("kLanes16x16", ((16, 16), False)),
               "bridge16x8": ("kLanesBridge16x8", ((16, 8), True)),
               "bridge16x16": ("kLanesBridge16x16", ((16, 16), True))}
-# K2g's and K3g's pixel classes, and each target's source and constants
+# the pixel classes of K2g, K3g and K4g, the header that holds their lanes,
+# and each target's constants
 GENERIC_CLASSES = (64, 128, 256, 512, 1024, 2048, 4096)
-GENERIC_SOURCES = {False: ("mh_sweep_k2g.cu", "kLanesTile"),
-                   True: ("mh_sweep_k3g.cu", "kLanesBridge")}
+GENERIC_SOURCE = "mh_sweep_classes.cuh"
+GENERIC_PREFIXES = {False: "kLanesTile", True: "kLanesBridge"}
 
 
 def _constants(text: str) -> dict:
@@ -73,15 +75,13 @@ def k3_source_lanes(pkg: Path = ROOT / "smcdet_tpu_torch") -> dict:
 
 
 def generic_source_lanes(pkg: Path = ROOT / "smcdet_tpu_torch") -> dict:
-    """K2g's and K3g's lanes per particle as ``csrc/mh_sweep_k2g.cu`` and
-    ``csrc/mh_sweep_k3g.cu`` set them, keyed as
-    ``ops/mh_sweep.py:GENERIC_MH_LANES``: ``(class, bridge target)``."""
-    out = {}
-    for bridge, (name, prefix) in GENERIC_SOURCES.items():
-        found = _constants((pkg / "csrc" / name).read_text())
-        out.update({(cap, bridge): found[f"{prefix}{cap}"]
-                    for cap in GENERIC_CLASSES})
-    return out
+    """The pixel classes' lanes per particle as
+    ``csrc/mh_sweep_classes.cuh`` sets them, keyed as
+    ``ops/mh_sweep.py:GENERIC_CLASS_LANES``: ``(class, bridge target)``."""
+    found = _constants((pkg / "csrc" / GENERIC_SOURCE).read_text())
+    return {(cap, bridge): found[f"{prefix}{cap}"]
+            for bridge, prefix in GENERIC_PREFIXES.items()
+            for cap in GENERIC_CLASSES}
 
 
 def _set_constant(text: str, name: str, value: int) -> str:
@@ -130,15 +130,15 @@ def write_variant(out: Path, mh_8x8=None, k4=None, k3=None, k2g=None,
     for bridge, lanes in ((False, k2g), (True, k3g)):
         if not lanes:
             continue
-        name, prefix = GENERIC_SOURCES[bridge]
-        src, ops = pkg / "csrc" / name, pkg / "ops" / "mh_sweep.py"
+        prefix = GENERIC_PREFIXES[bridge]
+        src, ops = pkg / "csrc" / GENERIC_SOURCE, pkg / "ops" / "mh_sweep.py"
         text, py = src.read_text(), ops.read_text()
         for cap, value in lanes.items():
             text = _set_constant(text, f"{prefix}{cap}", value)
             py, n = re.subn(rf"({re.escape(repr((cap, bridge)))}: )\d+",
                             rf"\g<1>{value}", py)
             if n != 1:
-                raise ValueError(f"GENERIC_MH_LANES has no entry "
+                raise ValueError(f"GENERIC_CLASS_LANES has no entry "
                                  f"{(cap, bridge)}")
         src.write_text(text)
         ops.write_text(py)
