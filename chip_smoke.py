@@ -186,7 +186,13 @@ Phases (a failing phase raises; there is no CPU fallback):
     at 8 runs, N 512 and 2048, 10 and 100 sweeps (K1) and split_mode_study
     at 8 chains x 150 sweeps (K1 at N = 1, the reversible-jump anchors
     plain), every tile-level SMC run at temperature 1 with a finite log Z
-    and weights summing to 1; then K1 and K2 at the launch shapes the
+    and weights summing to 1; each figure-data file those studies write
+    (``smcdet_tpu_torch/figures.py``'s names: misspec's report,
+    simulator_checks', repeated_runs' grid, split_mode's) read back with
+    its keys and shapes, finite, and the JSON's figures recomputed from
+    it and equal (the KS statistics and the posterior-predictive quantile,
+    the widths, the rounded pooled pmfs); no figure is drawn on the card;
+    then K1 and K2 at the launch shapes the
     studies add at their committed sizes, on the studies' own tiles
     (``launch_agreement``, the bound; the crowded arms' and the oracle's
     single-sweep disagreements classified);
@@ -197,7 +203,9 @@ Phases (a failing phase raises; there is no CPU fallback):
     parameters held to ``experiments/m71/data/m71`` (images to one float32
     ulp) and its fit to the committed one where the likelihood pins it
     (``data_prep.compare``); ``sky_exactness`` and ``psf_comparison`` on
-    the regenerated files held to their committed JSONs; the five-band
+    the regenerated files held to their committed JSONs, psf_comparison's
+    figure data read back (the residual's RMS over the noise recomputed
+    from it equal to the JSON's); the five-band
     frame aligned to the r band on the card against the CPU; then the
     m71 cut of ``[m71]`` (8 tiles, one batch, K2) on the port's own tiles
     and fitted ``params.yaml``;
@@ -206,7 +214,9 @@ Phases (a failing phase raises; there is no CPU fallback):
     sweeps, 200 burn-in, thin 2), after the port's CS-SMC on those
     images: K1 once for the burn-in and once a kept sample, the RJ sweep
     plain, every chain finite, the acceptances in [0, 1], its report
-    printed beside the committed one (not held); K1 at the CS-SMC's launch
+    printed beside the committed one (not held), its figure data read
+    back (the TVD means recomputed equal to the report's); K1 at the
+    CS-SMC's launch
     shape, at the cut's 32 x 1 and at the committed anchor's 800 x 1 (its
     30,000-sweep burn-in and a 2-sweep block) against its plain version
     (``launch_agreement`` pooled over keys) and its bound; the RJ sweep's
@@ -227,8 +237,9 @@ Phases (a failing phase raises; there is no CPU fallback):
     at 32x16 with 64 slots and 32x32 with 128), one under MALA (K4, then
     K4g), the first through the 32x32 single tile (K2g, 32 slots) cut to
     3 SMC iterations (at the config's 100 it reaches temperature 0.039 in
-    96 s) and ``compare_singletile`` on it; every tree level and tile at
-    temperature 1;
+    96 s) and ``compare_singletile`` on it (its figure data read back, the
+    TVD's mean, median and p90 recomputed equal to the JSON's); every tree
+    level and tile at temperature 1;
     K2g, K3g and K4g held against their plain versions at each launch
     shape of the path, K4g also at the single tile's first groups under
     MALA, and at a 24x24 tile with 20 slots off it (``launch_agreement``,
@@ -4268,6 +4279,132 @@ def _m71_studies_run(label, fn, smc=True, tag="m71studies"):
     return out, launches
 
 
+def _figure_data(tag, path, shapes, recomputed):
+    """One figure-data file a study of the phase wrote (``figures.py``'s
+    names): it exists, holds every key of ``shapes`` (key to its shape, or
+    None for any) with every array finite, and ``recomputed(arrays)``, a
+    dict of label to (the figure recomputed from the file, the JSON's),
+    agrees in every label. Prints one line; any miss fails the phase."""
+    with np.load(path) as d:
+        arrays = {k: d[k] for k in d.files}
+    missing = [k for k in shapes if k not in arrays]
+    assert not missing, (path, missing)
+    for key, shape in shapes.items():
+        assert shape is None or arrays[key].shape == shape, (
+            path, key, arrays[key].shape, shape)
+        assert np.isfinite(arrays[key]).all(), (path, key)
+    pairs = recomputed(arrays)
+    unequal = {k: v for k, v in pairs.items() if v[0] != v[1]}
+    print(f"[{tag}] figure data {Path(path).name}: {Path(path).stat().st_size}"
+          f" bytes, {len(arrays)} keys, shapes "
+          f"{ {k: arrays[k].shape for k in shapes} } finite; recomputed "
+          f"from the file = the JSON's: "
+          + ", ".join(f"{k} {a} = {b}" for k, (a, b) in pairs.items()),
+          flush=True)
+    assert not unequal, (path, unequal)
+
+
+def _misspec_figure_data(path, report):
+    """``misspec_study``'s figure reads its JSON alone: the report, at
+    least two variants finished, each with the coverage at every level and
+    by region row."""
+    from smcdet_tpu_torch.figures import MISSPEC_LEVELS
+    from smcdet_tpu_torch.studies import misspec_study
+
+    saved = json.loads(Path(path).read_text())
+    assert saved == json.loads(json.dumps(report)), path
+    rows = f"coverage_{misspec_study.LEVEL}_by_region_row"
+    done = {k: v for k, v in saved["variants"].items() if isinstance(v, dict)}
+    assert len(done) >= 2, saved
+    for name, entry in done.items():
+        assert sorted(entry["total_flux_coverage"]) == sorted(
+            str(lv) for lv in MISSPEC_LEVELS), (name, entry)
+        assert len(entry[rows]) == 4, (name, entry)
+    print(f"[m71studies] figure data {Path(path).name}: "
+          f"{Path(path).stat().st_size} bytes, {len(done)} "
+          f"variants finished, each with its coverage at "
+          f"{list(MISSPEC_LEVELS)} and by 4 bands of region rows", flush=True)
+
+
+def _simulator_figure_data(out, report):
+    from smcdet_tpu_torch.figures import (
+        SIMULATOR_QUANTILES,
+        figure_data_path,
+    )
+    from smcdet_tpu_torch.studies.simulator_checks import ks_statistic
+
+    T = report["tiles"]
+    ks = report["pixel_log_intensity_quantiles"]
+    pp = report["posterior_predictive_image"]
+
+    def recomputed(d):
+        got = {f"KS {q}": (round(ks_statistic(d[f"sq_{q}"], d[f"rq_{q}"]),
+                                 4), ks[q]["ks_statistic"])
+               for q in SIMULATOR_QUANTILES}
+        # a Python float, as the study compares: in float32
+        truth = float(d["true_observed"])
+        got["pp_flux_quantile_of_truth"] = (
+            round(float((d["ppflux"] < truth).mean()), 4),
+            pp["pp_flux_quantile_of_truth"])
+        got["true_total_observed_flux"] = (round(truth, 1),
+                                           pp["true_total_observed_flux"])
+        got["index"] = (int(d["img_idx"]), pp["index"])
+        got["tiles"] = (int(d["T"]), T)
+        return got
+
+    _figure_data("m71studies", figure_data_path(out / "m71",
+                                                "simulator_checks"),
+                 {**{f"{side}_{q}": (T,) for q in SIMULATOR_QUANTILES
+                     for side in ("sq", "rq")},
+                  "ppflux": None, "true_observed": (), "img_idx": (),
+                  "T": ()}, recomputed)
+
+
+def _repeated_figure_data(path, report, reps, Ns, steps):
+    from smcdet_tpu_torch.studies import repeated_runs
+
+    def recomputed(d):
+        got = repeated_runs.summarize(
+            d["logpx"], d["count_pmf"], int(d["image_index"]),
+            report["true_count"], d["num_catalogs"], d["mh_steps"])
+        return {k: (got[k], report[k]) for k in (
+            "image_index", "num_catalogs", "mh_steps",
+            "logpx_mid90_width_at_true_count",
+            "count_prob_mid90_width_at_true_count",
+            "shrinks_with_N_and_steps")}
+
+    grid = (len(Ns), len(steps), reps)
+    _figure_data("m71studies", path, {
+        "logpx": None, "count_pmf": None, "smc_iters": grid,
+        "num_catalogs": (len(Ns),), "mh_steps": (len(steps),),
+        "image_index": ()}, recomputed)
+    with np.load(path) as d:
+        assert d["logpx"].shape[:3] == d["count_pmf"].shape[:3] == grid
+        np.testing.assert_allclose(d["count_pmf"].sum(-1), 1.0, atol=1e-9)
+
+
+def _split_figure_data(out, report):
+    from smcdet_tpu_torch.figures import figure_data_path
+    from smcdet_tpu_torch.studies.split_mode_study import ANCHORS
+
+    anchors = report["anchors"]
+    K = len(anchors["mh"]["pooled_count_pmf"])
+
+    def recomputed(d):
+        got = {f"pooled_count_pmf {a}": (
+            [round(float(p), 4) for p in d[f"pmf_{a}"]],
+            anchors[a]["pooled_count_pmf"]) for a in ANCHORS}
+        got["image_index"] = (int(d["image_index"]), report["image_index"])
+        got["true_flux_nmgy"] = (round(float(d["true_flux"]), 2),
+                                 report["true_flux_nmgy"])
+        got["chains"] = (int(d["chains"]), report["chains"])
+        return got
+
+    _figure_data("m71studies", figure_data_path(out, "split_mode_study"),
+                 {**{f"pmf_{a}": (K,) for a in ANCHORS}, "image_index": (),
+                  "true_flux": (), "chains": ()}, recomputed)
+
+
 def _study_inputs(dev, prior, model, images, backgrounds, N, seed):
     """``_kernel_inputs`` on a study's own tiles: ``images [T, h, w]`` (and
     their ``backgrounds``, or the model's), prior catalogs, temperature
@@ -4464,6 +4601,7 @@ def phase_m71studies(dev, peaks):
         assert all(isinstance(v, dict)
                    for v in report["variants"].values()), report
         print(f"[m71studies] misspec_study: {json.dumps(report)}")
+        _misspec_figure_data(out / "m71" / "misspec_study.json", report)
 
         report, run = _m71_studies_run(
             "simulator_checks", lambda: _quiet(simulator_checks.main, [
@@ -4471,6 +4609,7 @@ def phase_m71studies(dev, peaks):
         assert run["K2"] > 0 and sum(run.values()) == run["K2"], run
         launches["simulator"] = run["K2"]
         print(f"[m71studies] simulator_checks: {json.dumps(report)}")
+        _simulator_figure_data(out, report)
 
         _stage_suite_tiles(out, "m71synthetic")
         reps, Ns, steps = M71STUDIES_REPEATED
@@ -4482,11 +4621,9 @@ def phase_m71studies(dev, peaks):
                 "cuda"]))
         assert run["K1"] > 0 and sum(run.values()) == run["K1"], run
         launches["repeated"] = run["K1"]
-        grid = np.load(out / "m71synthetic" / "repeatedruns_s3.npz")
-        assert np.isfinite(grid["logpx"]).all()
-        np.testing.assert_allclose(grid["count_pmf"].sum(-1), 1.0,
-                                   atol=1e-9)
         print(f"[m71studies] repeated_runs: {json.dumps(report)}")
+        _repeated_figure_data(out / "m71synthetic" / "repeatedruns_s3.npz",
+                              report, reps, Ns, steps)
 
         chains, sweeps = M71STUDIES_SPLIT
         report, run = _m71_studies_run(
@@ -4501,6 +4638,7 @@ def phase_m71studies(dev, peaks):
             assert 0.0 <= entry["acc_rate_mean"] <= 1.0, (name, entry)
             assert abs(sum(entry["pooled_count_pmf"]) - 1.0) < 1e-3
         print(f"[m71studies] split_mode_study: {json.dumps(report)}")
+        _split_figure_data(out / "m71synthetic", report)
     return _m71_study_shapes(dev, peaks), launches
 
 
@@ -4562,6 +4700,31 @@ def _ingest_align(dev, data_dir):
     return ms
 
 
+def _psf_figure_data(out, report):
+    from smcdet_tpu_torch.figures import figure_data_path
+    from smcdet_tpu_torch.studies.psf_comparison import STAMP, fwhm
+
+    psf, star = report["psf"], report["empirical_star"]
+
+    def recomputed(d):
+        return {
+            "residual_rms_over_noise": (round(float(np.sqrt(np.mean(
+                (d["resid"] / d["sigma"]) ** 2))), 3),
+                star["residual_rms_over_noise"]),
+            "tile_index": (int(d["idx"]), star["tile_index"]),
+            "peak_adu": (round(float(d["tile"].max()), 1), star["peak_adu"]),
+            "gaussian_fwhm_px": (float(d["gaussian_fwhm_px"]),
+                                 psf["gaussian_fwhm_px"]),
+            "fitted_model_fwhm_px": (round(fwhm(d["fitted"]), 3),
+                                     psf["fitted_model_fwhm_px"]),
+        }
+
+    _figure_data("ingest", figure_data_path(out, "psf_comparison"), {
+        **{k: (STAMP, STAMP) for k in ("gauss", "survey", "fitted", "diff")},
+        **{k: (8, 8) for k in ("tile", "recon", "resid", "sigma")},
+        "loc": (2,), "idx": (), "gaussian_fwhm_px": ()}, recomputed)
+
+
 def phase_ingest(dev, m71_share):
     """The M71 data front from the survey's bytes to a posterior, in a
     temporary directory: (a) ``make_fixture`` (default seed), (b)
@@ -4611,11 +4774,15 @@ def phase_ingest(dev, m71_share):
         print(f"[ingest] (c) sky_exactness equal to the committed JSON: "
               f"{same} (max abs err {sky['max_abs_err_electrons']:.6g} e-)")
         fails += [] if same else ["sky_exactness.json differs"]
-        _, report = psf_comparison.psf_comparison("config.yaml", tmp, dev)
+        psf_out = Path(tmp) / "psf_comparison"
+        report = _quiet(psf_comparison.main, [
+            "--config", "config.yaml", "--data-root", tmp, "--output-dir",
+            str(psf_out), "--device", str(dev)])
         print("[ingest] (d) psf_comparison m71:")
         fails += compare.hold_psf_comparison(
             report, json.loads((results / "psf_comparison.json")
                                .read_text()), "m71")
+        _psf_figure_data(psf_out / "m71", report)
         align_ms = _ingest_align(dev, tmp)
         print(f"[time] ingest (a)-(e) in {time.perf_counter() - start:.1f} s")
 
@@ -4684,6 +4851,25 @@ def _anchor_chain_shape(dev, label, imgs, prior, model, chain, nb, k, peaks):
                                  ctx, counts, state, nb, k, False, peaks)
 
 
+def _mcmc_figure_data(out, report, n):
+    from smcdet_tpu_torch.figures import MCMC_STATS, figure_data_path
+
+    def recomputed(d):
+        return {
+            "count_pmf_tvd.mean": (round(float(d["tvd"].mean()), 4),
+                                   report["count_pmf_tvd"]["mean"]),
+            "rjmh.count_pmf_tvd_mean": (round(float(d["rj_tvd"].mean()), 4),
+                                        report["rjmh"]["count_pmf_tvd_mean"]),
+            "well_mixed_chains.n": (int(d["mixed"].sum()),
+                                    report["well_mixed_chains"]["n"]),
+            "mcmc_samples": (int(d["num_samples"]), report["mcmc_samples"]),
+        }
+
+    _figure_data("anchor", figure_data_path(out, "mcmc_comparison"),
+                 {**{k: (n,) for k in MCMC_STATS}, "num_samples": ()},
+                 recomputed)
+
+
 def phase_anchor(dev, peaks):
     """``[anchor]``: ``studies/compare_mcmc`` at the cut ``ANCHOR_CUT`` on
     the JAX package's m71synthetic tiles, after the port's CS-SMC on those
@@ -4747,6 +4933,7 @@ def phase_anchor(dev, peaks):
                     "--device", "cuda"]), smc=False, tag="anchor")
         finally:
             compare_mcmc.run_anchors = saved
+        _mcmc_figure_data(out / "m71synthetic", got, n)
     K = num_kept(MCMCConfig(total, burnin, thin))
     assert run["K1"] == 1 + K and sum(run.values()) == run["K1"], run
     launches["anchor"] = run["K1"]
@@ -5068,6 +5255,23 @@ def _dnc4_off_path(dev, mh, mala):
     return records
 
 
+def _singletile_figure_data(out, report):
+    from smcdet_tpu_torch.figures import figure_data_path
+    from smcdet_tpu_torch.studies import tvd_stats
+
+    def recomputed(d):
+        diff = np.abs(d["mean_dc"] - d["mean_st"])
+        return {"count_pmf_tvd": (tvd_stats(d["tvd"]),
+                                  report["count_pmf_tvd"]),
+                "mean_count.mean_abs_diff": (round(float(diff.mean()), 4),
+                                             report["mean_count"][
+                                                 "mean_abs_diff"])}
+
+    n = report["images"]
+    _figure_data("dnc4", figure_data_path(out, "singletile_comparison"),
+                 {"mean_dc": (n,), "mean_st": (n,), "tvd": (n,)}, recomputed)
+
+
 def phase_dnc4(dev, peaks):
     """The divideandconquer suite on 32x32 images through ``run_experiment``
     with the configs ``studies/dnc_grid.py`` derives: ``DNC4_IMAGES`` of the
@@ -5159,6 +5363,7 @@ def phase_dnc4(dev, peaks):
               f"{res['temperature'].ravel().tolist()} after "
               f"{DNC4_SINGLE_ITERS} SMC iterations: {json.dumps(report)}")
         assert report["images"] == DNC4_SINGLE_IMAGES
+        _singletile_figure_data(Path(tmp) / "divideandconquer", report)
 
     print(f"[dnc4] runs in {time.perf_counter() - mark:.1f} s")
     # the new kernels at the path's launch shapes, against plain

@@ -24,10 +24,12 @@ averaged over reps.
 
 Reads ``{output-dir}/m71synthetic/tiles.npz`` and the ``smc`` batches there
 and writes ``mcmc_comparison.json`` beside them (the script's keys and
-rounding, plus ``wall_s``); with ``--figure`` also
-``figures/mcmc_comparison.png`` (``smcdet_tpu_torch/figures.py``, which
-needs matplotlib). ``--device`` defaults to ``cuda`` and is never swapped
-for another device.
+rounding, plus ``wall_s``), and the figure's arrays (``stats``' mean
+counts, well-mixed chains and TVDs, and ``num_samples``) to
+``figure_data/mcmc_comparison.npz``, from which ``python -m
+smcdet_tpu_torch.figures`` draws ``figures/mcmc_comparison.png``
+(``--figure``: at once; matplotlib needed). ``--device`` defaults to
+``cuda`` and is never swapped for another device.
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from smcdet_tpu_torch.figures import (
+    MCMC_STATS,
+    draw,
+    require_matplotlib,
+    save_figure_data,
+)
 from smcdet_tpu_torch.studies import REPO
 
 __all__ = ["MIXED_ACC", "count_pmf", "stack_reps", "fold_reps", "stats",
@@ -272,8 +280,6 @@ def main(argv=None):
     device = torch.device(args.device)
     _check_device(device)
     if args.figure:
-        from smcdet_tpu_torch.figures import require_matplotlib
-
         require_matplotlib("--figure")
 
     cfg = load_config(REPO / "experiments" / "m71synthetic" / "config.yaml")
@@ -306,14 +312,13 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "mcmc_comparison.json").write_text(json.dumps(out, indent=2))
     print(json.dumps(out, indent=2))
+    s = stats(mc_counts, mc_fluxes, mc_acc, runs["rj"][0], *smc_args)
+    data = save_figure_data(out_dir, "mcmc_comparison",
+                            num_samples=args.num_samples,
+                            **{k: s[k] for k in MCMC_STATS})
     if args.figure:
-        from smcdet_tpu_torch.figures import plot_mcmc_comparison
-
-        s = stats(mc_counts, mc_fluxes, mc_acc, runs["rj"][0], *smc_args)
-        path = out_dir / "figures" / "mcmc_comparison.png"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        plot_mcmc_comparison(path, s, args.num_samples)
-        print(f"figure: {path}")
+        for png in draw(data):
+            print(f"figure: {png}")
     return out
 
 

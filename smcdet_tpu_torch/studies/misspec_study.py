@@ -1,8 +1,8 @@
 """PSF misspecification: the control, elliptical and varying renders (port
-of ``experiments/m71/misspec_study.py``, without JAX and without its
-figure):
+of ``experiments/m71/misspec_study.py``, without JAX):
 
     python -m smcdet_tpu_torch.studies.misspec_study [--output-dir output]
+        [--figure]
 
 Three fixtures share one star field: ``control`` (the well-specified render,
 ``data``, run ``m71``), ``elliptical`` (an anisotropic PSF outside the
@@ -15,7 +15,10 @@ of region rows (distance from the fit patch, which sits before row
 0). Reads ``{output-dir}/<run>`` (either package's batch files) and the
 fixtures' ``tiles.npz``; writes ``{output-dir}/m71/misspec_study.json``
 with the JAX script's keys. A variant without results is reported as
-missing. The JAX script's ``misspec_study.png`` is not drawn.
+missing. The figure reads that report alone: ``python -m
+smcdet_tpu_torch.figures`` draws ``{output-dir}/m71/figures/
+misspec_study.png`` from it (``--figure``: at once, matplotlib needed),
+given at least two finished variants, as the JAX script.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
+from smcdet_tpu_torch.figures import draw, require_matplotlib
 from smcdet_tpu_torch.studies.m71_fixture import M71
 
 __all__ = ["VARIANTS", "weighted_coverage", "coverage_by_region_row",
@@ -104,7 +108,12 @@ def main(argv=None):
         description="Coverage and count excess of the m71 run and its two "
                     "misspecified-PSF variants.")
     parser.add_argument("--output-dir", default="output")
+    parser.add_argument("--figure", action="store_true",
+                        help="also draw figures/misspec_study.png (needs "
+                             "matplotlib)")
     args = parser.parse_args(argv)
+    if args.figure:
+        require_matplotlib("--figure")
 
     report = {"variants": {}}
     for name, (data_dir, run) in VARIANTS.items():
@@ -121,6 +130,9 @@ def main(argv=None):
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=2))
     print(json.dumps(report, indent=2))
+    if args.figure:
+        for png in draw(out):
+            print(f"figure: {png}")
     return report
 
 

@@ -4,7 +4,7 @@ against an empirical isolated star.
 
     python -m smcdet_tpu_torch.studies.psf_comparison [--config
         config.yaml|config_mis.yaml|config_vary.yaml] [--data-root D]
-        [--output-dir output] [--device cuda|cpu]
+        [--output-dir output] [--device cuda|cpu] [--figure]
 
 1. the generic Gaussian PSF stamp (the reference's fitted r-band seeing
    width);
@@ -24,8 +24,13 @@ config's data directory there, e.g. ``experiments/m71/data``) holds what
 frame's WCS, the psField), ``m71/hubble_ngc6838.zpt`` and the tiles at the
 config's ``data_path`` below it. The stamps are computed on ``device``, the
 star's refit on the host in float64.
-Writes ``<output-dir>/<name>/psf_comparison.json``; the figure is not
-drawn.
+Writes ``<output-dir>/<name>/psf_comparison.json`` and the figure's arrays,
+``<output-dir>/<name>/figure_data/psf_comparison.npz``: the four stamps
+(``gauss``, ``survey``, ``fitted``, ``diff``), the Gaussian's FWHM as the
+report rounds it (``gaussian_fwhm_px``), and the star's ``tile``,
+``recon``, ``resid``, ``sigma``, ``loc`` (tile pixels) and ``idx``.
+``python -m smcdet_tpu_torch.figures`` draws ``figures/psf_comparison.png``
+from it (``--figure``: at once, matplotlib needed).
 """
 
 from __future__ import annotations
@@ -39,6 +44,11 @@ import torch
 
 from smcdet_tpu_torch.data_prep import prepare_data as P
 from smcdet_tpu_torch.data_prep.make_fixture import PSF_RADIUS
+from smcdet_tpu_torch.figures import (
+    draw,
+    require_matplotlib,
+    save_figure_data,
+)
 from smcdet_tpu_torch.studies.m71_fixture import M71
 
 __all__ = ["fwhm", "psf_comparison", "main"]
@@ -70,7 +80,7 @@ def fwhm(stamp):
 
 def _psf_summary(cfg, psfield, r2, device):
     """Parts 1-3: the three stamps' FWHMs, the survey and fitted
-    parameters, and the survey-fitted difference."""
+    parameters, and the survey-fitted difference; and the four stamps."""
     from smcdet_tpu_torch.ingest.psf import render_psf_image
     from smcdet_tpu_torch.ingest.sdss import read_psf_params
     from smcdet_tpu_torch.models.psf import GaussianPSF, SDSSPSF
@@ -90,7 +100,9 @@ def _psf_summary(cfg, psfield, r2, device):
     fitted = fitted / fitted.sum()
 
     diff = survey - fitted
-    return {
+    stamps = {"gauss": gauss, "survey": survey, "fitted": fitted,
+              "diff": diff}
+    return stamps, {
         "gaussian_fwhm_px": round(fwhm(gauss), 3),
         "survey_psfield_fwhm_px": round(fwhm(survey), 3),
         "fitted_model_fwhm_px": round(fwhm(fitted), 3),
@@ -127,7 +139,8 @@ def _star_summary(cfg, data_root, tiles):
     """Part 4: the isolated star. Isolation is checked against the full
     Hubble catalog projected through the frame's WCS (exactly one star in
     the tile, the least neighbour flux in the render reach), since the
-    tiles' catalogs miss stars 4-8 px outside a region-boundary tile."""
+    tiles' catalogs miss stars 4-8 px outside a region-boundary tile.
+    Returns the star's arrays and its summary."""
     from scipy.optimize import least_squares
 
     from smcdet_tpu_torch.ingest.sdss import SloanDigitalSkySurvey
@@ -235,7 +248,9 @@ def _star_summary(cfg, data_root, tiles):
         method="lm",
     )
     refit_rms = float(np.sqrt(np.mean(fit.fun**2)))
-    return {
+    star = {"tile": tile, "recon": recon, "resid": resid, "sigma": sigma,
+            "loc": loc, "idx": idx}
+    return star, {
         "tile_index": idx,
         "true_flux_nmgy": round(flux, 3),
         "neighbor_flux_sum_nmgy": round(float(nb_fluxes.sum()), 3),
@@ -257,7 +272,8 @@ def _star_summary(cfg, data_root, tiles):
 
 
 def psf_comparison(config="config.yaml", data_root=None, device="cuda"):
-    """The report ``{"psf", "empirical_star"}`` for one m71 config."""
+    """The run's name, its report ``{"psf", "empirical_star"}`` and its
+    figure's arrays for one m71 config."""
     from smcdet_tpu_torch.config import load_config
 
     cfg = load_config(M71 / config)
@@ -270,12 +286,14 @@ def psf_comparison(config="config.yaml", data_root=None, device="cuda"):
     c = (STAMP - 1) / 2
     yy, xx = np.mgrid[:STAMP, :STAMP]
     r2 = ((yy - c) ** 2 + (xx - c) ** 2).astype(np.float32)
-    psf = _psf_summary(cfg, psfield, r2, device)
+    stamps, psf = _psf_summary(cfg, psfield, r2, device)
     with np.load(data_root.joinpath(*data_dir.parts[1:])) as t:
         tiles = {k: t[k] for k in ("tile_index", "true_counts", "images",
                                    "background")}
-    star = _star_summary(cfg, data_root, tiles)
-    return cfg.name, {"psf": psf, "empirical_star": star}
+    star_arrays, star = _star_summary(cfg, data_root, tiles)
+    data = dict(stamps, gaussian_fwhm_px=psf["gaussian_fwhm_px"],
+                **star_arrays)
+    return cfg.name, {"psf": psf, "empirical_star": star}, data
 
 
 def main(argv=None):
@@ -289,12 +307,22 @@ def main(argv=None):
     parser.add_argument("--data-root", default=None)
     parser.add_argument("--output-dir", default="output")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--figure", action="store_true",
+                        help="also draw figures/psf_comparison.png (needs "
+                             "matplotlib)")
     args = parser.parse_args(argv)
-    name, report = psf_comparison(args.config, args.data_root, args.device)
+    if args.figure:
+        require_matplotlib("--figure")
+    name, report, data = psf_comparison(args.config, args.data_root,
+                                        args.device)
     out = Path(args.output_dir) / name / "psf_comparison.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=2))
     print(json.dumps(report, indent=2))
+    path = save_figure_data(out.parent, "psf_comparison", **data)
+    if args.figure:
+        for png in draw(path):
+            print(f"figure: {png}")
     return report
 
 

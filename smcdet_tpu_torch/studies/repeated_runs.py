@@ -1,10 +1,9 @@
 """Monte Carlo stability of CS-SMC: repeated runs on one image (port of
-``experiments/m71synthetic/repeated_runs.py``, without JAX and without its
-figures):
+``experiments/m71synthetic/repeated_runs.py``, without JAX):
 
     python -m smcdet_tpu_torch.studies.repeated_runs [--true-count 3]
         [--reps 100] [--num-catalogs 512 2048 8192] [--mh-steps 10 50 100]
-        [--image-index I] [--output-dir output] [--device cuda]
+        [--image-index I] [--output-dir output] [--device cuda] [--figure]
 
 Runs CS-SMC ``--reps`` times on one m71synthetic image with the given true
 count, for every pair of particles per stratum N and MH sweeps per SMC
@@ -24,8 +23,11 @@ entropy) in the m71synthetic run under ``{output-dir}/m71synthetic``
 (either package's batch files), or the first such tile without a run;
 ``--image-index`` overrides the pick (printed beside it). Writes
 ``repeatedruns_s{count}.npz`` and ``repeatedruns_s{count}_summary.json``
-(the JAX script's keys) under ``{output-dir}/m71synthetic``. ``--device``
-defaults to ``cuda`` and is never swapped for another device.
+(the JAX script's keys) under ``{output-dir}/m71synthetic``. The
+figures, ``figures/repeatedruns_{logpx,countprob}_s{count}.png``, are
+drawn from that ``.npz`` alone by ``python -m smcdet_tpu_torch.figures``
+(``--figure``: at once, matplotlib needed). ``--device`` defaults to
+``cuda`` and is never swapped for another device.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from smcdet_tpu_torch.figures import draw, require_matplotlib
 from smcdet_tpu_torch.studies import REPO
 
 __all__ = ["reps_per_call", "run_grid", "interval_width", "entropy_pick",
@@ -174,9 +177,14 @@ def main(argv=None):
                         help="replaces the config's output_dir")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
+    parser.add_argument("--figure", action="store_true",
+                        help="also draw figures/repeatedruns_*.png (needs "
+                             "matplotlib)")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     _check_device(device)
+    if args.figure:
+        require_matplotlib("--figure")
 
     cfg = load_config(M71SYNTHETIC / "config.yaml")
     out_dir = Path(args.output_dir or cfg.output_dir) / cfg.name
@@ -213,8 +221,9 @@ def main(argv=None):
         args.mh_steps, args.reps)
 
     t = args.true_count
+    grid = out_dir / f"repeatedruns_s{t}.npz"
     np.savez_compressed(
-        out_dir / f"repeatedruns_s{t}.npz", logpx=logpx, count_pmf=pmf,
+        grid, logpx=logpx, count_pmf=pmf,
         smc_iters=iters, num_catalogs=np.asarray(args.num_catalogs),
         mh_steps=np.asarray(args.mh_steps), image_index=idx)
     summary = summarize(logpx, pmf, idx, t, args.num_catalogs,
@@ -223,6 +232,9 @@ def main(argv=None):
     (out_dir / f"repeatedruns_s{t}_summary.json").write_text(
         json.dumps(summary, indent=2))
     print(json.dumps(summary, indent=2))
+    if args.figure:
+        for png in draw(grid):
+            print(f"figure: {png}")
     return summary
 
 

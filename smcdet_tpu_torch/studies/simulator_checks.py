@@ -1,9 +1,8 @@
 """Prior-predictive checks of the simulator against the m71 fixture's tiles
-(port of ``experiments/m71/simulator_checks.py``, without JAX and without
-its figure):
+(port of ``experiments/m71/simulator_checks.py``, without JAX):
 
     python -m smcdet_tpu_torch.studies.simulator_checks [--seed 0]
-        [--output-dir output] [--device cuda]
+        [--output-dir output] [--device cuda] [--figure]
 
 1. Simulate one tile per fixture tile from the fitted model (the m71 prior
    truncated at ``MAX_OBJECTS`` stars with the flux floor at the
@@ -18,9 +17,16 @@ its figure):
    and the posterior mean count.
 
 Writes ``{output-dir}/m71/simulator_checks.json`` with the JAX
-script's keys. The synthetic tiles are a torch draw (seeded generators on
-``--device``, default ``cuda``), not the JAX package's, so the figures
-agree with the committed ones in distribution only.
+script's keys, and the figure's arrays to
+``{output-dir}/m71/figure_data/simulator_checks.npz``: each tile's
+quantiles of log intensity (``sq_<name>`` synthetic, ``rq_<name>`` real,
+unrounded), ``ppflux`` (every particle's posterior predictive, float32 as
+the sampler gives it), ``true_observed``, ``img_idx`` and ``T``. ``python
+-m smcdet_tpu_torch.figures`` draws ``figures/simulator_checks.png`` from
+it; ``--figure`` draws it at once (matplotlib needed). The synthetic
+tiles are a torch draw (seeded generators on ``--device``, default
+``cuda``), not the JAX package's, so the figures agree with the committed
+ones in distribution only.
 """
 
 from __future__ import annotations
@@ -32,9 +38,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from smcdet_tpu_torch.figures import (
+    draw,
+    require_matplotlib,
+    save_figure_data,
+)
 from smcdet_tpu_torch.studies.m71_fixture import M71
 
-__all__ = ["ks_statistic", "quantile_checks", "simulation_prior",
+__all__ = ["ks_statistic", "quantiles", "quantile_checks", "simulation_prior",
            "simulate", "posterior_predictive", "main"]
 
 QUANTILES = {"q10": 0.1, "median": 0.5, "q90": 0.9}
@@ -55,19 +66,26 @@ def ks_statistic(a, b):
     return float(np.abs(cdf_a - cdf_b).max())
 
 
-def quantile_checks(syn, real):
-    """Per quantile of ``QUANTILES``, the KS statistic between the
-    synthetic and real tiles' per-tile quantiles of log intensity (floored
-    at 1e-3), with each side's mean and standard deviation."""
+def quantiles(syn, real):
+    """Per quantile name of ``QUANTILES``, each tile's quantile of log
+    intensity (floored at 1e-3), synthetic and real: ``{name: (sq [T],
+    rq [T])}``."""
     T = real.shape[0]
     syn_flat = np.log(np.maximum(np.asarray(syn, np.float64)
                                  .reshape(T, -1), 1e-3))
     real_flat = np.log(np.maximum(np.asarray(real, np.float64)
                                   .reshape(T, -1), 1e-3))
+    return {name: (np.quantile(syn_flat, q, axis=-1),
+                   np.quantile(real_flat, q, axis=-1))
+            for name, q in QUANTILES.items()}
+
+
+def quantile_checks(syn, real):
+    """Per quantile of ``QUANTILES``, the KS statistic between the
+    synthetic and real tiles' per-tile quantiles of log intensity (floored
+    at 1e-3), with each side's mean and standard deviation."""
     out = {}
-    for name, q in QUANTILES.items():
-        sq = np.quantile(syn_flat, q, axis=-1)
-        rq = np.quantile(real_flat, q, axis=-1)
+    for name, (sq, rq) in quantiles(syn, real).items():
         out[name] = {
             "ks_statistic": round(ks_statistic(sq, rq), 4),
             "synthetic_mean": round(float(sq.mean()), 4),
@@ -154,9 +172,14 @@ def main(argv=None):
                         help="replaces the config's output_dir")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
+    parser.add_argument("--figure", action="store_true",
+                        help="also draw figures/simulator_checks.png "
+                             "(needs matplotlib)")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     _check_device(device)
+    if args.figure:
+        require_matplotlib("--figure")
 
     cfg = load_suite_config(str(M71))
     out_dir = Path(args.output_dir or cfg.output_dir) / cfg.name
@@ -191,6 +214,15 @@ def main(argv=None):
     (out_dir / "simulator_checks.json").write_text(
         json.dumps(report, indent=2))
     print(json.dumps(report, indent=2))
+    per_tile = {}
+    for name, (sq, rq) in quantiles(syn, real).items():
+        per_tile[f"sq_{name}"], per_tile[f"rq_{name}"] = sq, rq
+    data = save_figure_data(out_dir, "simulator_checks", ppflux=ppflux,
+                            true_observed=true_observed, img_idx=img_idx,
+                            T=T, **per_tile)
+    if args.figure:
+        for png in draw(data):
+            print(f"figure: {png}")
     return report
 
 

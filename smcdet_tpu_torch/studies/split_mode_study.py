@@ -1,10 +1,9 @@
 """The bright-star split mode of the MCMC baselines (port of
-``experiments/m71synthetic/split_mode_study.py``, without JAX and without
-its figure):
+``experiments/m71synthetic/split_mode_study.py``, without JAX):
 
     python -m smcdet_tpu_torch.studies.split_mode_study [--chains 64]
         [--num-samples 20000] [--burnin 10000] [--output-dir output]
-        [--device cuda]
+        [--device cuda] [--figure]
 
 On the brightest single-star m71synthetic image, the saturated single-site
 MH chain latches several slots onto the one star and cannot leave, and
@@ -24,8 +23,14 @@ Reports per anchor the pooled pruned-count pmf and mean, the
 chains whose modal count is the true 1 or above it, the mean acceptance and
 the wall, under ``{output-dir}/m71synthetic/split_mode_study.json`` (the
 JAX script's keys, and ``wall_s``), from
-``{output-dir}/m71synthetic/tiles.npz``. ``--device`` defaults to ``cuda``
-and is never swapped for another device.
+``{output-dir}/m71synthetic/tiles.npz``; the figure's arrays (each
+anchor's pooled pmf unrounded, ``pmf_<anchor>``, with ``image_index``,
+``true_flux`` and ``chains``) under
+``{output-dir}/m71synthetic/figure_data/split_mode_study.npz``, from which
+``python -m smcdet_tpu_torch.figures`` draws
+``figures/split_mode_study.png`` (``--figure``: at once, matplotlib
+needed). ``--device`` defaults to ``cuda`` and is never swapped for
+another device.
 """
 
 from __future__ import annotations
@@ -38,10 +43,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from smcdet_tpu_torch.figures import (
+    draw,
+    require_matplotlib,
+    save_figure_data,
+)
 from smcdet_tpu_torch.studies import REPO
 
-__all__ = ["ANCHORS", "brightest_single", "anchor_summary", "run_anchor",
-           "main"]
+__all__ = ["ANCHORS", "brightest_single", "pooled_pmf", "anchor_summary",
+           "run_anchor", "main"]
 
 ANCHORS = ("mh", "rj", "rj_splitmerge")
 PROB_SPLIT = PROB_MERGE = 0.15
@@ -55,13 +65,18 @@ def brightest_single(true_counts, true_fluxes):
     return int(single[np.argmax(bright)]), float(bright.max())
 
 
+def pooled_pmf(pruned_counts, K):
+    """The pmf over 0..K-1 of every chain's kept pruned counts pooled."""
+    pooled = np.bincount(np.asarray(pruned_counts).ravel(), minlength=K)[:K]
+    return pooled / pooled.sum()
+
+
 def anchor_summary(pruned_counts, acc_rate, K):
     """One anchor's entry from its chains' pruned counts ``[chains,
     kept]`` and acceptance rates: the pooled pmf over 0..K-1, its mean, the
     chains whose modal count is 1 and those above 1, the mean acceptance."""
     counts = np.asarray(pruned_counts)
-    pooled = np.bincount(counts.ravel(), minlength=K)[:K]
-    pooled = pooled / pooled.sum()
+    pooled = pooled_pmf(counts, K)
     modal = np.array([np.bincount(c, minlength=K).argmax() for c in counts])
     return {
         "pooled_count_pmf": [round(float(p), 4) for p in pooled],
@@ -111,9 +126,14 @@ def main(argv=None):
                         help="replaces the config's output_dir")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
+    parser.add_argument("--figure", action="store_true",
+                        help="also draw figures/split_mode_study.png (needs "
+                             "matplotlib)")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
     _check_device(device)
+    if args.figure:
+        require_matplotlib("--figure")
 
     cfg = load_config(REPO / "experiments" / "m71synthetic" / "config.yaml")
     out_dir = Path(args.output_dir or cfg.output_dir) / cfg.name
@@ -143,6 +163,7 @@ def main(argv=None):
         "burnin": args.burnin,
         "anchors": {},
     }
+    pmfs = {}
     for name in ANCHORS:
         print(f"running {name} ({args.chains} chains x {args.num_samples})",
               flush=True)
@@ -152,8 +173,9 @@ def main(argv=None):
                          1000 + ANCHORS.index(name))
         _sync(device)
         wall = time.perf_counter() - start
-        entry = anchor_summary(res.pruned_counts.cpu().numpy(),
-                               res.acc_rate.cpu().numpy(), K)
+        counts = res.pruned_counts.cpu().numpy()
+        pmfs[f"pmf_{name}"] = pooled_pmf(counts, K)
+        entry = anchor_summary(counts, res.acc_rate.cpu().numpy(), K)
         entry["wall_s"] = round(wall, 2)
         report["anchors"][name] = entry
         print(json.dumps(entry), flush=True)
@@ -161,6 +183,11 @@ def main(argv=None):
     (out_dir / "split_mode_study.json").write_text(
         json.dumps(report, indent=2))
     print(json.dumps(report, indent=2))
+    data = save_figure_data(out_dir, "split_mode_study", image_index=idx,
+                            true_flux=true_flux, chains=args.chains, **pmfs)
+    if args.figure:
+        for png in draw(data):
+            print(f"figure: {png}")
     return report
 
 

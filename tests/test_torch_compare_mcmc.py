@@ -164,6 +164,33 @@ def test_report_equals_the_script(script, monkeypatch, tmp_path, capsys,
     capsys.readouterr()
 
 
+def test_figure_from_its_data_file_equals_the_script(script, monkeypatch,
+                                                     tmp_path, capsys):
+    """The port's command on the same chains (``run_anchors`` given the
+    reps folded) writes ``figure_data/mcmc_comparison.npz``; the figure
+    ``--figure`` draws from that file is the script's, pixel for pixel."""
+    rng = np.random.default_rng(11)
+    n, reps = 10, 2
+    mh, rj = _chains(rng, n, reps), _chains(rng, n, reps)
+    smc = _smc(rng, n)
+    _stage(tmp_path / "jax", n, smc)
+    _run_script(script, monkeypatch, tmp_path / "jax", n, reps, mh, rj)
+    out = _stage(tmp_path / "port", n, smc)
+    mc, rjf = _folded(mh, rj, reps)
+    monkeypatch.setattr(compare_mcmc, "run_anchors", lambda *a, **k: (
+        {"mh": mc, "rj": rjf}, {"mh": 1.0, "rj": 1.0}))
+    compare_mcmc.main(["--num-images", str(n), "--reps", str(reps),
+                       "--output-dir", str(tmp_path / "port" / "output"),
+                       "--device", "cpu", "--figure"])
+    with np.load(out / "figure_data" / "mcmc_comparison.npz") as d:
+        assert int(d["num_samples"]) == 50_000 and d["mixed"].dtype == bool
+    np.testing.assert_array_equal(
+        imread(out / "figures" / "mcmc_comparison.png"),
+        imread(tmp_path / "jax" / "output" / "m71synthetic" / "figures"
+               / "mcmc_comparison.png"))
+    capsys.readouterr()
+
+
 def test_count_pmf_and_weighted_median_are_the_script(script):
     rng = np.random.default_rng(7)
     counts, w, fluxes = _smc(rng, 9)

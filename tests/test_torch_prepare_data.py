@@ -128,10 +128,11 @@ PSF_RUNS = {"m71": ("config.yaml", "data"),
 
 @pytest.fixture(scope="module")
 def psf_reports(prepared, tmp_path_factory):
-    """psf_comparison for each run on the regenerated default fixture's
-    survey files (the misspecified fixtures share its psField and WCS and
-    differ in pixels only) with the run's committed catalog and tiles
-    (which the default fixture's test shows the port reproduces)."""
+    """psf_comparison (its command, into ``psf_comparison/output``) for each
+    run on the regenerated default fixture's survey files (the misspecified
+    fixtures share its psField and WCS and differ in pixels only) with the
+    run's committed catalog and tiles (which the default fixture's test
+    shows the port reproduces)."""
     data_dir, _ = prepared
     out, reports = tmp_path_factory.mktemp("psf_comparison"), {}
     for name, (config, fixture) in PSF_RUNS.items():
@@ -141,8 +142,10 @@ def psf_reports(prepared, tmp_path_factory):
             root.mkdir()
             (root / "sdss").symlink_to(data_dir / "sdss")
             (root / "m71").symlink_to(M71 / fixture / "m71")
-        reports[name] = psf_comparison.psf_comparison(config, root, "cpu")[1]
-    return data_dir, reports
+        reports[name] = psf_comparison.main([
+            "--config", config, "--data-root", str(root), "--output-dir",
+            str(out / "output"), "--device", "cpu"])
+    return data_dir, reports, out / "output"
 
 
 @pytest.mark.parametrize("name", PSF_RUNS)
@@ -151,7 +154,7 @@ def test_psf_comparison_equals_committed(psf_reports, name):
     (``compare.REFIT_FLOAT64``), its residual no higher than the committed
     one (the JAX script refits through a float32 profile whose rounding
     decides where it stops)."""
-    _, reports = psf_reports
+    _, reports, _ = psf_reports
     want = json.loads((RESULTS.parent / name / "psf_comparison.json")
                       .read_text())
     assert compare.hold_psf_comparison(reports[name], want, name) == []
@@ -231,7 +234,7 @@ def test_refit_is_the_float64_optimum(psf_reports, name):
     """The port's refit and ``compare.REFIT_FLOAT64`` against an
     independent float64 implementation of the JAX script's refit: the
     report equal to it at the report's decimals, the constants to 1e-6."""
-    data_dir, reports = psf_reports
+    data_dir, reports, _ = psf_reports
     star = reports[name]["empirical_star"]
     want = _refit_float64(PSF_RUNS[name][1], data_dir, star["tile_index"])
     for k, decimals in (("refit_loc_offset_px", 4),
@@ -241,6 +244,84 @@ def test_refit_is_the_float64_optimum(psf_reports, name):
                                    atol=0.5 * 10.0 ** -decimals + 1e-9)
         np.testing.assert_allclose(compare.REFIT_FLOAT64[name][k], want[k],
                                    rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("name", PSF_RUNS)
+def test_psf_comparison_figure_data_draw_at_the_committed_size(psf_reports,
+                                                               name, capsys):
+    """Each run's figure data: the residual over the noise gives the
+    report's RMS, the stamps are the report's FWHMs, and ``python -m
+    smcdet_tpu_torch.figures`` draws ``figures/psf_comparison.png`` from
+    the file alone at the committed PNG's pixel size."""
+    from PIL import Image
+
+    from smcdet_tpu_torch import figures
+
+    _, reports, out = psf_reports
+    path = figures.figure_data_path(out / name, "psf_comparison")
+    star = reports[name]["empirical_star"]
+    with np.load(path) as d:
+        assert d["tile"].shape == d["resid"].shape == (8, 8)
+        assert d["gauss"].shape == d["diff"].shape == (
+            psf_comparison.STAMP,) * 2
+        assert round(float(np.sqrt(np.mean((d["resid"] / d["sigma"]) ** 2))),
+                     3) == star["residual_rms_over_noise"]
+        assert int(d["idx"]) == star["tile_index"]
+        assert round(psf_comparison.fwhm(d["fitted"]), 3) == reports[name][
+            "psf"]["fitted_model_fwhm_px"]
+    png = out / name / "figures" / "psf_comparison.png"
+    png.unlink(missing_ok=True)
+    assert figures.draw(path) == [png]
+    assert Image.open(png).size == Image.open(
+        RESULTS.parent / name / "psf_comparison.png").size
+    capsys.readouterr()
+
+
+def test_psf_comparison_figure_is_the_jax_scripts(prepared, tmp_path,
+                                                  monkeypatch, capsys):
+    """``experiments/m71/psf_comparison.py`` run unedited beside a link to
+    the regenerated survey files and the committed catalog and tiles; the
+    arrays its figure shows, taken at its ``savefig``, written as the
+    port's figure data and drawn by ``figures.draw``: the same PNG, pixel
+    for pixel."""
+    from matplotlib.figure import Figure
+    from matplotlib.image import imread
+
+    from smcdet_tpu_torch import figures
+
+    data_dir, _ = prepared
+    jdir = tmp_path / "jax"
+    (jdir / "data").mkdir(parents=True)
+    for name in ("psf_comparison.py", "config.yaml"):
+        (jdir / name).write_bytes((M71 / name).read_bytes())
+    (jdir / "data" / "sdss").symlink_to(data_dir / "sdss")
+    (jdir / "data" / "m71").symlink_to(COMMITTED)
+    monkeypatch.syspath_prepend(str(M71))
+    monkeypatch.syspath_prepend(str(REPO / "experiments"))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "")
+    shown = {}
+    savefig = Figure.savefig
+
+    def keep(fig, path, *args, **kwargs):
+        import sys
+
+        shown.update(sys._getframe(1).f_locals)
+        return savefig(fig, path, *args, **kwargs)
+
+    monkeypatch.setattr(Figure, "savefig", keep)
+    monkeypatch.setattr("sys.argv", ["psf_comparison.py"])
+    _load_jax_script(jdir / "psf_comparison.py", "jax_psf_comparison").main()
+    monkeypatch.setattr(Figure, "savefig", savefig)
+    data = figures.save_figure_data(
+        tmp_path / "port", "psf_comparison",
+        gaussian_fwhm_px=shown["psf_summary"]["gaussian_fwhm_px"],
+        **{k: shown[k] for k in ("gauss", "survey", "fitted", "diff",
+                                 "tile", "recon", "resid", "sigma", "loc",
+                                 "idx")})
+    [png] = figures.draw(data)
+    np.testing.assert_array_equal(imread(png), imread(
+        jdir / "output" / "m71" / "figures" / "psf_comparison.png"))
+    capsys.readouterr()
 
 
 def test_prepare_reads_download_mode_files_in_place(prepared, tmp_path):

@@ -44,7 +44,9 @@ chains stuck and modal within 10 of the committed counts, pooled mean
 count within 0.3 and acceptance within 0.03. Everything else is printed.
 A missed band is not widened, and any miss makes the run exit 1. Every
 study's output and ``summary.json`` are copied to ``--report`` (default
-``output/m71_studies``).
+``output/m71_studies``), each figure's data file under its path below
+``output/`` (``python -m smcdet_tpu_torch.figures REPORT`` draws them on
+a machine with matplotlib).
 """
 
 from __future__ import annotations
@@ -291,6 +293,15 @@ def stage_m71synthetic():
     shutil.copy(src, dst)
 
 
+def keep_figure_data(path, report_dir):
+    """Copy a study's figure-data file from under ``output/`` to the same
+    place under ``report_dir``, where ``python -m smcdet_tpu_torch.figures
+    REPORT_DIR`` draws it (the card has no matplotlib)."""
+    dst = Path(report_dir) / Path(path).relative_to(REPO / "output")
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(path, dst)
+
+
 def study(name, report_dir, walls, device, split_samples=None):
     """Study ``name``: its runs, its output (copied to ``report_dir``) and
     its row of held and printed figures."""
@@ -320,11 +331,14 @@ def study(name, report_dir, walls, device, split_samples=None):
     elif name == "misspec":
         walls[name] = _run([mod + "misspec_study"])
         path = out / "m71" / "misspec_study.json"
+        keep_figure_data(path, report_dir)
         row = score_misspec(json.loads(path.read_text()),
                             _committed("m71/misspec_study.json"))
     elif name == "simulator":
         walls[name] = _run([mod + "simulator_checks", *dev])
         path = out / "m71" / "simulator_checks.json"
+        keep_figure_data(out / "m71" / "figure_data" / "simulator_checks.npz",
+                         report_dir)
         row = score_simulator(json.loads(path.read_text()),
                               _committed("m71/simulator_checks.json"))
     elif name == "repeated":
@@ -339,6 +353,8 @@ def study(name, report_dir, walls, device, split_samples=None):
                 "--image-index", str(idx), *dev])
             path = out / "m71synthetic" / f"repeatedruns_s{s}_summary.json"
             shutil.copy(path, report_dir / path.name)
+            keep_figure_data(path.parent / f"repeatedruns_s{s}.npz",
+                             report_dir)
             row[f"s{s}"] = score_repeated(
                 json.loads(path.read_text()),
                 _committed(f"m71synthetic/repeatedruns_s{s}_summary.json"))
@@ -350,6 +366,8 @@ def study(name, report_dir, walls, device, split_samples=None):
                      str(split_samples // 2)])
         walls[name] = _run([mod + "split_mode_study", *cut, *dev])
         path = out / "m71synthetic" / "split_mode_study.json"
+        keep_figure_data(path.parent / "figure_data"
+                         / "split_mode_study.npz", report_dir)
         row = score_split(json.loads(path.read_text()),
                           _committed("m71synthetic/split_mode_study.json"))
     if path is not None:

@@ -23,8 +23,10 @@ mcmc_comparison.json``:
 
 A missed band is not widened: the runner exits 1, and the miss is sorted
 apart from the run (the current JAX script's formulas and ``run_mh`` /
-``run_rjmh`` on a subset on the CPU). The report, the measurement and
-``summary.json`` are copied to ``--report`` (default
+``run_rjmh`` on a subset on the CPU). The report, the measurement, the
+figure's data (``m71synthetic/figure_data/mcmc_comparison.npz``, drawn by
+``python -m smcdet_tpu_torch.figures REPORT``) and ``summary.json`` are
+copied to ``--report`` (default
 ``output/mcmc_anchor``).
 """
 
@@ -41,7 +43,12 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from torch_synthetic_suites import _run, stage_tiles, tiles_record  # noqa: E402
+from torch_synthetic_suites import (  # noqa: E402
+    _run,
+    keep_figure_data,
+    stage_tiles,
+    tiles_record,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 SUITE = "m71synthetic"
@@ -182,6 +189,8 @@ def main(argv=None):
              "--device", args.device])
         out = REPO / "output" / SUITE / "mcmc_comparison.json"
         shutil.copy(out, report_dir / out.name)
+        keep_figure_data(out.parent / "figure_data" / "mcmc_comparison.npz",
+                         report_dir)
         got = json.loads(out.read_text())
         rows, ok = hold_report(got, ref)
         summary["anchor"] = {"report": got, "bands": rows}

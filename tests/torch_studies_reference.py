@@ -43,10 +43,10 @@ acceptance range).
 and mean-count difference per image) from two
 ``tests/torch_cells_localise.py`` summaries (``<runner>_summary.npz``, the
 per-image count pmf over 0..max_objects), or two results directories
-(``compare_singletile.singletile_report`` on their batch files, over the
-images both hold), of the divide-and-conquer and the single-tile config on
-the same tiles, by either runner, on the first ``--num-images`` images
-they hold; no JAX needed.
+(``compare_singletile.singletile_report`` of ``singletile_arrays`` on
+their batch files, over the images both hold), of the divide-and-conquer
+and the single-tile config on the same tiles, by either runner, on the
+first ``--num-images`` images they hold; no JAX needed.
 """
 
 from __future__ import annotations
@@ -187,11 +187,14 @@ def kernels_port(args):
 def singletile(args):
     from smcdet_tpu_torch.runner import load_results
     from smcdet_tpu_torch.studies import tvd_stats
-    from smcdet_tpu_torch.studies.compare_singletile import singletile_report
+    from smcdet_tpu_torch.studies.compare_singletile import (
+        singletile_arrays,
+        singletile_report,
+    )
 
     if Path(args.dc).is_dir():
-        print(json.dumps(singletile_report(load_results(args.dc),
-                                           load_results(args.st))))
+        print(json.dumps(singletile_report(singletile_arrays(
+            load_results(args.dc), load_results(args.st)))))
         return
     dc, st = (np.load(p)["count_pmf"] for p in (args.dc, args.st))
     n = min(len(dc), len(st), args.num_images)

@@ -74,7 +74,9 @@ a miss is a stale committed analysis is settled apart from the run, by the
 current JAX runner on the same tiles (``tests/torch_cells_localise.py``,
 ``tests/torch_studies_reference.py``). Every analysis and
 ``summary.json`` are copied to ``--report`` (default
-``output/synthetic_suites``).
+``output/synthetic_suites``), and compare_singletile's figure data under
+its path below ``output/`` (``python -m smcdet_tpu_torch.figures REPORT``
+draws it on a machine with matplotlib).
 """
 
 from __future__ import annotations
@@ -141,6 +143,15 @@ def _run(args, cwd=REPO, module=True):
     start = time.perf_counter()
     subprocess.run(cmd, check=True, cwd=cwd, env=env)
     return time.perf_counter() - start
+
+
+def keep_figure_data(path, report_dir):
+    """Copy a study's figure-data file from under ``output/`` to the same
+    place under ``report_dir``, where ``python -m smcdet_tpu_torch.figures
+    REPORT_DIR`` draws it (the card has no matplotlib)."""
+    dst = Path(report_dir) / Path(path).relative_to(REPO / "output")
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy(path, dst)
 
 
 def tiles_record(path, committed=None):
@@ -313,6 +324,8 @@ def suite(name, report_dir, walls, device, cap=None):
             ["smcdet_tpu_torch.studies.compare_singletile"])
         out = REPO / "output" / name / "singletile_comparison.json"
         shutil.copy(out, report_dir / out.name)
+        keep_figure_data(out.parent / "figure_data"
+                         / "singletile_comparison.npz", report_dir)
         row, held = score_singletile(json.loads(out.read_text()))
         rows["singletile"], ok = row, ok and held
         print(f"[suites] singletile: {json.dumps(row)}", flush=True)
@@ -376,6 +389,8 @@ def dnc4(report_dir, walls, device, cap=None, single=DNC4_SINGLE_IMAGES):
             (out / "singletile_comparison.json").read_text())
         shutil.copy(out / "singletile_comparison.json",
                     report_dir / "dnc4_singletile_comparison.json")
+        keep_figure_data(out / "figure_data" / "singletile_comparison.npz",
+                         report_dir)
     walls["dnc4 analyze"] = _run(
         ["smcdet_tpu_torch.analyze", str(out), "--mag-bins",
          *SUITES["divideandconquer"][3], "--device", device,
